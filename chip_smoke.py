@@ -6,7 +6,8 @@
 It builds the hand-written kernels from opencv_contrib_tpu_torch/ops/cuda/csrc
 (first use, a few seconds of nvcc), holds each kernel against its plain
 PyTorch version on the card, drives the port's main paths through the entry
-points (`entry.frontend`, `entry.keyframe_tick`), and checks their outputs.
+points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`), and
+checks their outputs.
 
 Phases, one JSON line each:
   (a) build and launch checks at small ragged shapes;
@@ -22,7 +23,17 @@ Phases, one JSON line each:
       16 cameras x 2048 points with 10 iterations, with the counters read
       the same way; keyframes/s and BA iterations/s;
   (f) where the tick's time goes: host time per stage, and the device's
-      busy share and kernel times from torch.profiler.
+      busy share and kernel times from torch.profiler;
+  (g) grid_reduce_vec (the ICP getAb system) against its plain version on
+      levels 0-2 of a 480x640 orbit frame, at identity and at a
+      1 cm / 0.01 rad offset;
+  (h) KinectFusion: the bench tick of bench.py::bench_kinfu_vga512 (VGA,
+      512^3, 12288 sparse blocks; ms per tick and peak memory), an 8-frame
+      VGA orbit through `entry.kinfu_track` with the counters read around it
+      and held to the reference drift gates, the same orbit on the plain
+      path, a small orbit on the card against the CPU, and the tick under
+      torch.profiler, stage by stage through KinFu.update's
+      record_function ranges.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -52,8 +63,16 @@ SOURCES = {  # kernel -> (CUDA source, the Pallas function it replaces)
     "integral_image": ("opencv_contrib_tpu_torch/ops/cuda/csrc/scan.cu",
                        "opencv_contrib_tpu/ops/pallas/grid.py:282"),
     "grid_scan": ("opencv_contrib_tpu_torch/ops/cuda/csrc/scan.cu", "opencv_contrib_tpu/ops/pallas/pipeline.py:35"),
+    "grid_reduce_vec": ("opencv_contrib_tpu_torch/ops/cuda/csrc/reduce_vec.cu",
+                        "opencv_contrib_tpu/ops/pallas/grid.py:155"),
 }
-DEVICE_KERNELS = ("knn2_kernel", "knn2_merge_kernel", "row_sqnorm_kernel", "scan_rows_kernel", "scan_cols_kernel")
+# the kernels each main path runs; a kernel's launches are reported from the
+# last path that runs it
+PATH_KERNELS = {"frontend": ("knn2", "integral_image", "grid_scan"),
+                "keyframe_tick": ("knn2", "integral_image", "grid_scan"), "kinfu_tick": ("grid_reduce_vec",)}
+LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
+DEVICE_KERNELS = ("knn2_kernel", "knn2_merge_kernel", "row_sqnorm_kernel", "scan_rows_kernel", "scan_cols_kernel",
+                  "grid_reduce_vec_kernel", "icp_getab_finalize_kernel")
 KNN2_SHAPES = [(8192, 8192, 128), (1000, 3000, 64), (512, 512, 64)]
 SCAN_SHAPES = [(480, 640), (2048, 2048)]
 N_FRAMES, K, N_BA = 32, 512, 10
@@ -63,6 +82,13 @@ FRONTEND = dict(K=K, threshold=20.0, ratio=0.85)  # bench.py's keyframe settings
 # top-K. Integer pixels with H * W * max < 2**24 sum exactly in any order:
 # on such frames every path must find the same keypoints.
 EXACT_LEVELS = 54  # 480 * 640 * 54 < 2**24
+KINFU_INTR = [525.0, 525.0, 320.0, 240.0, 0, 0, 0, 0, 0]  # bench.py::bench_kinfu_vga512
+KINFU_BENCH = dict(frame_shape=(480, 640), volume_resolution=(512, 512, 512), volume_size=3.0,
+                   volume_center=(0.0, 0.0, 2.0), sparse_blocks=12288)
+KINFU_ORBIT = dict(KINFU_BENCH, volume_size=3.2, volume_center=(0.0, 0.0, 2.2))  # tests/test_rgbd.py's scene
+N_ORBIT, ORBIT_SWEEP = 8, 0.5
+ICP_OFFSET = [0.01, 0.0, 0.0, 0.01, 0.0, 0.0]  # 0.01 rad about x, 1 cm along x
+STAGE_PREFIX = "kinfu."  # KinFu.update's record_function ranges
 
 
 def emit(obj) -> None:
@@ -72,6 +98,40 @@ def emit(obj) -> None:
 def check(cond, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def kernel_events(prof):
+    """Device-side profiler events only: a CPU op's device total repeats its
+    kernels'. The device-side spans of KinFu's record_function ranges are
+    left out too: they cover kernels that are already counted."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith(STAGE_PREFIX)]
+
+
+def is_ours(key: str, kname: str) -> bool:
+    return kname + "(" in key or kname + "<" in key
+
+
+def getab_work(T, src, dst, intr, dist_thresh: float) -> dict:
+    """How many pixels pass each gate of the getAb map (reduce_vec.cu
+    IcpGetAb) on these frames, counted by the plain version's arithmetic:
+    the bound counts the bytes and operations that this data needs."""
+    import torch
+
+    p = torch.einsum("ij,hwj->hwi", T[:3, :3], src.points) + T[:3, 3]
+    z = torch.clamp(p[..., 2], min=1e-9)
+    ui = torch.round(torch.addcmul(intr[2], p[..., 0] / z, intr[0])).long()
+    vi = torch.round(torch.addcmul(intr[3], p[..., 1] / z, intr[1])).long()
+    H, W = dst.valid.shape
+    inb = src.valid & (p[..., 2] > 0) & (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H)
+    flat = (torch.clamp(vi, 0, H - 1) * W + torch.clamp(ui, 0, W - 1)).reshape(-1)
+    tv = inb & dst.valid.reshape(-1)[flat].reshape(inb.shape)
+    diff = p - dst.points.reshape(-1, 3)[flat].reshape(p.shape)
+    near = tv & (torch.sum(diff * diff, dim=-1) < dist_thresh * dist_thresh)
+    return {"pixels": int(src.valid.numel()), "src_valid": int(src.valid.sum()), "in_target": int(inb.sum()),
+            "target_valid": int(tv.sum()), "near": int(near.sum())}
 
 
 def exact_frames(frames: np.ndarray, levels: int) -> np.ndarray:
@@ -86,14 +146,15 @@ def plain_path():
     for a CUDA tensor, so this check makes it here, at the three call sites."""
     from opencv_contrib_tpu_torch.features import match
     from opencv_contrib_tpu_torch.ops import integral
-    from opencv_contrib_tpu_torch.ops.cuda import matching, scan
+    from opencv_contrib_tpu_torch.ops.cuda import matching, reduce, scan
 
     def knn2(q, t, tile_q=512, tile_t=2048):
         return matching.knn2_plain(q, t, tile_q)
 
     with mock.patch.object(integral, "integral_image", scan.integral_image_plain), \
             mock.patch.object(match, "use_kernel", lambda x: False), \
-            mock.patch.object(matching, "knn2", knn2):
+            mock.patch.object(matching, "knn2", knn2), \
+            mock.patch.object(reduce, "icp_getab", reduce.icp_getab_plain):
         yield
 
 
@@ -125,12 +186,15 @@ class Smoke:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        cuda = torch.autograd.DeviceType.CUDA
-        return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == cuda) / iters / 1e3
+        for _ in range(3):  # a trace now and then comes back without its device events
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(e.self_device_time_total for e in kernel_events(prof))
+            if us > 0:
+                return us / iters / 1e3
+        raise AssertionError("torch.profiler recorded no device time")
 
     def wall_ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         """Mean time of one call, from CUDA events around `iters` calls: the
@@ -165,18 +229,19 @@ class Smoke:
 
     def counted(self, path: str, fn):
         """Run one main path with the launch counters set to 0 before it and
-        read after it; every kernel must have launched."""
+        read after it; every kernel of that path must have launched."""
         self.kern.reset_launches()
         out = self.wall_s(fn)
         self.launches[path] = self.kern.launches()
-        check(all(v > 0 for v in self.launches[path].values()),
-              f"{path} did not launch every kernel: {self.launches[path]}")
+        mine = {k: self.launches[path][k] for k in PATH_KERNELS[path]}
+        check(all(v > 0 for v in mine.values()), f"{path} did not launch every kernel of its path: {mine}")
         return out
 
     # ---- (a) -----------------------------------------------------------------
     def build(self):
-        from opencv_contrib_tpu_torch.ops.cuda import _build, scan
+        from opencv_contrib_tpu_torch.ops.cuda import _build, reduce, scan
         from opencv_contrib_tpu_torch.ops.cuda import matching as fused
+        from opencv_contrib_tpu_torch.rgbd import frame
 
         torch = self.torch
         t0 = time.perf_counter()
@@ -192,6 +257,14 @@ class Smoke:
         err_ii = float((ii - scan.integral_image_plain(x)).abs().max())
         err_gs = float((gs - scan.grid_scan_plain(x)).abs().max())
         check(err_ii <= 1e-4 and err_gs <= 1e-4, f"scan launch check {err_ii} {err_gs}")
+        it = self.card([30.0, 30.0, 14.0, 6.0, 0, 0, 0, 0, 0])
+        f = frame.make_frame(self.card(self.gen.uniform(1.5, 2.5, size=(13, 29))), it, levels=1)[0]
+        args = (torch.eye(4, device=self.dev), f.points, f.normals, f.valid, f.points, f.normals, f.valid, it, 0.1)
+        (A, b, n, _), (Ap, bp, n_p, _) = reduce.icp_getab(*args), reduce.icp_getab_plain(*args)
+        torch.cuda.synchronize()
+        check(float(n) == float(n_p) > 0 and torch.allclose(A, Ap, rtol=1e-4, atol=1e-4 * float(Ap.abs().max()))
+              and torch.allclose(b, bp, rtol=1e-4, atol=1e-4 * float(Ap.abs().max())),
+              f"grid_reduce_vec launch check: n {float(n)} vs {float(n_p)}")
         emit({"phase": "a_build", "build_s": build_s, "libraries": sorted(libs),
               "nvcc_flags": list(_build.NVCC_FLAGS), "ok": True})
 
@@ -406,14 +479,13 @@ class Smoke:
             fn()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 _, wall = self.wall_s(fn)
-            # device-side events only: a CPU op's device total repeats its kernels'
-            ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            ev = kernel_events(prof)
             busy_us = sum(e.self_device_time_total for e in ev)
             top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
             ours = {}
             for e in ev:
                 for kname in DEVICE_KERNELS:
-                    if kname + "(" in e.key:
+                    if is_ours(e.key, kname):
                         ours[kname] = {"count": e.count, "us_per_launch": e.self_device_time_total / e.count}
             row = {"phase": f"f_profile_{what}", "wall_s_under_profiler": wall,
                    "device_busy_s": busy_us * 1e-6, "device_busy_share": busy_us * 1e-6 / wall,
@@ -424,10 +496,189 @@ class Smoke:
                 row.update(frames=n, host_s_per_frame={k: v / n for k, v in stage_s.items()})
             emit(row)
 
+    # ---- (g) -----------------------------------------------------------------
+    def orbit_depths(self, shape=(480, 640), intr=KINFU_INTR):
+        """Depth frames of the reference orbit, rendered on the card."""
+        from opencv_contrib_tpu_torch.utils import sdf_scene
+
+        poses = sdf_scene.orbit_poses(N_ORBIT, sweep=ORBIT_SWEEP)
+        it = self.card(intr)
+        return poses, self.torch.stack([sdf_scene.render_depth(self.card(p), it, shape=shape) for p in poses])
+
+    def reduce_vec(self):
+        from opencv_contrib_tpu_torch.core import se3
+        from opencv_contrib_tpu_torch.ops.cuda import reduce
+        from opencv_contrib_tpu_torch.rgbd import frame
+
+        torch = self.torch
+        _, depths = self.orbit_depths()
+        intr = self.card(KINFU_INTR)
+        dst = frame.make_frame(depths[0], intr)
+        src = frame.make_frame(depths[1], intr)
+        offset = se3.exp_se3(self.card(ICP_OFFSET))
+        rows = []
+        for lvl in range(3):
+            it = frame.level_intrinsics(intr, lvl)
+            s, d = src[lvl], dst[lvl]
+            H, W = s.valid.shape
+            for label, T in (("identity", torch.eye(4, device=self.dev)), ("offset", offset)):
+                args = (T, s.points, s.normals, s.valid, d.points, d.normals, d.valid, it, 0.1 * (1 << lvl))
+                A, b, n, err = reduce.icp_getab(*args)
+                Ap, bp, n_p, errp = reduce.icp_getab_plain(*args)
+                torch.cuda.synchronize()
+                dn = abs(float(n) - float(n_p))
+                errA = float((A - Ap).abs().max() / Ap.abs().max())
+                errb = float((b - bp).abs().max() / bp.abs().max())
+                check(dn <= max(3.0, 1e-3 * float(n_p)) and errA <= 1e-4 and errb <= 1e-4,
+                      f"grid_reduce_vec level {lvl} {label}: n {float(n)} vs {float(n_p)}, A {errA}, b {errb}")
+                work = getab_work(T, s, d, it, 0.1 * (1 << lvl))
+                # bytes: what the map reads at each of its gates (the source's valid
+                # flag for every pixel, its point where valid, the target's flag where
+                # the point projects inside the target, its point where that is valid,
+                # both normals where the distance gate passes), T, intr and the 44
+                # outputs; operations: 24 flops to transform and project a valid
+                # source point, 8 for the distance gate, 20 for the normal gate, 71 to
+                # add a correspondence
+                nbytes = (H * W + 12 * work["src_valid"] + work["in_target"] + 12 * work["target_valid"]
+                          + 24 * work["near"] + 4 * (16 + 9 + 44))
+                ops = 24 * work["src_valid"] + 8 * work["target_valid"] + 20 * work["near"] + 71 * int(n_p)
+                row = {"level": lvl, "T": label, "shape": [H, W], "n_corr": float(n), "n_corr_plain": float(n_p),
+                       "A_err_over_max": errA, "b_err_over_max": errb,
+                       "max_abs_err": max(float((A - Ap).abs().max()), float((b - bp).abs().max())),
+                       **self.times({"": lambda: reduce.icp_getab(*args), "plain_": lambda: reduce.icp_getab_plain(*args)}),
+                       "library_ms": None, "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
+                       "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes",
+                       "bytes": nbytes, "ops": ops, "work": work}
+                rows.append(row)
+                if lvl == 0 and label == "offset":
+                    self.kernels["grid_reduce_vec"] = row
+        emit({"phase": "g_reduce_vec", "tolerance": "n_corr within max(3, 0.1%); A, b within 1e-4 of max|A|, max|b|",
+              "timing": "ms: device time per call (torch.profiler); wall_ms: CUDA events per call",
+              "library_call": None, "runs": rows, "ok": True})
+
+    # ---- (h) -----------------------------------------------------------------
+    def kinfu(self):
+        from opencv_contrib_tpu_torch.core import se3
+        from opencv_contrib_tpu_torch.rgbd import kinfu
+
+        torch, entry = self.torch, self.entry
+        # 1. the bench tick (bench.py::bench_kinfu_vga512): 2 synced updates, 5 timed unsynced
+        frames = entry.kinfu_bench_frames(7)
+        p = kinfu.KinFuParams(intr=np.asarray(KINFU_INTR, np.float32), **KINFU_BENCH)
+        kf = kinfu.KinFu(p)
+        t0 = time.perf_counter()
+        ok_warm = [kf.update(frames[0], sync=True), kf.update(frames[1], sync=True)]
+        warm_s = time.perf_counter() - t0
+        check(all(ok_warm), f"bench tick lost tracking in warm-up: {ok_warm}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(5):
+            kf.update(frames[i + 2], sync=False)
+        torch.cuda.synchronize()
+        ms_tick = (time.perf_counter() - t0) / 5 * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(kf.last_ok) and bool(torch.isfinite(kf.T_cw).all()), "bench tick: tracking lost or non-finite pose")
+        bench = {"ms_per_tick": ms_tick, "warmup_s": warm_s, "peak_mem_allocated_gb": peak / 2 ** 30,
+                 "final_T_cw": kf.T_cw.cpu().tolist()}
+        self.bench_kf = kf
+
+        # 2. the VGA orbit through the entry point, counters read around it
+        poses, depths = self.orbit_depths()
+        kw = dict(intr=KINFU_INTR, **KINFU_ORBIT)
+        entry.kinfu_track(depths[:2], **kw)  # warm-up: cuSOLVER, allocator
+        track, s_orbit = self.counted("kinfu_tick", lambda: entry.kinfu_track(depths, **kw))
+        drift = self.drift(poses, track.T_cw[-1])
+        ok = track.ok.cpu().tolist()
+        check(all(ok), f"orbit lost tracking: {ok}")
+        check(drift["rot"] < 0.02 and drift["trans"] < 0.1, f"orbit drift {drift}")
+        per_tick = self.launches["kinfu_tick"]["grid_reduce_vec"] / (N_ORBIT - 1)
+        check(per_tick == sum(kinfu.KinFuParams.icp_iterations), f"grid_reduce_vec launches per tick {per_tick}")
+
+        # 3. the same orbit on the plain path
+        with plain_path():
+            plain = entry.kinfu_track(depths, **kw)
+        d = se3.log_se3(se3.inverse(track.T_cw[-1]) @ plain.T_cw[-1])
+        vs_plain = {"rot": float(torch.linalg.norm(d[:3])), "trans": float(torch.linalg.norm(d[3:]))}
+        check(vs_plain["rot"] < 1e-3 and vs_plain["trans"] < 1e-3 and all(plain.ok.cpu().tolist()),
+              f"plain path differs from the kernel path: {vs_plain}")
+
+        # 4. a small orbit on the card against the CPU
+        small_intr = [120.0, 120.0, 80.0, 60.0, 0, 0, 0, 0, 0]
+        _, small = self.orbit_depths(shape=(120, 160), intr=small_intr)
+        skw = dict(intr=small_intr, frame_shape=(120, 160), volume_resolution=(96, 96, 96), volume_size=3.2,
+                   volume_center=(0.0, 0.0, 2.2), sparse_blocks=None)
+        card = entry.kinfu_track(small[:4], **skw)
+        host = entry.kinfu_track(small[:4].cpu(), device="cpu", **skw)
+        d = se3.log_se3(se3.inverse(host.T_cw[-1]) @ card.T_cw[-1].cpu())
+        vs_cpu = {"rot": float(torch.linalg.norm(d[:3])), "trans": float(torch.linalg.norm(d[3:]))}
+        check(vs_cpu["rot"] < 1e-4 and vs_cpu["trans"] < 1e-4, f"small orbit, card vs CPU: {vs_cpu}")
+        emit({"phase": "h_kinfu", "bench_tick": {**KINFU_BENCH, "frames": [7, 480, 640], **bench},
+              "orbit": {**KINFU_ORBIT, "frames": [N_ORBIT, 480, 640], "s": s_orbit,
+                        "ms_per_frame": s_orbit / N_ORBIT * 1e3, "drift": drift, "ok": ok},
+              "plain_path_vs_kernel": vs_plain, "small_orbit_card_vs_cpu": vs_cpu,
+              "launches": self.launches["kinfu_tick"], "grid_reduce_vec_per_tick": per_tick,
+              "tolerance": "drift rot < 0.02, trans < 0.1 m; plain path within 1e-3; card vs CPU within 1e-4",
+              "ok": True})
+
+    def drift(self, poses, T_cw_last):
+        """Pose drift of the last frame against the orbit's truth, modulo the
+        first frame (KinFu's world is the first camera frame)."""
+        from opencv_contrib_tpu_torch.core import se3
+
+        torch = self.torch
+        T_gt = se3.inverse(self.card(poses[0])) @ self.card(poses[-1])
+        d = se3.log_se3(se3.inverse(T_gt) @ se3.inverse(T_cw_last))
+        return {"rot": float(torch.linalg.norm(d[:3])), "trans": float(torch.linalg.norm(d[3:]))}
+
+    def profile_kinfu(self, n: int = 2):
+        """The bench tick under torch.profiler: device busy share, top device
+        operations, and the number of kernel launches per tick."""
+        from torch.profiler import ProfilerActivity, profile
+
+        kf = self.bench_kf
+        frames = self.entry.kinfu_bench_frames(7 + n)[7:]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = self.wall_s(lambda: [kf.update(f, sync=False) for f in frames])
+        ev = kernel_events(prof)
+        busy_us = sum(e.self_device_time_total for e in ev)
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
+        ours = {k: {"count": e.count, "us_per_launch": e.self_device_time_total / e.count}
+                for e in ev for k in DEVICE_KERNELS if is_ours(e.key, k)}
+        emit({"phase": "h_profile_kinfu_tick", "ticks": n, "wall_s_under_profiler": wall,
+              "stages_per_tick": self.kinfu_stages(prof, n),
+              "device_busy_s": busy_us * 1e-6, "device_busy_share": busy_us * 1e-6 / wall,
+              "device_launches_per_tick": sum(e.count for e in ev) / n,
+              "top_device": [{"name": e.key[:80], "count": e.count, "us": e.self_device_time_total} for e in top],
+              "our_kernels": ours})
+
+    @staticmethod
+    def kinfu_stages(prof, n: int) -> dict:
+        """Per tick, for each of KinFu.update's record_function ranges: the
+        host ms inside it, and the device ms and launches of the kernels
+        launched inside it (the ticks run unsynchronised, so the host and the
+        device columns overlap in time)."""
+        def kernels(e):
+            return [k for k in e.kernels if not k.name.startswith(STAGE_PREFIX)] + \
+                [k for c in e.cpu_children for k in kernels(c)]
+
+        from torch.autograd import DeviceType
+
+        out = {}
+        for e in prof.events():
+            if e.name.startswith(STAGE_PREFIX) and e.device_type == DeviceType.CPU:
+                ks = kernels(e)
+                row = out.setdefault(e.name[len(STAGE_PREFIX):], {"host_ms": 0.0, "device_ms": 0.0, "launches": 0})
+                row["host_ms"] += e.cpu_time_total / 1e3 / n
+                row["device_ms"] += sum(k.duration for k in ks) / 1e3 / n
+                row["launches"] += len(ks) / n
+        check(set(out) == {"make_frame", "icp", "integrate", "raycast"}, f"KinFu stage ranges: {sorted(out)}")
+        return out
+
     def kernels_line(self):
-        path = "keyframe_tick"
         line = []
         for name, row in self.kernels.items():
+            path = LAUNCH_PATH[name]
             src, rep = SOURCES[name]
             line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                          "launches": self.launches[path][name], "launches_path": path, "shape": row["shape"],
@@ -445,7 +696,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU", file=sys.stderr)
         return 2
     smoke = Smoke()
-    for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile):
+    for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
+                  smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,6 +1,7 @@
-"""SO(3) operations on stacked tensors — the port of the parts of
-opencv_contrib_tpu/core/se3.py the keyframe tick uses. Singularities are
-handled with `torch.where` and safe denominators, as in the JAX version."""
+"""SO(3) / SE(3) operations on stacked tensors — the port of the parts of
+opencv_contrib_tpu/core/se3.py the keyframe tick and KinectFusion use.
+Singularities are handled with `torch.where` and safe denominators, as in
+the JAX version."""
 
 from __future__ import annotations
 
@@ -59,6 +60,80 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     """Matrix log: rotation (..., 3, 3) -> angle-axis (..., 3), through the
     quaternion (stable near 0 and pi)."""
     return quat_to_axis_angle(mat_to_quat(R))
+
+
+def _rodrigues_ab(theta2: torch.Tensor):
+    """A, B of `so3_coeffs` without the derivatives, plus the small-angle
+    mask and the safe theta^2 the SE(3) maps divide by."""
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_safe)
+    return A, B, small, theta2_safe
+
+
+def exp_se3(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) exp: twist (..., 6) [rot | trans] -> (..., 4, 4) rigid transform."""
+    w, v = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)
+    A, B, small, theta2_safe = _rodrigues_ab(theta2)
+    C = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - A) / theta2_safe)
+    W = hat(w)
+    WW = W @ W
+    I = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    R = I + A[..., None, None] * W + B[..., None, None] * WW
+    V = I + B[..., None, None] * W + C[..., None, None] * WW
+    return rt_to_mat(R, torch.einsum("...ij,...j->...i", V, v))
+
+
+def log_se3(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) log: (..., 4, 4) -> twist (..., 6) [rot | trans]."""
+    R, t = mat_to_rt(T)
+    w = log_so3(R)
+    theta2 = torch.sum(w * w, dim=-1)
+    A, B, small, theta2_safe = _rodrigues_ab(theta2)
+    W = hat(w)
+    WW = W @ W
+    I = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
+    # V^{-1} = I - W/2 + (1/theta^2)(1 - A/(2B)) W^2
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                       (1.0 - A / (2.0 * torch.where(small, torch.full_like(B, 0.5), B))) / theta2_safe)
+    Vinv = I - 0.5 * W + coef[..., None, None] * WW
+    return torch.cat([w, torch.einsum("...ij,...j->...i", Vinv, t)], dim=-1)
+
+
+def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R (..., 3, 3), t (..., 3)) -> homogeneous (..., 4, 4)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)  # no host-to-device copy
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def mat_to_rt(T: torch.Tensor):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def inverse(T: torch.Tensor) -> torch.Tensor:
+    """Rigid-transform inverse (..., 4, 4)."""
+    R, t = mat_to_rt(T)
+    Rt = R.transpose(-1, -2)
+    return rt_to_mat(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3) or (..., 3)."""
+    R, t = mat_to_rt(T)
+    if pts.ndim == R.ndim - 1:  # (..., 3) single point per transform
+        return torch.einsum("...ij,...j->...i", R, pts) + t
+    return torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
 
 
 def rotate_points(R: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,11 @@
   `bench_keyframes`: the frontend on every frame, match to the previous
   frame, DLT + Gauss-Newton resection, then one bundle-adjustment refresh
   over a 16-camera x 2048-point synthetic problem.
+- `kinfu_track(depths, intr, ...)`: the KinectFusion tick over a depth
+  sequence (`bench.py::bench_kinfu_vga512` runs it at VGA / 512^3 on the
+  frames of `kinfu_bench_frames`).
 
-Both run on the card unless the caller passes `device="cpu"`; with no card
+They run on the card unless the caller passes `device="cpu"`; with no card
 they raise. Matrix products run in full f32 inside them.
 """
 
@@ -23,16 +26,11 @@ from opencv_contrib_tpu_torch.ba import bundle
 from opencv_contrib_tpu_torch.core import camera as cam
 from opencv_contrib_tpu_torch.features import describe, detect, match
 from opencv_contrib_tpu_torch.mvg import resection
+from opencv_contrib_tpu_torch.rgbd import kinfu
+from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
+from opencv_contrib_tpu_torch.utils.device import resolve
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
 from opencv_contrib_tpu_torch.utils.synthetic import generate_scene
-
-
-def _device(device) -> torch.device:
-    d = torch.device(device)
-    if d.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the entry points run on the GPU; "
-                           "pass device='cpu' to run the plain versions on the CPU")
-    return d
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -46,7 +44,7 @@ def frontend(img1, img2, K: int = 128, threshold: float = 40.0, ratio: float = 0
     """Detect K keypoints in each frame, describe them, and match frame 1
     against frame 2 with the cross-checked ratio test. Returns (match count,
     train_idx (K,), distance (K,))."""
-    dev = _device(device)
+    dev = resolve(device)
     img1, img2 = _f32(img1, dev), _f32(img2, dev)
     k1 = detect.fast_hessian(img1, max_keypoints=K, threshold=threshold)
     k2 = detect.fast_hessian(img2, max_keypoints=K, threshold=threshold)
@@ -116,7 +114,39 @@ def keyframe_tick(imgs, intr, K: int = 512, n_ba: int = 10, ba_views: int = 16,
                   ba_points: int = 2048, device="cuda") -> KeyframeTick:
     """Track imgs (N+1, H, W) frame to frame, then run `n_ba` LM iterations
     of bundle adjustment over a `ba_views` x `ba_points` problem."""
-    dev = _device(device)
+    dev = resolve(device)
     ts, n_ok = track_frames(_f32(imgs, dev), _f32(intr, dev), K)
     res = bundle.bundle_adjust(ba_problem(ba_views, ba_points, device=dev), n_iters=n_ba)
     return KeyframeTick(ts, n_ok, res)
+
+
+class KinFuTrack(NamedTuple):
+    T_cw: torch.Tensor  # (N, 4, 4) world -> camera pose after each frame
+    ok: torch.Tensor  # (N,) tracking flag of each frame (True for the first)
+    volume: TSDFVolume  # the volume after the last frame
+
+
+def kinfu_track(depths, intr, frame_shape=(480, 640), volume_resolution=(512, 512, 512), volume_size: float = 3.0,
+                volume_center=(0.0, 0.0, 2.0), sparse_blocks: int | None = 12288, device="cuda") -> KinFuTrack:
+    """Run the KinFu tick over depths (N, H, W) in meters: per-frame pose
+    and tracking flag, and the final volume. The defaults are the VGA /
+    512^3 configuration of `bench.py::bench_kinfu_vga512`. Nothing is read
+    back to the host until the caller reads the result."""
+    p = kinfu.KinFuParams(intr=np.asarray(intr, np.float32), frame_shape=tuple(frame_shape),
+                          volume_resolution=tuple(volume_resolution), volume_size=volume_size,
+                          volume_center=tuple(volume_center), sparse_blocks=sparse_blocks)
+    kf = kinfu.KinFu(p, device=device)
+    poses, oks = [], []
+    for d in depths:
+        kf.update(d, sync=False)
+        poses.append(kf.T_cw)
+        oks.append(kf.last_ok)
+    return KinFuTrack(torch.stack(poses), torch.stack(oks), kf.volume)
+
+
+def kinfu_bench_frames(n: int, H: int = 480, W: int = 640) -> np.ndarray:
+    """The depth ramp of `bench.py::bench_kinfu_vga512` (`base + 0.002 * i`
+    for frame i, in meters): (n, H, W) float32."""
+    base = (2.0 + 0.3 * np.sin(np.linspace(0, 6, W))[None, :]
+            + 0.2 * np.cos(np.linspace(0, 4, H))[:, None]).astype(np.float32)
+    return np.stack([base + 0.002 * i for i in range(n)])

@@ -1,8 +1,8 @@
 """Carry state between the JAX package and this one as numpy arrays.
 
-The slice has no learned weights: its state is the NamedTuples (Keypoints,
-Matches, BAProblem, BAResult), with the same class names, field names and
-field order in both packages. `from_numpy` turns such a
+The port has no learned weights: its state is the NamedTuples (Keypoints,
+Matches, BAProblem, BAResult, and KinFu's TSDFVolume and DepthFrame), with
+the same class names, field names and field order in both packages. `from_numpy` turns such a
 tuple, its fields read as numpy arrays (anything `np.asarray` takes), into
 this package's tuple of tensors; `to_numpy` goes the other way.
 """
@@ -15,8 +15,10 @@ import torch
 from opencv_contrib_tpu_torch.ba.bundle import BAProblem, BAResult
 from opencv_contrib_tpu_torch.features.keypoints import Keypoints
 from opencv_contrib_tpu_torch.features.match import Matches
+from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
+from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 
-TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult)}
+TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, TSDFVolume, DepthFrame)}
 
 
 def _is_namedtuple(x) -> bool:

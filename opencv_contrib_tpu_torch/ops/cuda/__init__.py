@@ -23,10 +23,10 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 def kernels():
     """The launch-counted kernel wrappers, by name."""
-    from opencv_contrib_tpu_torch.ops.cuda import matching, scan
+    from opencv_contrib_tpu_torch.ops.cuda import matching, reduce, scan
 
     return {"knn2": matching.knn2, "integral_image": scan.integral_image,
-            "grid_scan": scan.grid_scan}
+            "grid_scan": scan.grid_scan, "grid_reduce_vec": reduce.icp_getab}
 
 
 def reset_launches() -> None:

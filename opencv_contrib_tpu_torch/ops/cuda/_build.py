@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of every C entry point, by library (source stem)
 SIGNATURES = {
     "scan": {
@@ -38,6 +39,11 @@ SIGNATURES = {
         # q, t, Q, T, D, span, tn, part_best, part_second, part_idx,
         # dist, idx, stream
         "knn2_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "reduce_vec": {
+        # T, intr, src_pts, src_nrm, src_valid, dst_pts, dst_nrm, dst_valid,
+        # n, Hd, Wd, dist2, cos_thresh, blocks, partials, out, stream
+        "icp_getab_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],
     },
 }
 

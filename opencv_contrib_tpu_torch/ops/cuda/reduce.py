@@ -1,0 +1,138 @@
+"""Tiled map -> vector reductions, and the ICP getAb system built by one.
+
+Kernel: `csrc/reduce_vec.cu`. It replaces the Pallas `grid_reduce_vec`
+(opencv_contrib_tpu/ops/pallas/grid.py:155) in the role that function's
+docstring names: assembling the point-to-plane ICP normal system of
+`rgbd/icp.py::build_system` (fast_icp.cpp GetAbInvoker). A CUDA kernel
+cannot take a Python `map_op`, so the kernel is a device-side template,
+`grid_reduce_vec_kernel<Map, OUT>`, and `icp_getab` launches its one
+instantiation, whose map is build_system's per-pixel body. It is bound by
+bytes (at most 50 B per pixel, fewer where a gate rejects the pixel early);
+per-block partial sums are folded by a second
+launch in a fixed order, so the result does not change from run to run.
+
+Plain versions beside it: `grid_reduce_vec_plain` (the Pallas function's
+tile, pad and validity semantics, for any `map_op`) and `icp_getab_plain`
+(the JAX build_system's einsum form).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from opencv_contrib_tpu_torch.ops.cuda import _build, use_kernel
+
+_THREADS = 256  # csrc/reduce_vec.cu THREADS
+_MAX_BLOCKS = 4 * 132  # four blocks per SM of an H100
+_OUT = 29  # the getAb map's outputs
+_RESULT = 44  # A (36), b (6), n_corr, mean_err
+
+
+def grid_reduce_vec_plain(map_op, *arrays: torch.Tensor, out_dim: int, tile=(256, 256)) -> torch.Tensor:
+    """Sum over tiles of `map_op(*tiles, valid) -> (out_dim,)`: the arrays
+    (H, W) are zero-padded to a multiple of the tile, and `valid` is False on
+    the padded cells (map_op must zero their contributions), as the Pallas
+    `grid_reduce_vec` passes them. Tiles are folded in grid order."""
+    H, W = arrays[0].shape
+    th, tw = min(tile[0], H), min(tile[1], W)
+    ph, pw = (-H) % th, (-W) % tw
+    padded = [F.pad(a, (0, pw, 0, ph)) for a in arrays]
+    rows = torch.arange(H + ph, device=arrays[0].device)[:, None]
+    cols = torch.arange(W + pw, device=arrays[0].device)[None, :]
+    valid = (rows < H) & (cols < W)
+    out = torch.zeros(out_dim, dtype=torch.float32, device=arrays[0].device)
+    for i in range(0, H + ph, th):
+        for j in range(0, W + pw, tw):
+            tiles = [a[i:i + th, j:j + tw] for a in padded]
+            out = out + map_op(*tiles, valid[i:i + th, j:j + tw]).to(torch.float32).reshape(out_dim)
+    return out
+
+
+def _cos32(angle: float) -> float:
+    """cos(angle) in float32, as `jnp.cos` of a Python float computes it."""
+    return float(np.cos(np.float32(angle)))
+
+
+def icp_getab_plain(T, src_points, src_normals, src_valid, dst_points, dst_normals, dst_valid, intr,
+                    dist_thresh: float = 0.1, angle_thresh: float = 0.52):
+    """The getAb step in the JAX package's einsum form: (A (6, 6), b (6,),
+    n_corr, mean_err) for the pose T mapping source camera -> target camera."""
+    R, t = T[:3, :3], T[:3, 3]
+    p = torch.einsum("ij,hwj->hwi", R, src_points) + t  # source points in the target frame
+    z = torch.clamp(p[..., 2], min=1e-9)
+    u = torch.addcmul(intr[2], p[..., 0] / z, intr[0])  # x / z * fx + cx
+    v = torch.addcmul(intr[3], p[..., 1] / z, intr[1])
+    H, W = dst_valid.shape
+    ui = torch.round(u).to(torch.int32)
+    vi = torch.round(v).to(torch.int32)
+    inb = (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H) & (p[..., 2] > 0) & src_valid
+    flat = (torch.clamp(vi, 0, H - 1) * W + torch.clamp(ui, 0, W - 1)).reshape(-1).long()
+    q = dst_points.reshape(-1, 3)[flat].reshape(p.shape)
+    n = dst_normals.reshape(-1, 3)[flat].reshape(p.shape)
+    qv = dst_valid.reshape(-1)[flat].reshape(inb.shape)
+
+    diff = p - q
+    dist_ok = torch.sum(diff * diff, dim=-1) < dist_thresh * dist_thresh
+    ns = torch.einsum("ij,hwj->hwi", R, src_normals)
+    ang_ok = torch.sum(ns * n, dim=-1) > _cos32(angle_thresh)
+    w = (inb & qv & dist_ok & ang_ok).to(torch.float32)
+
+    r = torch.sum(n * diff, dim=-1)  # point-to-plane residual
+    J = torch.cat([torch.linalg.cross(p, n, dim=-1), n], dim=-1)  # (H, W, 6): d r / d (omega, t)
+    Jm = J * w[..., None]
+    A = torch.einsum("hwi,hwj->ij", Jm, J)
+    b = -torch.einsum("hwi,hw->i", Jm, r)
+    n_corr = torch.sum(w)
+    mean_err = torch.sum(w * r * r) / torch.clamp(n_corr, min=1.0)
+    return A, b, n_corr, mean_err
+
+
+def _check(name: str, x: torch.Tensor, shape, dtype) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"icp_getab: {name} is on {x.device}, the kernel takes CUDA tensors")
+    if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
+        raise ValueError(f"icp_getab: {name} is {tuple(x.shape)} {x.dtype}, expected {tuple(shape)} {dtype}")
+
+
+def icp_getab(T, src_points, src_normals, src_valid, dst_points, dst_normals, dst_valid, intr,
+              dist_thresh: float = 0.1, angle_thresh: float = 0.52):
+    """The getAb step: (A (6, 6), b (6,), n_corr, mean_err), all on the
+    device of the inputs. A CUDA tensor launches the grid_reduce_vec kernel;
+    a CPU tensor takes `icp_getab_plain`."""
+    if not use_kernel(src_points):
+        return icp_getab_plain(T, src_points, src_normals, src_valid, dst_points, dst_normals, dst_valid,
+                               intr, dist_thresh, angle_thresh)
+    H, W = src_valid.shape
+    Hd, Wd = dst_valid.shape
+    f32 = torch.float32
+    for name, x, shape, dtype in (("T", T, (4, 4), f32), ("src_points", src_points, (H, W, 3), f32),
+                                  ("src_normals", src_normals, (H, W, 3), f32),
+                                  ("src_valid", src_valid, (H, W), torch.bool),
+                                  ("dst_points", dst_points, (Hd, Wd, 3), f32),
+                                  ("dst_normals", dst_normals, (Hd, Wd, 3), f32),
+                                  ("dst_valid", dst_valid, (Hd, Wd), torch.bool)):
+        _check(name, x, shape, dtype)
+    if intr.device != src_points.device or intr.dtype != f32 or intr.numel() < 4:
+        raise ValueError("icp_getab: intr must be a float32 (9,) on the inputs' device")
+    if H * W == 0 or Hd * Wd == 0:
+        raise ValueError("icp_getab: empty frame")
+    args = [x.contiguous() for x in (T, intr, src_points, src_normals, src_valid, dst_points, dst_normals,
+                                     dst_valid)]
+    n = H * W
+    blocks = min(-(-n // _THREADS), _MAX_BLOCKS)
+    dev = src_points.device
+    partials = torch.empty(blocks * _OUT, dtype=f32, device=dev)
+    out = torch.empty(_RESULT, dtype=f32, device=dev)
+    dist2 = float(np.float32(dist_thresh * dist_thresh))
+    lib = _build.lib("reduce_vec")
+    with torch.cuda.device(dev):
+        _build.check(lib.icp_getab_f32(*(a.data_ptr() for a in args), n, Hd, Wd, dist2,
+                                       _cos32(angle_thresh), blocks, partials.data_ptr(), out.data_ptr(),
+                                       _build.stream_of(src_points)), "icp_getab_f32")
+    icp_getab.launches += 1
+    return out[:36].view(6, 6), out[36:42], out[42], out[43]
+
+
+icp_getab.launches = 0

@@ -1,6 +1,7 @@
-"""Separable filters and gradients (the port of the frontend's part of
-opencv_contrib_tpu/ops/filters.py). Separable filters are shift-adds over a
-reflect-padded image (BORDER_REFLECT_101), as in the JAX version."""
+"""Separable filters, gradients and the bilateral filter (the port of the
+parts of opencv_contrib_tpu/ops/filters.py the frontend and KinectFusion
+use). Separable filters are shift-adds over a reflect-padded image
+(BORDER_REFLECT_101), as in the JAX version."""
 
 from __future__ import annotations
 
@@ -56,6 +57,12 @@ def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) ->
     return sep_filter2d(img, k, k)
 
 
+def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
+    n = 2 * radius + 1
+    k = torch.full((n,), 1.0 / n, dtype=torch.float32, device=img.device)
+    return sep_filter2d(img, k, k)
+
+
 def gradients(img: torch.Tensor):
     """Central-difference image gradients (gy, gx), replicate-edge borders."""
     gy = (torch.roll(img, -1, 0) - torch.roll(img, 1, 0)) * 0.5
@@ -65,3 +72,30 @@ def gradients(img: torch.Tensor):
     gx[:, 0] = img[:, 1] - img[:, 0]
     gx[:, -1] = img[:, -1] - img[:, -2]
     return gy, gx
+
+
+def bilateral_filter(img: torch.Tensor, sigma_space: float = 2.0, sigma_color: float = 0.1,
+                     radius: int = 4) -> torch.Tensor:
+    """Edge-preserving bilateral filter on (H, W): the depth smoothing of the
+    KinFu frame builder. A shift-and-accumulate over the (2r+1)^2 window,
+    dy outer and dx inner as in the JAX version; the shifts WRAP at the
+    borders (`torch.roll`, as `jnp.roll`), and zero (invalid) pixels are
+    excluded as neighbours and stay zero."""
+    img = img.to(torch.float32)
+    valid = img > 0
+    validf = valid.to(torch.float32)
+    num = torch.zeros_like(img)
+    den = torch.zeros_like(img)
+    inv2ss = 1.0 / (2.0 * sigma_space * sigma_space)
+    inv2sc = 1.0 / (2.0 * sigma_color * sigma_color)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            shifted = torch.roll(img, (dy, dx), dims=(0, 1))
+            svalid = torch.roll(validf, (dy, dx), dims=(0, 1))
+            wspace = math.exp(-(dy * dy + dx * dx) * inv2ss)
+            diff = shifted - img
+            w = wspace * torch.exp(-(diff * diff) * inv2sc) * svalid
+            num = num + w * shifted
+            den = den + w
+    out = num / torch.clamp(den, min=1e-12)
+    return torch.where(valid, out, 0.0)

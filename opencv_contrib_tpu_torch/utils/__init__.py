@@ -1,1 +1,1 @@
-"""Precision pinning and synthetic scenes."""
+"""Precision pinning, device selection and synthetic scenes."""

@@ -40,9 +40,29 @@ def _imports(tree: ast.AST):
 def test_port_has_its_files():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for need in ("entry.py", "interop.py", "ops/cuda/_build.py", "ops/cuda/scan.py",
-                 "ops/cuda/matching.py", "features/detect.py", "ba/bundle.py"):
+                 "ops/cuda/matching.py", "features/detect.py", "ba/bundle.py", "rgbd/frame.py", "rgbd/icp.py",
+                 "rgbd/tsdf.py", "rgbd/kinfu.py", "core/pyramid.py", "ops/cuda/reduce.py", "utils/sdf_scene.py"):
         assert need in names
+    assert (PORT / "ops/cuda/csrc/reduce_vec.cu").exists()
     assert (ROOT / "chip_smoke.py").exists()
+
+
+def test_kinfu_entry_points_need_a_card_for_cuda(monkeypatch):
+    """Asked for "cuda" (their default) on a machine without a card, the
+    KinFu entry points raise instead of running on the CPU."""
+    import numpy as np
+    import torch
+
+    from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.rgbd import kinfu
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    intr = np.array([120.0, 120.0, 80.0, 60.0, 0, 0, 0, 0, 0], np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kinfu.KinFu(kinfu.KinFuParams.default(intr))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.kinfu_track(np.ones((1, 120, 160), np.float32), intr, frame_shape=(120, 160),
+                          volume_resolution=(64, 64, 64))
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

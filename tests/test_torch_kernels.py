@@ -25,7 +25,7 @@ from opencv_contrib_tpu.ops.pallas import pipeline as ppipe
 from opencv_contrib_tpu_torch.features import match as fmatch
 from opencv_contrib_tpu_torch.ops import integral as tinteg
 from opencv_contrib_tpu_torch.ops import cuda as tcuda
-from opencv_contrib_tpu_torch.ops.cuda import _build, scan
+from opencv_contrib_tpu_torch.ops.cuda import _build, reduce, scan
 from opencv_contrib_tpu_torch.ops.cuda import matching as tmatch
 
 
@@ -153,6 +153,80 @@ def test_box_and_haar_match_jax(rng, fn):
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-3)
 
 
+def _getab_frames(rng, H=24, W=32):
+    """A source and a target point / normal map of a tilted plane with a
+    bump, made from a seed, as (H, W, 3) float32 plus a valid mask."""
+    v, u = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    intr = np.array([30.0, 30.0, W / 2, H / 2, 0, 0, 0, 0, 0], np.float32)
+    out = []
+    for k in range(2):
+        z = 2.0 + 0.01 * u + 0.2 * np.exp(-((u - W / 2) ** 2 + (v - H / 2) ** 2) / 40.0) + 0.01 * k
+        z = (z + rng.normal(scale=1e-3, size=z.shape)).astype(np.float32)
+        pts = np.stack([(u - intr[2]) / intr[0] * z, (v - intr[3]) / intr[1] * z, z], -1).astype(np.float32)
+        n = np.cross(np.gradient(pts, axis=0), np.gradient(pts, axis=1))
+        n = -(n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+        valid = rng.uniform(size=(H, W)) > 0.1
+        out += [pts, n, valid]
+    return out, intr
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["identity", "offset"])
+def test_icp_getab_plain_matches_jax(rng, offset):
+    """icp_getab_plain against the JAX build_system's einsum form."""
+    from opencv_contrib_tpu.core import se3 as jse3
+    from opencv_contrib_tpu.rgbd import icp as jicp
+    from opencv_contrib_tpu.rgbd.frame import DepthFrame
+
+    (sp, sn, sv, dp, dn, dv), intr = _getab_frames(rng)
+    xi = np.array([0.005, -0.01, 0.0, 0.01, 0.0, 0.005] if offset else [0.0] * 6, np.float32)
+    Tm = np.asarray(jse3.exp_se3(jnp.asarray(xi)))
+    src = DepthFrame(jnp.asarray(sp[..., 2]), jnp.asarray(sp), jnp.asarray(sn), jnp.asarray(sv))
+    dst = DepthFrame(jnp.asarray(dp[..., 2]), jnp.asarray(dp), jnp.asarray(dn), jnp.asarray(dv))
+    Aj, bj, nj, ej = (np.asarray(x) for x in jicp.build_system(jnp.asarray(Tm), src, dst, jnp.asarray(intr)))
+    At, bt, nt, et = (N(x) for x in reduce.icp_getab(T(Tm), T(sp), T(sn), T(sv), T(dp), T(dn), T(dv), T(intr)))
+    assert float(nj) > 200 and abs(float(nt) - float(nj)) <= max(3.0, 2e-3 * float(nj))
+    np.testing.assert_allclose(At, Aj, rtol=0, atol=1e-3 * np.abs(Aj).max())
+    np.testing.assert_allclose(bt, bj, rtol=0, atol=1e-3 * np.abs(bj).max())
+    np.testing.assert_allclose(et, ej, rtol=1e-3)
+
+
+def _mapper_products(x, y, valid):
+    x = torch.where(valid, x, 0.0)
+    y = torch.where(valid, y, 0.0)
+    return torch.stack([torch.sum(x * y), torch.sum(x), torch.sum(y * y)])
+
+
+def _mapper_gauss(x, valid):
+    v = torch.where(valid, torch.exp(-x * x), 0.0)
+    return torch.stack([torch.sum(v), torch.sum(torch.where(valid, 1.0, 0.0))])
+
+
+@pytest.mark.parametrize("n_in", [2, 1], ids=["products", "nonlinear"])
+def test_grid_reduce_vec_plain_matches_pallas(rng, n_in):
+    """Twins of tests/test_pallas_grid.py's grid_reduce_vec cases: the same
+    mappers, 100x257 in (64, 128) tiles; the padded cells' validity tile
+    gates them out (the second mapper is nonzero at the pad's 0)."""
+    a = rng.normal(size=(100, 257)).astype(np.float32)
+    b = rng.normal(size=(100, 257)).astype(np.float32)
+
+    def jax_products(x, y, valid):
+        x, y = jnp.where(valid, x, 0.0), jnp.where(valid, y, 0.0)
+        return jnp.stack([jnp.sum(x * y), jnp.sum(x), jnp.sum(y * y)])
+
+    def jax_gauss(x, valid):
+        v = jnp.where(valid, jnp.exp(-x * x), 0.0)
+        return jnp.stack([jnp.sum(v), jnp.sum(jnp.where(valid, 1.0, 0.0))])
+
+    arrays = (a, b)[:n_in]
+    tmap, jmap, dim = (_mapper_products, jax_products, 3) if n_in == 2 else (_mapper_gauss, jax_gauss, 2)
+    out = N(reduce.grid_reduce_vec_plain(tmap, *(T(x) for x in arrays), out_dim=dim, tile=(64, 128)))
+    pal = np.asarray(pgrid.grid_reduce_vec(jmap, *(jnp.asarray(x) for x in arrays), out_dim=dim, tile=(64, 128),
+                                           interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=2e-5, atol=1e-4)
+    if n_in == 1:
+        assert int(out[1]) == 100 * 257
+
+
 def test_cpu_calls_leave_launch_counters_at_zero(rng):
     tcuda.reset_launches()
     q = T(rng.normal(size=(64, 16)).astype(np.float32))
@@ -162,12 +236,17 @@ def test_cpu_calls_leave_launch_counters_at_zero(rng):
     scan.grid_scan(q)
     scan.integral_image(q)
     tinteg.integral(q)
-    assert tcuda.launches() == {"knn2": 0, "integral_image": 0, "grid_scan": 0}
+    (sp, sn, sv, dp, dn, dv), intr = _getab_frames(rng)
+    reduce.icp_getab(torch.eye(4), T(sp), T(sn), T(sv), T(dp), T(dn), T(dv), T(intr))
+    assert tcuda.launches() == {"knn2": 0, "integral_image": 0, "grid_scan": 0, "grid_reduce_vec": 0}
 
 
 def test_other_devices_raise():
     x = torch.zeros(4, 4, device="meta")
-    for fn in (scan.grid_scan, scan.integral_image, lambda a: tmatch.knn2(a, a)):
+    pts = torch.zeros(4, 4, 3, device="meta")
+    ok = torch.zeros(4, 4, dtype=torch.bool, device="meta")
+    for fn in (scan.grid_scan, scan.integral_image, lambda a: tmatch.knn2(a, a),
+               lambda a: reduce.icp_getab(a, pts, pts, ok, pts, pts, ok, a[0])):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             fn(x)
 
@@ -188,7 +267,8 @@ def test_build_needs_nvcc(monkeypatch):
 
 def test_build_flags_and_signatures():
     """sm_90a target; every C entry point of csrc/ is declared with pointer
-    (c_void_p) argtypes for every pointer and the stream, and nothing else is."""
+    (c_void_p) argtypes for every pointer and the stream, c_float for every
+    float, and c_int for the rest."""
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags and "-fPIC" in flags
     for src in sorted(_build.CSRC.glob("*.cu")):
@@ -196,7 +276,8 @@ def test_build_flags_and_signatures():
         entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text))
         assert set(entries) == set(_build.SIGNATURES[src.stem]), src.name
         for name, params in entries.items():
-            kinds = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p) else ctypes.c_int
+            kinds = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p)
+                     else ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
                      for p in params.split(",")]
             assert _build.SIGNATURES[src.stem][name] == kinds, name
             assert "return (int)cudaGetLastError();" in text
