@@ -33,7 +33,15 @@ Phases, one JSON line each:
       and held to the reference drift gates, the same orbit on the plain
       path, a small orbit on the card against the CPU, and the tick under
       torch.profiler, stage by stage through KinFu.update's
-      record_function ranges.
+      record_function ranges;
+  (i) the pyrdown kernel in both borders at 436x1024, 218x512, 109x256 (odd
+      output) and 480x640, and the remap kernel in both contracts (max_disp
+      4 and None) with C = 1 and 3 at 436x1024 and 55x128, each against its
+      plain version and timed beside the nearest PyTorch call;
+  (j) dense flow: `entry.dense_flow` with DIS and TV-L1 on `entry.flow_pair()`
+      (MPI-Sintel's 436x1024) with the counters read around it, the interior
+      EPE gates, the plain path, a 96x128 pair on the card against the CPU,
+      ms per pair, peak memory, and one profiled pair per method.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -65,14 +73,34 @@ SOURCES = {  # kernel -> (CUDA source, the Pallas function it replaces)
     "grid_scan": ("opencv_contrib_tpu_torch/ops/cuda/csrc/scan.cu", "opencv_contrib_tpu/ops/pallas/pipeline.py:35"),
     "grid_reduce_vec": ("opencv_contrib_tpu_torch/ops/cuda/csrc/reduce_vec.cu",
                         "opencv_contrib_tpu/ops/pallas/grid.py:155"),
+    "pyrdown": ("opencv_contrib_tpu_torch/ops/cuda/csrc/pyrdown.cu", "opencv_contrib_tpu/ops/pallas/pipeline.py:87"),
+    "remap": ("opencv_contrib_tpu_torch/ops/cuda/csrc/remap.cu", "opencv_contrib_tpu/ops/pallas/remap.py:41"),
 }
 # the kernels each main path runs; a kernel's launches are reported from the
 # last path that runs it
 PATH_KERNELS = {"frontend": ("knn2", "integral_image", "grid_scan"),
-                "keyframe_tick": ("knn2", "integral_image", "grid_scan"), "kinfu_tick": ("grid_reduce_vec",)}
+                "keyframe_tick": ("knn2", "integral_image", "grid_scan"), "kinfu_tick": ("grid_reduce_vec",),
+                "dense_flow": ("pyrdown", "remap")}
 LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
 DEVICE_KERNELS = ("knn2_kernel", "knn2_merge_kernel", "row_sqnorm_kernel", "scan_rows_kernel", "scan_cols_kernel",
-                  "grid_reduce_vec_kernel", "icp_getab_finalize_kernel")
+                  "grid_reduce_vec_kernel", "icp_getab_finalize_kernel", "pyrdown_kernel", "remap_kernel")
+PYRDOWN_SHAPES = [(436, 1024), (218, 512), (109, 256), (480, 640)]  # the Sintel pyramid's levels 0-2, and VGA
+REMAP_SHAPES = [(436, 1024), (55, 128)]  # the Sintel pyramid's finest and coarsest levels
+REMAP_FIELD_PX = 12.0  # smooth random displacements up to +-12 px leave the image at the borders
+FLOW_METHODS = ("dis", "tvl1")
+# per pair at 4 levels: pyrdown 3 per frame; remap once per outer iteration
+# and level (DIS: 3 outer x 4 levels; TV-L1: 5 x 4)
+FLOW_LAUNCHES = {"dis": {"pyrdown": 6, "remap": 12}, "tvl1": {"pyrdown": 6, "remap": 20}}
+# interior (8 px border) EPE gates on entry.flow_pair(): about 1.35x the JAX
+# package's own 0.0375 (DIS) and 0.0279 (TV-L1) on the same frames, on the CPU
+FLOW_EPE_GATE = {"dis": 0.05, "tvl1": 0.04}
+FLOW_PLAIN_TOL = 1e-3  # px, max abs, kernel path against the plain path on the card
+# px, max abs, a 96x128 pair at 3 levels on the card against the CPU. The two
+# round differently (reductions, matmuls), and TV-L1 carries an ulp to tenths
+# of a pixel at the image border; phase j also reports the full-size pair on
+# the card against the CPU, border and interior apart
+FLOW_CPU_TOL = 1e-2
+N_FLOW_TIMED = 5
 KNN2_SHAPES = [(8192, 8192, 128), (1000, 3000, 64), (512, 512, 64)]
 SCAN_SHAPES = [(480, 640), (2048, 2048)]
 N_FRAMES, K, N_BA = 32, 512, 10
@@ -143,10 +171,10 @@ def exact_frames(frames: np.ndarray, levels: int) -> np.ndarray:
 def plain_path():
     """The port's path with each kernel call site switched to the plain
     version, on the same CUDA tensors. The library never makes that choice
-    for a CUDA tensor, so this check makes it here, at the three call sites."""
+    for a CUDA tensor, so this check makes it here, at the call sites."""
     from opencv_contrib_tpu_torch.features import match
     from opencv_contrib_tpu_torch.ops import integral
-    from opencv_contrib_tpu_torch.ops.cuda import matching, reduce, scan
+    from opencv_contrib_tpu_torch.ops.cuda import matching, pyramid, reduce, remap, scan
 
     def knn2(q, t, tile_q=512, tile_t=2048):
         return matching.knn2_plain(q, t, tile_q)
@@ -154,7 +182,9 @@ def plain_path():
     with mock.patch.object(integral, "integral_image", scan.integral_image_plain), \
             mock.patch.object(match, "use_kernel", lambda x: False), \
             mock.patch.object(matching, "knn2", knn2), \
-            mock.patch.object(reduce, "icp_getab", reduce.icp_getab_plain):
+            mock.patch.object(reduce, "icp_getab", reduce.icp_getab_plain), \
+            mock.patch.object(pyramid, "pyrdown", pyramid.pyrdown_plain), \
+            mock.patch.object(remap, "remap", remap.remap_plain):
         yield
 
 
@@ -239,7 +269,7 @@ class Smoke:
 
     # ---- (a) -----------------------------------------------------------------
     def build(self):
-        from opencv_contrib_tpu_torch.ops.cuda import _build, reduce, scan
+        from opencv_contrib_tpu_torch.ops.cuda import _build, pyramid, reduce, remap, scan
         from opencv_contrib_tpu_torch.ops.cuda import matching as fused
         from opencv_contrib_tpu_torch.rgbd import frame
 
@@ -265,6 +295,16 @@ class Smoke:
         check(float(n) == float(n_p) > 0 and torch.allclose(A, Ap, rtol=1e-4, atol=1e-4 * float(Ap.abs().max()))
               and torch.allclose(b, bp, rtol=1e-4, atol=1e-4 * float(Ap.abs().max())),
               f"grid_reduce_vec launch check: n {float(n)} vs {float(n_p)}")
+        img = self.card(self.gen.uniform(0, 4, size=(13, 29)))
+        for border in pyramid.BORDERS:
+            err = float((pyramid.pyrdown(img, border) - pyramid.pyrdown_plain(img, border)).abs().max())
+            check(err <= 1e-6, f"pyrdown ({border}) launch check: {err}")
+        maps = self.card(self.gen.uniform(0, 4, size=(3, 13, 29)))
+        dy, dx = self.card(self.gen.uniform(-6, 6, size=(13, 29))), self.card(self.gen.uniform(-6, 6, size=(13, 29)))
+        for max_disp in (2, None):
+            err = float((remap.remap(maps, dy, dx, max_disp) - remap.remap_plain(maps, dy, dx, max_disp)).abs().max())
+            check(err <= 1e-5, f"remap (max_disp {max_disp}) launch check: {err}")
+        torch.cuda.synchronize()
         emit({"phase": "a_build", "build_s": build_s, "libraries": sorted(libs),
               "nvcc_flags": list(_build.NVCC_FLAGS), "ok": True})
 
@@ -636,7 +676,7 @@ class Smoke:
         operations, and the number of kernel launches per tick."""
         from torch.profiler import ProfilerActivity, profile
 
-        kf = self.bench_kf
+        kf, self.bench_kf = self.bench_kf, None  # the 1 GB volume goes with this phase
         frames = self.entry.kinfu_bench_frames(7 + n)[7:]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall = self.wall_s(lambda: [kf.update(f, sync=False) for f in frames])
@@ -675,6 +715,187 @@ class Smoke:
         check(set(out) == {"make_frame", "icp", "integrate", "raycast"}, f"KinFu stage ranges: {sorted(out)}")
         return out
 
+    # ---- (i) -----------------------------------------------------------------
+    def smooth_field(self, H: int, W: int, amp: float):
+        """A smooth random displacement (H, W) on the card, |d| <= amp: coarse
+        normal noise, upsampled bilinearly."""
+        from opencv_contrib_tpu_torch.ops.image import resize
+
+        torch = self.torch
+        g = torch.from_numpy(self.gen.standard_normal((H // 16 + 2, W // 16 + 2)).astype(np.float32))
+        f = resize(g, (H, W))
+        return (amp * f / f.abs().max()).to(self.dev)
+
+    def pyrdown_remap(self):
+        import torch.nn.functional as F
+
+        from opencv_contrib_tpu_torch.ops.cuda import pyramid, remap
+        from opencv_contrib_tpu_torch.utils.precision import f32_matmul_precision
+
+        torch = self.torch
+        k = pyramid.pyr_kernel(self.dev)
+        w2d = torch.outer(k, k)[None, None]
+        pyr_rows, remap_rows = [], []
+        with f32_matmul_precision():  # cuDNN's convolution in full f32 too
+            for H, W in PYRDOWN_SHAPES:
+                x = self.card(self.gen.uniform(0, 4, size=(H, W)))
+                Ho, Wo = (H + 1) // 2, (W + 1) // 2
+                for border in pyramid.BORDERS:
+                    out, ref = pyramid.pyrdown(x, border), pyramid.pyrdown_plain(x, border)
+                    xp = F.pad(x[None, None], (2, 2, 2, 2), mode="reflect" if border == "reflect101" else "replicate")
+                    lib_out = F.conv2d(xp, w2d, stride=2)[0, 0]
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max())
+                    check(tuple(out.shape) == (Ho, Wo) and err <= 1e-6, f"pyrdown {border} {H}x{W}: max err {err}")
+                    # bytes: the input read once, the output written once; operations:
+                    # 9 for each of the 5 vertical sums and 9 for the horizontal one
+                    nbytes, ops = 4 * (H * W + Ho * Wo), 54 * Ho * Wo
+                    row = {"border": border, "shape": [H, W], "out_shape": [Ho, Wo], "max_abs_err": err,
+                           "library_max_abs_diff": float((lib_out - ref).abs().max()),
+                           **self.times({"": lambda: pyramid.pyrdown(x, border),
+                                         "plain_": lambda: pyramid.pyrdown_plain(x, border),
+                                         "library_": lambda: F.conv2d(xp, w2d, stride=2)}),
+                           "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
+                           "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes"}
+                    pyr_rows.append(row)
+                    if (H, W) == PYRDOWN_SHAPES[0] and border == "reflect101":
+                        self.kernels["pyrdown"] = row
+            for H, W in REMAP_SHAPES:
+                dy, dx = self.smooth_field(H, W, REMAP_FIELD_PX), self.smooth_field(H, W, REMAP_FIELD_PX)
+                y = torch.arange(H, dtype=torch.float32, device=self.dev)[:, None]
+                x = torch.arange(W, dtype=torch.float32, device=self.dev)[None, :]
+                for C in (1, 3):
+                    maps = self.card(self.gen.uniform(0, 4, size=(C, H, W)))
+                    for max_disp in (4, None):
+                        out, ref = remap.remap(maps, dy, dx, max_disp), remap.remap_plain(maps, dy, dx, max_disp)
+                        # the library call: grid_sample's border padding clamps each
+                        # coordinate to the image; the bounded contract's clip is applied
+                        # to the displacement outside the timed call
+                        lim = float("inf") if max_disp is None else float(max_disp)
+                        gy, gx = y + dy.clamp(-lim, lim), x + dx.clamp(-lim, lim)
+                        grid = torch.stack([gx * (2.0 / (W - 1)) - 1.0, gy * (2.0 / (H - 1)) - 1.0], dim=-1)[None]
+
+                        def library():
+                            return F.grid_sample(maps[None], grid, mode="bilinear", padding_mode="border",
+                                                 align_corners=True)
+
+                        torch.cuda.synchronize()
+                        err = float((out - ref).abs().max())
+                        check(err <= 1e-5, f"remap C={C} max_disp={max_disp} {H}x{W}: max err {err}")
+                        leaves = float(((y + dy < 0) | (y + dy > H - 1) | (x + dx < 0) | (x + dx > W - 1))
+                                       .float().mean())
+                        # bytes: dy and dx read once, C maps read once and C written once;
+                        # operations: about 14 for the coordinates and weights, 7 per map
+                        nbytes, ops = (8 + 8 * C) * H * W, (14 + 7 * C) * H * W
+                        row = {"max_disp": max_disp, "C": C, "shape": [H, W], "max_abs_err": err,
+                               "field_px": REMAP_FIELD_PX, "share_outside_image": leaves,
+                               "library_max_abs_diff": float((library()[0] - ref).abs().max()),
+                               **self.times({"": lambda: remap.remap(maps, dy, dx, max_disp),
+                                             "plain_": lambda: remap.remap_plain(maps, dy, dx, max_disp),
+                                             "library_": library}),
+                               "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
+                               "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes"}
+                        remap_rows.append(row)
+                        if (H, W) == REMAP_SHAPES[0] and C == 3 and max_disp is None:
+                            self.kernels["remap"] = row
+        emit({"phase": "i_pyrdown_remap",
+              "tolerance": "pyrdown: max abs err <= 1e-6 on inputs in [0, 4) (the kernel rounds as the plain "
+                           "version: 0 expected); remap: <= 1e-5 on maps in [0, 4)",
+              "timing": "ms: device time per call (torch.profiler); wall_ms: CUDA events per call",
+              "library_call": {"pyrdown": "F.conv2d(reflect- or edge-padded input, 5x5 binomial, stride=2), "
+                                          "the pad outside the timed call",
+                               "remap": "F.grid_sample(bilinear, padding_mode=border, align_corners=True), the "
+                                        "grid and the bounded contract's clip outside the timed call"},
+              "pyrdown": pyr_rows, "remap": remap_rows, "ok": True})
+
+    # ---- (j) -----------------------------------------------------------------
+    def dense_flow(self):
+        from opencv_contrib_tpu_torch.flow import dis
+
+        torch, entry = self.torch, self.entry
+        I0, I1, gt = entry.flow_pair()
+        gt_c = self.card(gt)
+
+        def interior_epe(flow):
+            return float(dis.epe(flow[8:-8, 8:-8], gt_c[8:-8, 8:-8]))
+
+        for m in FLOW_METHODS:  # warm-up: cuBLAS, allocator
+            entry.dense_flow(I0, I1, m)
+        split = {}
+
+        def main_path():
+            out = {}
+            for m in FLOW_METHODS:
+                before = self.kern.launches()
+                out[m] = entry.dense_flow(I0, I1, m)
+                after = self.kern.launches()
+                split[m] = {k: after[k] - before[k] for k in PATH_KERNELS["dense_flow"]}
+            return out
+
+        flows, s = self.counted("dense_flow", main_path)
+        check(split == FLOW_LAUNCHES, f"dense-flow launches {split}, expected {FLOW_LAUNCHES}")
+        res = {}
+        with plain_path():
+            plain = {m: entry.dense_flow(I0, I1, m) for m in FLOW_METHODS}
+        Is0, Is1, _ = entry.flow_pair(96, 128)
+        for m in FLOW_METHODS:
+            f = flows[m]
+            check(tuple(f.shape) == (436, 1024, 2) and bool(torch.isfinite(f).all()), f"{m}: flow shape / finite")
+            epe = interior_epe(f)
+            check(epe <= FLOW_EPE_GATE[m], f"{m}: interior EPE {epe} > {FLOW_EPE_GATE[m]}")
+            d_plain = float((f - plain[m]).abs().max())
+            check(d_plain <= FLOW_PLAIN_TOL, f"{m}: plain path differs by {d_plain} px")
+            card = entry.dense_flow(Is0, Is1, m, levels=3).cpu()
+            host = entry.dense_flow(Is0, Is1, m, device="cpu", levels=3)
+            d_cpu = float((card - host).abs().max())
+            check(d_cpu <= FLOW_CPU_TOL, f"{m}: 96x128 pair, card vs CPU {d_cpu} px")
+            # the full-size pair on the CPU: how far rounding alone moves the field
+            host_full = entry.dense_flow(I0, I1, m, device="cpu")
+            diff = (f.cpu() - host_full).abs().amax(dim=-1)
+            worst = int(diff.argmax())
+            full_vs_cpu = {"max_abs": float(diff.max()), "argmax_yx": [worst // diff.shape[1], worst % diff.shape[1]],
+                           "interior_max_abs": float(diff[8:-8, 8:-8].max()), "mean_abs": float(diff.mean()),
+                           "epe_interior_cpu": float(dis.epe(host_full[8:-8, 8:-8], torch.from_numpy(gt[8:-8, 8:-8])))}
+            ms = []
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()  # what the script holds already (this phase's flows)
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(N_FLOW_TIMED):
+                _, t = self.wall_s(lambda: entry.dense_flow(I0, I1, m))
+                ms.append(t * 1e3)
+            res[m] = {"epe_interior": epe, "epe_gate": FLOW_EPE_GATE[m], "epe_plain_path": interior_epe(plain[m]),
+                      "plain_path_max_abs_diff": d_plain, "small_card_vs_cpu_max_abs_diff": d_cpu,
+                      "full_card_vs_cpu": full_vs_cpu,
+                      "launches": split[m], "ms_per_pair_median": float(np.median(ms)), "ms_per_pair": ms,
+                      "peak_mem_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "peak_mem_of_a_pair_gb": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+                      "profile": self.profile_pair(I0, I1, m)}
+        emit({"phase": "j_dense_flow", "frames": [2, 436, 1024], "pair": "entry.flow_pair(): rotation 0.01 rad "
+              "about the center + shift (3, -5) px, texture of tests/test_flow.py",
+              "params": {"dis": "levels 4, stride 8, radius 8, 12 LK iterations, 3 x 30 Jacobi sweeps",
+                         "tvl1": "levels 4, 5 outer x 30 inner iterations"},
+              "s_main_path": s, "launches": self.launches["dense_flow"], **res,
+              "tolerance": f"interior EPE (8 px border) <= {FLOW_EPE_GATE}; plain path within {FLOW_PLAIN_TOL} px; "
+                           f"96x128 at 3 levels, card vs CPU within {FLOW_CPU_TOL} px (max abs)",
+              "timing": f"ms_per_pair: host clock around one synchronised pair, {N_FLOW_TIMED} warm runs",
+              "ok": True})
+
+    def profile_pair(self, I0, I1, method: str) -> dict:
+        """One pair under torch.profiler: device busy share, device launches,
+        top device operations and the two kernels' launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = self.wall_s(lambda: self.entry.dense_flow(I0, I1, method))
+        ev = kernel_events(prof)
+        busy_us = sum(e.self_device_time_total for e in ev)
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
+        return {"wall_s_under_profiler": wall, "device_busy_s": busy_us * 1e-6,
+                "device_busy_share": busy_us * 1e-6 / wall, "device_launches": sum(e.count for e in ev),
+                "top_device": [{"name": e.key[:80], "count": e.count, "us": e.self_device_time_total} for e in top],
+                "our_kernels": {k: {"count": e.count, "us_per_launch": e.self_device_time_total / e.count}
+                                for e in ev for k in DEVICE_KERNELS if is_ours(e.key, k)}}
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -697,7 +918,7 @@ def main() -> int:
         return 2
     smoke = Smoke()
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
-                  smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu):
+                  smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,6 +10,9 @@
 - `kinfu_track(depths, intr, ...)`: the KinectFusion tick over a depth
   sequence (`bench.py::bench_kinfu_vga512` runs it at VGA / 512^3 on the
   frames of `kinfu_bench_frames`).
+- `dense_flow(I0, I1, method)`: DIS-class or TV-L1 dense optical flow;
+  `flow_pair()` makes a textured pair at MPI-Sintel's 436 x 1024 with its
+  true flow.
 
 They run on the card unless the caller passes `device="cpu"`; with no card
 they raise. Matrix products run in full f32 inside them.
@@ -25,7 +28,10 @@ import torch
 from opencv_contrib_tpu_torch.ba import bundle
 from opencv_contrib_tpu_torch.core import camera as cam
 from opencv_contrib_tpu_torch.features import describe, detect, match
+from opencv_contrib_tpu_torch.flow import dis, tvl1
 from opencv_contrib_tpu_torch.mvg import resection
+from opencv_contrib_tpu_torch.ops import filters
+from opencv_contrib_tpu_torch.ops.image import warp_affine
 from opencv_contrib_tpu_torch.rgbd import kinfu
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.utils.device import resolve
@@ -150,3 +156,41 @@ def kinfu_bench_frames(n: int, H: int = 480, W: int = 640) -> np.ndarray:
     base = (2.0 + 0.3 * np.sin(np.linspace(0, 6, W))[None, :]
             + 0.2 * np.cos(np.linspace(0, 4, H))[:, None]).astype(np.float32)
     return np.stack([base + 0.002 * i for i in range(n)])
+
+
+FLOW_METHODS = {"dis": dis.compute, "tvl1": tvl1.compute}
+
+
+@f32_matmuls
+def dense_flow(I0, I1, method: str = "dis", device="cuda", **params) -> torch.Tensor:
+    """Dense flow I0 -> I1 of two (H, W) frames: (H, W, 2) as (dy, dx), on
+    `device`. `method` "dis" (`flow.dis.compute`) or "tvl1"
+    (`flow.tvl1.compute`); `params` go to it (levels, ...)."""
+    if method not in FLOW_METHODS:
+        raise ValueError(f"dense_flow: method must be one of {sorted(FLOW_METHODS)}, got {method!r}")
+    dev = resolve(device)
+    return FLOW_METHODS[method](_f32(I0, dev), _f32(I1, dev), **params)
+
+
+def flow_pair(H: int = 436, W: int = 1024, seed: int = 3, angle: float = 0.01, shift_xy=(3.0, -5.0)):
+    """A textured frame pair with known flow, at MPI-Sintel's frame size by
+    default: I0 is seeded uniform noise blurred by a Gaussian of sigma 1.5,
+    times 4 (`tests/test_flow.py`'s texture); I1 = warp_affine(I0, M) with M
+    (output -> input) a rotation by `angle` about the center plus the shift
+    (x, y). Returns (I0, I1, flow) as float32 numpy arrays, flow (H, W, 2)
+    (dy, dx) = M^-1 p - p."""
+    rng = np.random.default_rng(seed)
+    noise = torch.from_numpy(rng.uniform(0, 1, size=(H, W)).astype(np.float32))
+    I0 = filters.gaussian_blur(noise, 1.5) * 4.0
+    c, s = np.cos(angle), np.sin(angle)
+    cy, cx = H / 2, W / 2
+    M = np.array([[c, -s, cx - c * cx + s * cy + shift_xy[0]],
+                  [s, c, cy - s * cx - c * cy + shift_xy[1]]], np.float32)
+    I1 = warp_affine(I0, torch.from_numpy(M))
+    Mh = np.eye(3, dtype=np.float32)
+    Mh[:2] = M
+    Minv = np.linalg.inv(Mh)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    gx = Minv[0, 0] * x + Minv[0, 1] * y + Minv[0, 2] - x
+    gy = Minv[1, 0] * x + Minv[1, 1] * y + Minv[1, 2] - y
+    return I0.numpy(), I1.numpy(), np.stack([gy, gx], axis=-1).astype(np.float32)

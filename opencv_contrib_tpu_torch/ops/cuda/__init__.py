@@ -23,10 +23,11 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 def kernels():
     """The launch-counted kernel wrappers, by name."""
-    from opencv_contrib_tpu_torch.ops.cuda import matching, reduce, scan
+    from opencv_contrib_tpu_torch.ops.cuda import matching, pyramid, reduce, remap, scan
 
     return {"knn2": matching.knn2, "integral_image": scan.integral_image,
-            "grid_scan": scan.grid_scan, "grid_reduce_vec": reduce.icp_getab}
+            "grid_scan": scan.grid_scan, "grid_reduce_vec": reduce.icp_getab,
+            "pyrdown": pyramid.pyrdown, "remap": remap.remap}
 
 
 def reset_launches() -> None:

@@ -45,6 +45,14 @@ SIGNATURES = {
         # n, Hd, Wd, dist2, cos_thresh, blocks, partials, out, stream
         "icp_getab_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],
     },
+    "pyrdown": {
+        # x, out, H, W, border, stream
+        "pyrdown_f32": [_P, _P, _I, _I, _I, _P],
+    },
+    "remap": {
+        # maps, dy, dx, out, C, H, W, bounded, max_disp, ylim, xlim, stream
+        "remap_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,6 @@
-"""Separable filters, gradients and the bilateral filter (the port of the
-parts of opencv_contrib_tpu/ops/filters.py the frontend and KinectFusion
-use). Separable filters are shift-adds over a reflect-padded image
+"""Separable filters, gradients, the bilateral and the 3x3 median filter
+(the port of the parts of opencv_contrib_tpu/ops/filters.py the frontend,
+KinectFusion and dense flow use). Separable filters are shift-adds over a reflect-padded image
 (BORDER_REFLECT_101), as in the JAX version."""
 
 from __future__ import annotations
@@ -99,3 +99,10 @@ def bilateral_filter(img: torch.Tensor, sigma_space: float = 2.0, sigma_color: f
             den = den + w
     out = num / torch.clamp(den, min=1e-12)
     return torch.where(valid, out, 0.0)
+
+
+def median_filter3(img: torch.Tensor) -> torch.Tensor:
+    """3x3 median over 9 shifted copies; the shifts WRAP at the borders, as
+    the JAX version's `jnp.roll` stack. The median of 9 is the middle one."""
+    stack = torch.stack([torch.roll(img, (dy, dx), dims=(0, 1)) for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+    return torch.median(stack, dim=0).values

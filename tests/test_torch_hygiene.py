@@ -41,10 +41,33 @@ def test_port_has_its_files():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for need in ("entry.py", "interop.py", "ops/cuda/_build.py", "ops/cuda/scan.py",
                  "ops/cuda/matching.py", "features/detect.py", "ba/bundle.py", "rgbd/frame.py", "rgbd/icp.py",
-                 "rgbd/tsdf.py", "rgbd/kinfu.py", "core/pyramid.py", "ops/cuda/reduce.py", "utils/sdf_scene.py"):
+                 "rgbd/tsdf.py", "rgbd/kinfu.py", "core/pyramid.py", "ops/cuda/reduce.py", "utils/sdf_scene.py",
+                 "flow/dis.py", "flow/tvl1.py", "flow/lk.py", "ops/cuda/pyramid.py", "ops/cuda/remap.py"):
         assert need in names
-    assert (PORT / "ops/cuda/csrc/reduce_vec.cu").exists()
+    for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu"):
+        assert (PORT / "ops/cuda/csrc" / cu).exists()
     assert (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow"])
+def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
+    """Asked for "cuda" (their default) on a machine without a card, the
+    frontend, keyframe and dense-flow entry points raise instead of running
+    on the CPU."""
+    import numpy as np
+    import torch
+
+    from opencv_contrib_tpu_torch import entry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((32, 48), np.float32)
+    intr = np.array([50.0, 50.0, 24.0, 16.0, 0, 0, 0, 0, 0], np.float32)
+    call = {"frontend": lambda: entry.frontend(img, img, K=8),
+            "keyframe_tick": lambda: entry.keyframe_tick(np.stack([img, img]), intr, K=8, n_ba=1, ba_views=2,
+                                                         ba_points=8),
+            "dense_flow": lambda: entry.dense_flow(img, img, "tvl1", levels=2)}[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 def test_kinfu_entry_points_need_a_card_for_cuda(monkeypatch):

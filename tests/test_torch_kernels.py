@@ -18,15 +18,19 @@ import pytest
 import torch
 
 from opencv_contrib_tpu.features import match as xmatch
+from opencv_contrib_tpu.ops import image as jimage
 from opencv_contrib_tpu.ops import integral as jinteg
 from opencv_contrib_tpu.ops.pallas import grid as pgrid
 from opencv_contrib_tpu.ops.pallas import matching as pmatch
 from opencv_contrib_tpu.ops.pallas import pipeline as ppipe
+from opencv_contrib_tpu.ops.pallas import remap as premap
 from opencv_contrib_tpu_torch.features import match as fmatch
+from opencv_contrib_tpu_torch.ops import image as timage
 from opencv_contrib_tpu_torch.ops import integral as tinteg
 from opencv_contrib_tpu_torch.ops import cuda as tcuda
-from opencv_contrib_tpu_torch.ops.cuda import _build, reduce, scan
+from opencv_contrib_tpu_torch.ops.cuda import _build, pyramid, reduce, scan
 from opencv_contrib_tpu_torch.ops.cuda import matching as tmatch
+from opencv_contrib_tpu_torch.ops.cuda import remap as tremap
 
 
 # The suite runs several worker processes beside XLA's thread pools; at
@@ -227,6 +231,127 @@ def test_grid_reduce_vec_plain_matches_pallas(rng, n_in):
         assert int(out[1]) == 100 * 257
 
 
+def _pyrdown_reference(x, mode):
+    """tests/test_pallas_pipeline.py's numpy reference (float64), for either
+    border and any size: the padded separable binomial blur, decimated."""
+    k = np.array([1, 4, 6, 4, 1], np.float64) / 16.0
+    H, W = x.shape
+    pad = np.pad(x.astype(np.float64), ((2, 2), (0, 0)), mode=mode)
+    tmp = sum(k[i] * pad[i:i + H] for i in range(5))
+    pad = np.pad(tmp, ((0, 0), (2, 2)), mode=mode)
+    return sum(k[i] * pad[:, i:i + W] for i in range(5))[::2, ::2]
+
+
+def test_grid_pyrdown_plain_matches_pallas(rng):
+    """Twin of tests/test_pallas_pipeline.py::test_grid_pyrdown_matches_reference
+    (64x96, replicate border), held to its numpy reference and to the Pallas
+    kernel in interpret mode, same tolerance (rtol, atol 1e-4)."""
+    x = rng.normal(size=(64, 96)).astype(np.float32)
+    out = N(pyramid.pyrdown(T(x), border="replicate"))
+    assert out.shape == (32, 48)
+    np.testing.assert_allclose(out, _pyrdown_reference(x, "edge"), rtol=1e-4, atol=1e-4)
+    pal = np.asarray(ppipe.grid_pyrdown(jnp.asarray(x), interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(out, N(pyramid.grid_pyrdown_plain(T(x))))
+
+
+@pytest.mark.parametrize("shape", [(109, 256), (55, 128), (64, 96)])
+def test_pyrdown_borders_on_odd_levels(rng, shape):
+    """Both borders at any size, the flow pyramid's odd 109x256 -> 55x128
+    level included: each against the float64 reference (atol 2e-6 on values
+    in [0, 4)); only the first and last output row and column read past the
+    edge, so the two borders agree everywhere else."""
+    x = rng.uniform(0, 4, shape).astype(np.float32)
+    refl = N(pyramid.pyrdown(T(x)))
+    repl = N(pyramid.pyrdown(T(x), border="replicate"))
+    assert refl.shape == repl.shape == ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
+    np.testing.assert_allclose(refl, _pyrdown_reference(x, "reflect"), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(repl, _pyrdown_reference(x, "edge"), rtol=0, atol=2e-6)
+    np.testing.assert_array_equal(N(pyramid.pyr_down_plain(T(x))), refl)
+    np.testing.assert_array_equal(refl[1:-1, 1:-1], repl[1:-1, 1:-1])
+    assert np.abs(refl[0] - repl[0]).max() > 0 and np.abs(refl[-1] - repl[-1]).max() > 0
+
+
+def test_pyrdown_rejects_unknown_border():
+    with pytest.raises(ValueError, match="border"):
+        pyramid.pyrdown(torch.zeros(8, 8), border="wrap")
+
+
+def _field(hw, amp, seed):
+    """tests/test_pallas_remap.py's smooth random displacement field."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    g = rng.standard_normal((max(H // 16, 1), max(W // 16, 1))).astype(np.float32)
+    f = np.asarray(jax.image.resize(jnp.asarray(g), (H, W), "bilinear"))
+    return (amp * f / max(np.abs(f).max(), 1e-6)).astype(np.float32)
+
+
+REMAP_CASES = {
+    # tests/test_pallas_remap.py's five cases: (shape, seed of img, dy, dx, max_disp, tile_h);
+    # a field is ("field", amplitude, seed), a constant ("const", value)
+    "interior": ((96, 128), 0, ("field", 3.0, 1), ("field", 3.0, 2), 4, 64),
+    "identity": ((64, 128), 1, ("const", 0.0), ("const", 0.0), 2, 64),
+    "integer_shift": ((64, 128), 2, ("const", 2.0), ("const", -1.0), 3, 64),
+    "clamps_oversized": ((64, 128), 3, ("const", 10.0), ("const", 0.0), 2, 64),
+    "non_tile_aligned": ((50, 128), 4, ("field", 1.5, 5), ("field", 1.5, 6), 2, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REMAP_CASES))
+def test_remap_bounded_plain_matches_pallas(case):
+    """remap_bounded_plain (and the wrapper on the CPU) against the Pallas
+    `remap_bounded` in interpret mode and its XLA sampler baseline, in every
+    case of tests/test_pallas_remap.py, over the whole image (the Pallas
+    test compares with the XLA sampler inside a border only): atol 2e-5,
+    the Pallas test's tolerance."""
+    shape, seed, sy, sx, R, tile_h = REMAP_CASES[case]
+    img = np.random.default_rng(seed).uniform(0, 1, shape).astype(np.float32)
+
+    def make(spec):
+        return _field(shape, spec[1], spec[2]) if spec[0] == "field" else np.full(shape, spec[1], np.float32)
+
+    dy, dx = make(sy), make(sx)
+    pal = np.asarray(premap.remap_bounded(jnp.asarray(img), jnp.asarray(dy), jnp.asarray(dx), max_disp=R,
+                                          tile_h=tile_h, interpret=True))
+    out = N(tremap.remap(T(img), T(dy), T(dx), max_disp=R))
+    np.testing.assert_allclose(out, pal, rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(out, N(tremap.remap_bounded_plain(T(img), T(dy), T(dx), R)))
+    xla = np.asarray(premap.remap_bounded_xla(jnp.asarray(img), jnp.asarray(dy), jnp.asarray(dx), max_disp=R))
+    np.testing.assert_allclose(out, xla, rtol=0, atol=2e-5)
+
+
+def test_remap_flow_warp_matches_sample_bilinear_multi(rng):
+    """The flow warp (max_disp=None) of C = 3 maps by smooth fields up to
+    +-12 px, which leave the image at every border: against the JAX
+    sample_bilinear_multi at the grid plus the displacement, across the
+    coordinate clamp to [0, H - 1.001] (atol 1e-5 on values in [0, 4))."""
+    H, W = 55, 128
+    maps = rng.uniform(0, 4, (3, H, W)).astype(np.float32)
+    dy, dx = _field((H, W), 12.0, 8), _field((H, W), 12.0, 9)
+    out = N(tremap.remap(T(maps), T(dy), T(dx)))
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    ref = np.asarray(jimage.sample_bilinear_multi(jnp.asarray(maps), jnp.asarray(y + dy), jnp.asarray(x + dx)))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+    # the port's sampler sums the corners by a reduction: an ulp apart
+    tref = N(timage.sample_bilinear_multi(T(maps), T(y) + T(dy), T(x) + T(dx)))
+    np.testing.assert_allclose(out, tref, rtol=0, atol=2e-6)
+    assert (y + dy < 0).any() and (y + dy > H - 1).any() and (x + dx < 0).any() and (x + dx > W - 1).any()
+    one = N(tremap.remap(T(maps[1]), T(dy), T(dx)))  # (H, W) maps: one channel
+    np.testing.assert_array_equal(one, out[1])
+
+
+def test_remap_flow_clamp_bound_rounds_once():
+    """The coordinate clamp's bound is H - 1.001 rounded once to float32,
+    the bound torch.clamp and jnp.clip take from a Python float; the
+    wrapper hands the kernel that value."""
+    for n in (55, 436, 1024):
+        lim = tremap._clamp_limit(n)
+        assert lim == float(np.float32(n - 1.001))
+        c = float(torch.clamp(torch.tensor([1e6]), 0.0, n - 1.001)[0])
+        assert c == lim
+        assert float(jnp.clip(jnp.float32(1e6), 0.0, n - 1.001)) == lim
+
+
 def test_cpu_calls_leave_launch_counters_at_zero(rng):
     tcuda.reset_launches()
     q = T(rng.normal(size=(64, 16)).astype(np.float32))
@@ -238,7 +363,12 @@ def test_cpu_calls_leave_launch_counters_at_zero(rng):
     tinteg.integral(q)
     (sp, sn, sv, dp, dn, dv), intr = _getab_frames(rng)
     reduce.icp_getab(torch.eye(4), T(sp), T(sn), T(sv), T(dp), T(dn), T(dv), T(intr))
-    assert tcuda.launches() == {"knn2": 0, "integral_image": 0, "grid_scan": 0, "grid_reduce_vec": 0}
+    pyramid.pyrdown(q)
+    pyramid.pyrdown(q, border="replicate")
+    tremap.remap(torch.stack([q, q]), q, q)
+    tremap.remap(q, q, q, max_disp=2)
+    assert tcuda.launches() == {"knn2": 0, "integral_image": 0, "grid_scan": 0, "grid_reduce_vec": 0,
+                                "pyrdown": 0, "remap": 0}
 
 
 def test_other_devices_raise():
@@ -246,7 +376,8 @@ def test_other_devices_raise():
     pts = torch.zeros(4, 4, 3, device="meta")
     ok = torch.zeros(4, 4, dtype=torch.bool, device="meta")
     for fn in (scan.grid_scan, scan.integral_image, lambda a: tmatch.knn2(a, a),
-               lambda a: reduce.icp_getab(a, pts, pts, ok, pts, pts, ok, a[0])):
+               lambda a: reduce.icp_getab(a, pts, pts, ok, pts, pts, ok, a[0]),
+               pyramid.pyrdown, lambda a: tremap.remap(a, a, a)):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             fn(x)
 
