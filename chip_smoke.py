@@ -6,8 +6,8 @@
 It builds the hand-written kernels from opencv_contrib_tpu_torch/ops/cuda/csrc
 (first use, a few seconds of nvcc), holds each kernel against its plain
 PyTorch version on the card, drives the port's main paths through the entry
-points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`), and
-checks their outputs.
+points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`,
+`entry.dense_flow`, `entry.photometric`), and checks their outputs.
 
 Phases, one JSON line each:
   (a) build and launch checks at small ragged shapes;
@@ -41,7 +41,18 @@ Phases, one JSON line each:
   (j) dense flow: `entry.dense_flow` with DIS and TV-L1 on `entry.flow_pair()`
       (MPI-Sintel's 436x1024) with the counters read around it, the interior
       EPE gates, the plain path, a 96x128 pair on the card against the CPU,
-      ms per pair, peak memory, and one profiled pair per method.
+      ms per pair, peak memory, and one profiled pair per method;
+  (k) grid_transform (the path's maps, strided channel views included),
+      streamed_transform, grid_reduce (sum, min, max) and grid_histogram
+      (both rules, 8x8 batched tiles) against their plain versions at
+      1080x1920, at the clip's 8640x5760 for the stream, and at ragged
+      small shapes, each timed beside the nearest PyTorch call;
+  (l) the photometric path: `entry.photometric` on `entry.photo_clip()`
+      (8 x 1080 x 1920 x 3) with the counters read around it and held to
+      the counts its loops give, the restoration gate (the balanced clip
+      nearer the clean one than the degraded clip is), the plain path on
+      the card, a 2 x 100 x 130 clip on the card against the CPU, ms per
+      frame, peak memory and one profiled frame.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -75,15 +86,25 @@ SOURCES = {  # kernel -> (CUDA source, the Pallas function it replaces)
                         "opencv_contrib_tpu/ops/pallas/grid.py:155"),
     "pyrdown": ("opencv_contrib_tpu_torch/ops/cuda/csrc/pyrdown.cu", "opencv_contrib_tpu/ops/pallas/pipeline.py:87"),
     "remap": ("opencv_contrib_tpu_torch/ops/cuda/csrc/remap.cu", "opencv_contrib_tpu/ops/pallas/remap.py:41"),
+    "grid_transform": ("opencv_contrib_tpu_torch/ops/cuda/csrc/transform.cu",
+                       "opencv_contrib_tpu/ops/pallas/grid.py:54"),
+    "streamed_transform": ("opencv_contrib_tpu_torch/ops/cuda/csrc/transform.cu",
+                           "opencv_contrib_tpu/ops/pallas/pipeline.py:143"),
+    "grid_reduce": ("opencv_contrib_tpu_torch/ops/cuda/csrc/reduce.cu", "opencv_contrib_tpu/ops/pallas/grid.py:91"),
+    "grid_histogram": ("opencv_contrib_tpu_torch/ops/cuda/csrc/histogram.cu",
+                       "opencv_contrib_tpu/ops/pallas/grid.py:205"),
 }
 # the kernels each main path runs; a kernel's launches are reported from the
 # last path that runs it
 PATH_KERNELS = {"frontend": ("knn2", "integral_image", "grid_scan"),
                 "keyframe_tick": ("knn2", "integral_image", "grid_scan"), "kinfu_tick": ("grid_reduce_vec",),
-                "dense_flow": ("pyrdown", "remap")}
+                "dense_flow": ("pyrdown", "remap"),
+                "photometric": ("grid_transform", "streamed_transform", "grid_reduce", "grid_histogram")}
 LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
 DEVICE_KERNELS = ("knn2_kernel", "knn2_merge_kernel", "row_sqnorm_kernel", "scan_rows_kernel", "scan_cols_kernel",
-                  "grid_reduce_vec_kernel", "icp_getab_finalize_kernel", "pyrdown_kernel", "remap_kernel")
+                  "grid_reduce_vec_kernel", "icp_getab_finalize_kernel", "pyrdown_kernel", "remap_kernel",
+                  "grid_transform_kernel", "streamed_transform_kernel", "grid_reduce_kernel",
+                  "grid_reduce_finalize_kernel", "grid_histogram_kernel")
 PYRDOWN_SHAPES = [(436, 1024), (218, 512), (109, 256), (480, 640)]  # the Sintel pyramid's levels 0-2, and VGA
 REMAP_SHAPES = [(436, 1024), (55, 128)]  # the Sintel pyramid's finest and coarsest levels
 REMAP_FIELD_PX = 12.0  # smooth random displacements up to +-12 px leave the image at the borders
@@ -101,6 +122,19 @@ FLOW_PLAIN_TOL = 1e-3  # px, max abs, kernel path against the plain path on the 
 # the card against the CPU, border and interior apart
 FLOW_CPU_TOL = 1e-2
 N_FLOW_TIMED = 5
+PHOTO_CLIP = (8, 1080, 1920)  # entry.photo_clip()'s defaults: T, H, W
+PHOTO_SMALL = (2, 100, 130)  # tests/test_torch_photometric.py's clip: its CLAHE tiles crop the frame
+# launches per frame on entry.photometric: grid_transform 3 (grayworld gains)
+# + 2 (gray of the output and of the clean frame) + 1 (SSIM map) + 1 (GMS
+# map) + 2 x 5 (BRISQUE: MSCN and 4 products a scale) + 1 (the score's
+# MSCN); grid_reduce 4 (grayworld) + 1 (MSE) + 1 (SSIM) + 2 (GMSD) + 2 x 26
+# (BRISQUE: 2 GGD and 4 x 6 AGGD moments a scale) + 2 (the score's GGD);
+# grid_histogram 1 (CLAHE's tiles); streamed_transform 1 a clip (the gamma)
+PHOTO_PER_FRAME = {"grid_transform": 18, "grid_reduce": 62, "grid_histogram": 1}
+N_PHOTO_TIMED = 3
+ALPHA_FEATURES = [0, 2, 6, 10, 14, 18, 20, 24, 28, 32]  # BRISQUE's shape parameters, points of a 0.01 grid
+ALPHA_STEP = 0.01 + 1e-6
+ULP2 = 2.0 ** -22  # two float32 ulp, relative
 KNN2_SHAPES = [(8192, 8192, 128), (1000, 3000, 64), (512, 512, 64)]
 SCAN_SHAPES = [(480, 640), (2048, 2048)]
 N_FRAMES, K, N_BA = 32, 512, 10
@@ -174,17 +208,28 @@ def plain_path():
     for a CUDA tensor, so this check makes it here, at the call sites."""
     from opencv_contrib_tpu_torch.features import match
     from opencv_contrib_tpu_torch.ops import integral
-    from opencv_contrib_tpu_torch.ops.cuda import matching, pyramid, reduce, remap, scan
+    from opencv_contrib_tpu_torch.ops.cuda import histogram, matching, pyramid, reduce, remap, scan, transform
 
     def knn2(q, t, tile_q=512, tile_t=2048):
         return matching.knn2_plain(q, t, tile_q)
+
+    def grid_transform(m, *arrays, out=None):
+        res = transform.grid_transform_plain(m.fn, *arrays)
+        return res if out is None else out.copy_(res)
+
+    def grid_reduce(m, *arrays, kind="sum", div=1.0):
+        return reduce.grid_reduce_plain(m.fn, *arrays, kind=kind) / div
 
     with mock.patch.object(integral, "integral_image", scan.integral_image_plain), \
             mock.patch.object(match, "use_kernel", lambda x: False), \
             mock.patch.object(matching, "knn2", knn2), \
             mock.patch.object(reduce, "icp_getab", reduce.icp_getab_plain), \
             mock.patch.object(pyramid, "pyrdown", pyramid.pyrdown_plain), \
-            mock.patch.object(remap, "remap", remap.remap_plain):
+            mock.patch.object(remap, "remap", remap.remap_plain), \
+            mock.patch.object(transform, "grid_transform", grid_transform), \
+            mock.patch.object(transform, "streamed_transform", lambda m, x: transform.streamed_transform_plain(m.fn, x)), \
+            mock.patch.object(reduce, "grid_reduce", grid_reduce), \
+            mock.patch.object(histogram, "grid_histogram", histogram.grid_histogram_plain):
         yield
 
 
@@ -208,9 +253,11 @@ class Smoke:
     def card(self, a):
         return self.torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.dev)
 
-    def device_ms(self, fn, iters: int = 10) -> float:
+    def device_ms(self, fn, iters: int = 10, names=None):
         """Device time of one call: the durations of the kernels it ran, from
-        torch.profiler, without the host time between them."""
+        torch.profiler, without the host time between them; with `names`,
+        (that time, the time of those of DEVICE_KERNELS alone), both from
+        one profiler window."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
@@ -221,9 +268,13 @@ class Smoke:
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
-            us = sum(e.self_device_time_total for e in kernel_events(prof))
+            ev = kernel_events(prof)
+            us = sum(e.self_device_time_total for e in ev)
             if us > 0:
-                return us / iters / 1e3
+                if names is None:
+                    return us / iters / 1e3
+                ours = sum(e.self_device_time_total for e in ev if any(is_ours(e.key, k) for k in names))
+                return us / iters / 1e3, ours / iters / 1e3
         raise AssertionError("torch.profiler recorded no device time")
 
     def wall_ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -241,12 +292,17 @@ class Smoke:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def times(self, fns: dict) -> dict:
+    def times(self, fns: dict, names=None) -> dict:
         """`ms` (device) and `wall_ms` (events) of the kernel, its plain
-        version and the library call, keyed by prefix."""
+        version and the library call, keyed by prefix; with `names`, also
+        `kernel_ms`, the device time of those kernels alone in the kernel's
+        call (the same window as its `ms`, over 30 calls)."""
         out = {}
         for prefix, fn in fns.items():
-            out[prefix + "ms"] = self.device_ms(fn)
+            if names is not None and prefix == "":
+                out["ms"], out["kernel_ms"] = self.device_ms(fn, iters=30, names=names)
+            else:
+                out[prefix + "ms"] = self.device_ms(fn)
             out[prefix + "wall_ms"] = self.wall_ms(fn, iters=20 if prefix != "plain_" else 5)
         return out
 
@@ -896,6 +952,284 @@ class Smoke:
                 "our_kernels": {k: {"count": e.count, "us_per_launch": e.self_device_time_total / e.count}
                                 for e in ev for k in DEVICE_KERNELS if is_ours(e.key, k)}}
 
+    # ---- (k) -----------------------------------------------------------------
+    def row(self, kname, shape, err, fns, nbytes, ops, names, **extra):
+        return {"kernel": kname, "shape": list(shape), "max_abs_err": err, **extra,
+                **self.times(fns, names=names),
+                "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
+                "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes",
+                "bytes": nbytes, "ops": ops}
+
+    def ulp_check(self, out, ref, what):
+        """out within 2 float32 ulp of ref (0 expected: the kernels round as
+        their plain versions; powf is held to 2 ulp)."""
+        torch = self.torch
+        err = float((out - ref).abs().max())
+        tol = (ref.abs() * ULP2).clamp(min=1e-37)
+        bad = int(((out - ref).abs() > tol).sum()) + int((torch.isnan(out) != torch.isnan(ref)).sum())
+        check(bad == 0, f"{what}: {bad} values past 2 ulp (max abs err {err})")
+        return err
+
+    def grid_kernels(self):
+        from opencv_contrib_tpu_torch.ops.cuda import histogram as kh
+        from opencv_contrib_tpu_torch.ops.cuda import reduce as kr
+        from opencv_contrib_tpu_torch.ops.cuda import transform as tf
+
+        torch = self.torch
+        T, H, W = PHOTO_CLIP
+        rgb = self.card(self.gen.uniform(0, 1, size=(H, W, 3)))
+        ch = [rgb[..., c] for c in range(3)]
+        u = [self.card(self.gen.uniform(0, 1, size=(H, W))) for _ in range(5)]
+        nrm = [self.card(self.gen.standard_normal((H, W))) for _ in range(2)]
+        var = self.card(self.gen.uniform(0.01, 0.05, size=(H, W)))
+        gains = self.card([1.25, 1.0, 0.8])
+        h2, w2 = H // 2, W // 2
+        # (name, map, inputs, ops an element); the path's maps at its shapes
+        cases = [("mul", tf.mul(), nrm, 1),
+                 ("gray_strided", tf.gray(), ch, 5),
+                 ("gain_strided", tf.gain(gains, 2), [ch[2]], 3),
+                 ("ssim", tf.ssim(1e-4, 9e-4), [u[0], u[1], u[0] * u[0] + var, u[1] * u[1] + var, u[0] * u[1]], 22),
+                 ("gms_540x960", tf.gms(0.0026), [x[:h2, :w2].contiguous() for x in (nrm[0], nrm[1], u[0], u[1])], 17),
+                 ("mscn", tf.mscn(), [u[2], u[0], u[0] * u[0] + var], 7)]
+        t_rows = []
+        for name, m, xs, ops in cases:
+            out, ref = tf.grid_transform(m, *xs), tf.grid_transform_plain(m.fn, *xs)
+            torch.cuda.synchronize()
+            err = self.ulp_check(out, ref, f"grid_transform {name}")
+            n = xs[0].numel()
+            t_rows.append(self.row("grid_transform", xs[0].shape, err,
+                                   {"": lambda: tf.grid_transform(m, *xs), "plain_": lambda: tf.grid_transform_plain(m.fn, *xs),
+                                    "library_": lambda: m.fn(*xs)},
+                                   4 * (m.n_in + 1) * n, ops * n, ("grid_transform_kernel",), map=name))
+        for shape in ((7, 13), (33, 1000)):  # ragged, with an output view
+            a, b = (self.card(self.gen.standard_normal(shape)) for _ in range(2))
+            o = torch.zeros(shape[0], shape[1], 2, device=self.dev)
+            tf.grid_transform(tf.mul(), a, b, out=o[..., 1])
+            torch.cuda.synchronize()
+            check(bool((o[..., 1] == a * b).all()) and not bool(o[..., 0].any()), f"grid_transform out view {shape}")
+        self.kernels["grid_transform"] = t_rows[0]
+
+        # streamed_transform: the gamma over the clip viewed as (T H, W 3), and ragged arrays
+        m = tf.gamma(1 / 2.2)
+        s_rows = []
+        for shape in ((T * H, W * 3), (37, 301), (3, 5)):
+            x = torch.rand(shape, device=self.dev) * 1.2 - 0.1
+            out, ref = tf.streamed_transform(m, x), tf.streamed_transform_plain(m.fn, x)
+            torch.cuda.synchronize()
+            err = self.ulp_check(out, ref, f"streamed_transform {shape}")
+            if shape[0] == T * H:
+                s_rows.append(self.row("streamed_transform", shape, err,
+                                       {"": lambda: tf.streamed_transform(m, x),
+                                        "plain_": lambda: tf.streamed_transform_plain(m.fn, x),
+                                        "library_": lambda: m.fn(x)},
+                                       8 * x.numel(), 2 * x.numel(), ("streamed_transform_kernel",)))
+            else:
+                s_rows.append({"shape": list(shape), "max_abs_err": err})
+            del x, out, ref
+        self.kernels["streamed_transform"] = s_rows[0]
+
+        # grid_reduce: sum / min / max of the identity, the MSE's sqdiff, a
+        # BRISQUE moment, grayworld's gated sum on channel views
+        import torch.nn.functional as F
+
+        r_rows = []
+        rcases = [("ident", "sum", [u[0]], lambda a: torch.sum(a), 1),
+                  ("ident", "min", [nrm[0]], lambda a: torch.amin(a), 1),
+                  ("ident", "max", [nrm[0]], lambda a: torch.amax(a), 1),
+                  ("sqdiff", "sum", [u[0], u[1]], lambda a, b: F.mse_loss(a, b, reduction="sum"), 3),
+                  ("neg_sq", "sum", [nrm[0]], lambda a: torch.sum(torch.clamp(a, max=0.0) ** 2), 3),
+                  ("gated", "sum", ch, lambda r, g, b: torch.sum(r * (torch.maximum(torch.maximum(r, g), b) < 0.98)), 5)]
+        for name, kind, xs, lib, ops in rcases:
+            m = {"ident": tf.ident(), "sqdiff": tf.sqdiff(), "neg_sq": tf.neg_sq(), "gated": tf.gated(0.98, 0)}[name]
+            out, ref = kr.grid_reduce(m, *xs, kind=kind), kr.grid_reduce_plain(m.fn, *xs, kind=kind)
+            mag = float(kr.grid_reduce_plain(lambda *a: m.fn(*a).abs(), *xs)) if kind == "sum" else 0.0
+            torch.cuda.synchronize()
+            err = abs(float(out) - float(ref))
+            check(err <= 1e-5 * mag if kind == "sum" else err == 0.0, f"grid_reduce {name} {kind}: err {err}, sum|.| {mag}")
+            n = xs[0].numel()
+            r_rows.append(self.row("grid_reduce", xs[0].shape, err,
+                                   {"": lambda: kr.grid_reduce(m, *xs, kind=kind),
+                                    "plain_": lambda: kr.grid_reduce_plain(m.fn, *xs, kind=kind),
+                                    "library_": lambda: lib(*xs)},
+                                   4 * m.n_in * n + 4, ops * n, ("grid_reduce_kernel", "grid_reduce_finalize_kernel"),
+                                   map=name, kind=kind, sum_abs=mag))
+        for shape in ((1, 1), (7, 13), (33, 1000), (1000, 33)):  # ragged: threads past the extent stay neutral
+            a = self.card(self.gen.standard_normal(shape))
+            for kind in ("sum", "min", "max"):
+                o, rf = kr.grid_reduce(tf.ident(), a, kind=kind), kr.grid_reduce_plain(lambda v: v, a, kind=kind)
+                tol = 1e-5 * float(a.abs().sum()) if kind == "sum" else 0.0
+                check(abs(float(o) - float(rf)) <= tol, f"grid_reduce ragged {shape} {kind}: {float(o)} vs {float(rf)}")
+        self.kernels["grid_reduce"] = r_rows[0]
+
+        # grid_histogram: CLAHE's 8x8 tiles of a frame (the path's launch), the
+        # frame in both rules, and ragged images with NaN and out-of-range values
+        gray = torch.clamp(u[3] * 1.1 - 0.05, -1.0, 2.0)
+        h_rows = []
+        for label, rule, tiles, bins, vmin, vmax in (("clahe_tiles", "clamp", (8, 8), 256, 0.0, 1.0),
+                                                      ("frame_clamp", "clamp", None, 256, 0.0, 1.0),
+                                                      ("frame_drop", "drop", None, 256, 0.0, 1.0)):
+            out = kh.grid_histogram(gray, bins, vmin, vmax, rule=rule, tiles=tiles)
+            ref = kh.grid_histogram_plain(gray, bins, vmin, vmax, rule=rule, tiles=tiles)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            check(err == 0.0, f"grid_histogram {label}: counts differ by {err}")
+            n_out = bins * (1 if tiles is None else tiles[0] * tiles[1])
+            h_rows.append(self.row("grid_histogram", gray.shape, err,
+                                   {"": lambda: kh.grid_histogram(gray, bins, vmin, vmax, rule=rule, tiles=tiles),
+                                    "plain_": lambda: kh.grid_histogram_plain(gray, bins, vmin, vmax, rule, tiles),
+                                    "library_": lambda: torch.histc(gray, bins=bins, min=vmin, max=vmax)},
+                                   4 * gray.numel() + 4 * n_out, 4 * gray.numel(), ("grid_histogram_kernel",),
+                                   label=label, rule=rule, tiles=tiles))
+        for shape in ((101, 257), (5, 3)):
+            a = self.card(self.gen.uniform(-0.5, 1.5, size=shape))
+            a[a > 1.4] = float("nan")
+            for rule in ("drop", "clamp"):
+                for tiles in (None, (2, 1)):
+                    o = kh.grid_histogram(a, 10, 0.0, 1.0, rule=rule, tiles=tiles)
+                    check(bool((o == kh.grid_histogram_plain(a, 10, 0.0, 1.0, rule, tiles)).all()),
+                          f"grid_histogram ragged {shape} {rule} {tiles}")
+        self.kernels["grid_histogram"] = h_rows[0]
+        emit({"phase": "k_grid_kernels",
+              "tolerance": "transforms within 2 float32 ulp of the plain version (0 expected but for powf); sums "
+                           "within 1e-5 of sum |map|; min and max exact; histogram counts exact",
+              "timing": "ms: device time per call (torch.profiler, 30 calls, inputs L2-warm where they fit in "
+                        "the 50 MB L2), kernel_ms: the kernels' own in the same window (grid_histogram's ms adds "
+                        "its counts' zeroing and float conversion); wall_ms: CUDA events per call",
+              "library_call": {"grid_transform": "the map's eager PyTorch expression", "streamed_transform":
+                               "torch.clamp(x, 0, 1) ** g", "grid_reduce": "torch.sum / amin / amax, F.mse_loss, "
+                               "or the map's eager expression summed", "grid_histogram": "torch.histc (the frame)"},
+              "grid_transform": t_rows, "streamed_transform": s_rows, "grid_reduce": r_rows, "grid_histogram": h_rows,
+              "ok": True})
+
+    # ---- (l) -----------------------------------------------------------------
+    def photo_compare(self, res, ref, label, eq_tol=1e-6):
+        """res against ref (entry.Photometric on any devices) at the CPU
+        tests' tolerances, but for the equalized frames. CLAHE is a step
+        function of its input: an ulp in the grayworld gains (whose sums
+        the two paths take in other orders) moves a few pixels across a bin
+        edge, each moved pixel changes its tile's LUT by 1 / (tile pixels)
+        for every value above it, and the moved pixels change by a LUT
+        step. So the equalized frames are held to a mean and a max."""
+        torch = self.torch
+        cpu = lambda t: t.detach().float().cpu()  # noqa: E731
+        d_bal = float((cpu(res.balanced) - cpu(ref.balanced)).abs().max())
+        d_eq = (cpu(res.equalized) - cpu(ref.equalized)).abs()
+        off = int((d_eq > eq_tol).sum())
+        f, fr = cpu(res.features), cpu(ref.features)
+        rest = [i for i in range(36) if i not in ALPHA_FEATURES]
+        alpha_steps = float((f[:, ALPHA_FEATURES] - fr[:, ALPHA_FEATURES]).abs().max())
+        # the AGGD means are differences of two sigmas: their error is absolute
+        rel_rest = float(((f[:, rest] - fr[:, rest]).abs() / (fr[:, rest].abs() + 1e-3)).max())
+        rel = {k: float(((cpu(getattr(res, k)) - cpu(getattr(ref, k))).abs() / (cpu(getattr(ref, k)).abs() + 1.0))
+                        .max()) for k in ("ssim", "gmsd", "nr_score")}
+        rel["psnr"] = max(abs(a / b - 1.0) for a, b in zip(res.psnr, ref.psnr))
+        out = {"balanced_max_abs": d_bal, "equalized_max_abs": float(d_eq.max()),
+               "equalized_mean_abs": float(d_eq.mean()), "equalized_pixels_off": off,
+               "equalized_share_off": off / d_eq.numel(), "features_alpha_max_diff": alpha_steps,
+               "features_rest_max_rel": rel_rest, "scores_max_rel": rel}
+        check(d_bal <= 1e-6 and float(d_eq.mean()) <= 1e-4 and float(d_eq.max()) <= 0.05
+              and alpha_steps <= ALPHA_STEP and rel_rest <= 1e-4 and max(rel.values()) <= 1e-5,
+              f"photometric {label}: {out}")
+        return out
+
+    def photometric(self):
+        from opencv_contrib_tpu_torch import quality
+        from opencv_contrib_tpu_torch.core.color import rgb_to_gray
+        from opencv_contrib_tpu_torch.ops.cuda import histogram as kh
+        from opencv_contrib_tpu_torch.ops.histogram import clahe
+
+        torch, entry = self.torch, self.entry
+        T, H, W = PHOTO_CLIP
+        t0 = time.perf_counter()
+        clean, degraded = entry.photo_clip(T, H, W, seed=0)
+        clip_s = time.perf_counter() - t0
+        cln, deg = self.card(clean), self.card(degraded)
+        del clean, degraded
+        entry.photometric(deg[:1], cln[:1])  # warm-up: cuDNN, the BRISQUE tables, allocator
+        res, s = self.counted("photometric", lambda: entry.photometric(deg, cln))
+        launches = {k: self.launches["photometric"][k] for k in PATH_KERNELS["photometric"]}
+        expect = {"streamed_transform": 1, **{k: v * T for k, v in PHOTO_PER_FRAME.items()}}
+        check(launches == expect, f"photometric launches per clip {launches}, expected {expect}")
+        check(tuple(res.balanced.shape) == (T, H, W, 3) and tuple(res.equalized.shape) == (T, H, W)
+              and tuple(res.features.shape) == (T, 36), "photometric shapes")
+        for k in ("balanced", "equalized", "ssim", "gmsd", "nr_score", "features"):
+            check(bool(torch.isfinite(getattr(res, k)).all()), f"photometric {k} not finite")
+        check(float(res.balanced.min()) >= 0.0 and float(res.balanced.max()) <= 1.0
+              and float(res.equalized.min()) >= 0.0 and float(res.equalized.max()) <= 1.0, "photometric range")
+        # restoration gate: the gamma and the white balance bring the degraded
+        # clip nearer the clean one (PSNR of the gray frames, dB)
+        gain_db = []
+        for t in range(T):
+            ref = rgb_to_gray(cln[t])
+            gain_db.append(quality.psnr(rgb_to_gray(res.balanced[t]), ref) - quality.psnr(rgb_to_gray(deg[t]), ref))
+        check(min(gain_db) > 3.0, f"white balance + gamma gain {gain_db} dB")
+        # CLAHE's tile histograms of frame 0, kernel against plain, on the path's gray frame
+        g0 = rgb_to_gray(res.balanced[0])
+        hk = kh.grid_histogram(g0, 256, 0.0, 1.0, rule="clamp", tiles=(8, 8))
+        hp = kh.grid_histogram_plain(g0, 256, 0.0, 1.0, rule="clamp", tiles=(8, 8))
+        check(bool((hk == hp).all()), "CLAHE tile counts differ from the plain version")
+        eq_k = clahe(g0)
+        with plain_path():
+            eq_p = clahe(g0)
+        clahe_same_input = float((eq_k - eq_p).abs().max())
+        check(clahe_same_input == 0.0, f"CLAHE on one gray frame, kernel against plain: {clahe_same_input}")
+
+        with plain_path():
+            plain = entry.photometric(deg, cln)
+        vs_plain = self.photo_compare(res, plain, "plain path on the card")
+        del plain
+
+        Ts, Hs, Ws = PHOTO_SMALL
+        cs, ds = entry.photo_clip(Ts, Hs, Ws, seed=1)
+        vs_cpu = self.photo_compare(entry.photometric(ds, cs), entry.photometric(ds, cs, device="cpu"),
+                                    "small clip, card vs CPU")
+
+        ms = []
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(N_PHOTO_TIMED):
+            _, t = self.wall_s(lambda: entry.photometric(deg, cln))
+            ms.append(t * 1e3 / T)
+        peak = torch.cuda.max_memory_allocated()
+        emit({"phase": "l_photometric", "clip": [T, H, W, 3], "clip_made_s": clip_s, "s_main_path": s,
+              "launches": self.launches["photometric"], "launches_per_clip": launches,
+              "restoration_gain_db": gain_db,
+              "scores": {"psnr": res.psnr, "ssim": res.ssim.tolist(), "gmsd": res.gmsd.tolist(),
+                         "nr_score": res.nr_score.tolist(), "features_0": res.features[0].tolist()},
+              "plain_path_vs_kernel": vs_plain, "small_card_vs_cpu": vs_cpu,
+              "clahe_one_frame_kernel_vs_plain_max_abs": clahe_same_input,
+              "ms_per_frame_median": float(np.median(ms)), "ms_per_frame": ms,
+              "host_syncs_per_frame": 1,  # quality.psnr reads the MSE back as a float
+              "peak_mem_allocated_gb": peak / 2 ** 30, "peak_mem_of_a_clip_gb": (peak - held) / 2 ** 30,
+              "profile_one_frame": self.profile_photo(deg[:1], cln[:1]),
+              "tolerance": "balanced 1e-6; equalized mean abs <= 1e-4 and max <= 0.05 (CLAHE on one gray frame, "
+                           "kernel against plain: equal); scores |d| <= 1e-5 (|ref| + 1), psnr rtol 1e-5; BRISQUE "
+                           "alphas one grid step, the rest |d| <= 1e-4 (|ref| + 1e-3); tile counts exact; "
+                           "restoration gain > 3 dB a frame",
+              "timing": f"ms_per_frame: host clock around one synchronised clip / {T}, {N_PHOTO_TIMED} warm runs",
+              "ok": True})
+
+    def profile_photo(self, deg, cln) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = self.wall_s(lambda: self.entry.photometric(deg, cln))
+        ev = kernel_events(prof)
+        busy_us = sum(e.self_device_time_total for e in ev)
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
+        ours = {}
+        for e in ev:  # summed over each kernel's template instantiations (one per map)
+            for k in DEVICE_KERNELS:
+                if is_ours(e.key, k):
+                    row = ours.setdefault(k, {"count": 0, "us": 0.0})
+                    row["count"] += e.count
+                    row["us"] += e.self_device_time_total
+        return {"wall_s_under_profiler": wall, "device_busy_s": busy_us * 1e-6,
+                "device_busy_share": busy_us * 1e-6 / wall, "device_launches": sum(e.count for e in ev),
+                "top_device": [{"name": e.key[:80], "count": e.count, "us": e.self_device_time_total} for e in top],
+                "our_kernels": {k: {**v, "us_per_launch": v["us"] / v["count"]} for k, v in ours.items()}}
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -903,7 +1237,7 @@ class Smoke:
             src, rep = SOURCES[name]
             line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                          "launches": self.launches[path][name], "launches_path": path, "shape": row["shape"],
-                         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "kernel_ms": row["ms"],
+                         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "kernel_ms": row.get("kernel_ms", row["ms"]),
                          "plain_ms": row["plain_ms"],
                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                          "library_ms": row["library_ms"], "wall_ms": row["wall_ms"]})
@@ -918,7 +1252,8 @@ def main() -> int:
         return 2
     smoke = Smoke()
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
-                  smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow):
+                  smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
+                  smoke.grid_kernels, smoke.photometric):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

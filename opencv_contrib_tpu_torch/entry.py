@@ -13,6 +13,10 @@
 - `dense_flow(I0, I1, method)`: DIS-class or TV-L1 dense optical flow;
   `flow_pair()` makes a textured pair at MPI-Sintel's 436 x 1024 with its
   true flow.
+- `photometric(degraded, clean)`: the photometric / image-quality path over
+  an RGB clip (gamma, grayworld white balance, gray, CLAHE, then PSNR,
+  SSIM, GMSD, BRISQUE features and the no-reference score against the
+  clean clip); `photo_clip()` makes a full-HD clip and its degraded copy.
 
 They run on the card unless the caller passes `device="cpu"`; with no card
 they raise. Matrix products run in full f32 inside them.
@@ -25,12 +29,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from opencv_contrib_tpu_torch import quality, xphoto
 from opencv_contrib_tpu_torch.ba import bundle
 from opencv_contrib_tpu_torch.core import camera as cam
+from opencv_contrib_tpu_torch.core.color import rgb_to_gray
 from opencv_contrib_tpu_torch.features import describe, detect, match
 from opencv_contrib_tpu_torch.flow import dis, tvl1
+from opencv_contrib_tpu_torch.intensity_transform import gamma_correction
 from opencv_contrib_tpu_torch.mvg import resection
 from opencv_contrib_tpu_torch.ops import filters
+from opencv_contrib_tpu_torch.ops.histogram import clahe
 from opencv_contrib_tpu_torch.ops.image import warp_affine
 from opencv_contrib_tpu_torch.rgbd import kinfu
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
@@ -194,3 +202,70 @@ def flow_pair(H: int = 436, W: int = 1024, seed: int = 3, angle: float = 0.01, s
     gx = Minv[0, 0] * x + Minv[0, 1] * y + Minv[0, 2] - x
     gy = Minv[1, 0] * x + Minv[1, 1] * y + Minv[1, 2] - y
     return I0.numpy(), I1.numpy(), np.stack([gy, gx], axis=-1).astype(np.float32)
+
+
+def _blur_np(x: np.ndarray, sigma: float, axis: int) -> np.ndarray:
+    """Gaussian blur along one axis with wrapped borders, in numpy."""
+    r = int(np.ceil(3.0 * sigma))
+    k = np.exp(-np.arange(-r, r + 1) ** 2 / (2.0 * sigma * sigma)).astype(np.float32)
+    k /= k.sum()
+    out = np.zeros_like(x)
+    for i, w in enumerate(k):
+        out += w * np.roll(x, i - r, axis=axis)
+    return out
+
+
+def photo_clip(T: int = 8, H: int = 1080, W: int = 1920, seed: int = 0):
+    """A textured RGB clip and its degraded copy, float32 (T, H, W, 3) in
+    [0, 1], numpy only. `clean`: seeded uniform noise blurred by a Gaussian
+    of sigma 2 (wrapped borders), stretched to [0, 1], shifted 4 px to the
+    right per frame. `degraded`: clean ** 2.2 (darkened), times the colour
+    cast (1.25, 1.0, 0.75), plus N(0, 0.01) seeded noise, clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    base = rng.random((H, W, 3), dtype=np.float32)
+    base = _blur_np(_blur_np(base, 2.0, 0), 2.0, 1)
+    base = (base - base.min()) / (base.max() - base.min())
+    clean = np.stack([np.roll(base, 4 * t, axis=1) for t in range(T)])
+    degraded = clean ** np.float32(2.2) * np.array([1.25, 1.0, 0.75], np.float32)
+    degraded += np.float32(0.01) * rng.standard_normal(degraded.shape, dtype=np.float32)
+    return clean, np.clip(degraded, 0.0, 1.0, out=degraded)
+
+
+class Photometric(NamedTuple):
+    balanced: torch.Tensor  # (T, H, W, 3) gamma-corrected, grayworld-balanced clip
+    equalized: torch.Tensor  # (T, H, W) its gray frames after CLAHE: the conditioned clip
+    psnr: list  # per frame, Python floats (dB), against the clean clip's gray frames
+    ssim: torch.Tensor  # (T,)
+    gmsd: torch.Tensor  # (T,)
+    nr_score: torch.Tensor  # (T,) no-reference score of the equalized frame
+    features: torch.Tensor  # (T, 36) BRISQUE features of the equalized frame
+
+
+PHOTO_GAMMA, CLAHE_CLIP, CLAHE_GRID = 1 / 2.2, 4.0, 8  # undo photo_clip's x ** 2.2; CLAHE's defaults
+
+
+@f32_matmuls
+def photometric(degraded, clean, device="cuda") -> Photometric:
+    """The photometric / image-quality path over an RGB clip (T, H, W, 3) in
+    [0, 1]: `intensity_transform.gamma_correction` (1 / 2.2) over the whole clip, then
+    for each frame `xphoto.grayworld_wb`, `core.color.rgb_to_gray`,
+    `ops.histogram.clahe`, and the scores against `rgb_to_gray(clean[t])`
+    (`quality.psnr`, `ssim`, `gmsd`) and of the frame alone
+    (`quality.brisque_features`, `no_reference_score`)."""
+    dev = resolve(device)
+    deg, cln = _f32(degraded, dev), _f32(clean, dev)
+    lin = gamma_correction(deg, PHOTO_GAMMA)
+    bal, eq, ps, ss, gm, nr, feats = [], [], [], [], [], [], []
+    for t in range(deg.shape[0]):
+        wb = xphoto.grayworld_wb(lin[t])
+        out = clahe(rgb_to_gray(wb), clip_limit=CLAHE_CLIP, grid=CLAHE_GRID)
+        ref = rgb_to_gray(cln[t])
+        bal.append(wb)
+        eq.append(out)
+        ps.append(quality.psnr(out, ref))
+        ss.append(quality.ssim(out, ref))
+        gm.append(quality.gmsd(out, ref))
+        nr.append(quality.no_reference_score(out))
+        feats.append(quality.brisque_features(out))
+    return Photometric(torch.stack(bal), torch.stack(eq), ps, torch.stack(ss), torch.stack(gm), torch.stack(nr),
+                       torch.stack(feats))

@@ -23,11 +23,13 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 def kernels():
     """The launch-counted kernel wrappers, by name."""
-    from opencv_contrib_tpu_torch.ops.cuda import matching, pyramid, reduce, remap, scan
+    from opencv_contrib_tpu_torch.ops.cuda import histogram, matching, pyramid, reduce, remap, scan, transform
 
     return {"knn2": matching.knn2, "integral_image": scan.integral_image,
             "grid_scan": scan.grid_scan, "grid_reduce_vec": reduce.icp_getab,
-            "pyrdown": pyramid.pyrdown, "remap": remap.remap}
+            "pyrdown": pyramid.pyrdown, "remap": remap.remap,
+            "grid_transform": transform.grid_transform, "streamed_transform": transform.streamed_transform,
+            "grid_reduce": reduce.grid_reduce, "grid_histogram": histogram.grid_histogram}
 
 
 def reset_launches() -> None:

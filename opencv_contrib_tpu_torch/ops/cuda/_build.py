@@ -1,6 +1,7 @@
 """Build and load the hand-written Hopper kernels under `csrc/`.
 
-Each `csrc/*.cu` file has a plain C interface. At first use every source is
+Each `csrc/*.cu` file has a plain C interface (`csrc/*.cuh` are headers
+they include). At first use every source is
 compiled by its own `nvcc` process (all started together) into a shared
 library for `sm_90a`, in `build/kernels/<hash>/` at the root of the checkout,
 keyed on a hash of the sources and the flags, and loaded with `ctypes`. A
@@ -52,6 +53,22 @@ SIGNATURES = {
     "remap": {
         # maps, dy, dx, out, C, H, W, bounded, max_disp, ylim, xlim, stream
         "remap_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+    },
+    "transform": {
+        # map, n_in, views (host), hparams (host), dparams, H, W, blocks, stream
+        "grid_transform_f32": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
+        # map, hparams (host), dparams, x, y, n, blocks, stream
+        "streamed_transform_f32": [_I, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "reduce": {
+        # map, kind, n_in, views (host), hparams (host), dparams, H, W, div,
+        # blocks, partials, out, stream
+        "grid_reduce_f32": [_I, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
+    },
+    "histogram": {
+        # x, rule, pitch, rows, cols, tiles_y, tiles_x, bins, vmin, vmax, q,
+        # blocks_per_tile, counts, stream
+        "grid_histogram_f32": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P],
     },
 }
 

@@ -1,6 +1,17 @@
-"""Tiled map -> vector reductions, and the ICP getAb system built by one.
+"""Tiled map reductions: to a scalar (`grid_reduce`), and to a vector, with
+the ICP getAb system built by one.
 
-Kernel: `csrc/reduce_vec.cu`. It replaces the Pallas `grid_reduce_vec`
+Kernel `csrc/reduce.cu` replaces the Pallas `grid_reduce`
+(opencv_contrib_tpu/ops/pallas/grid.py:91), cudev's gridCalcSum / MinVal /
+MaxVal: a fused map + sum, min or max. The map is one of the `Map`s of
+`ops/cuda/transform.py` (functors in `csrc/maps.cuh`). On the photometric /
+quality path it takes grayworld's gated sums, the MSE, the SSIM and GMSD
+means and every moment of BRISQUE's fits. Block partials are folded by a
+second launch in a fixed order, with no atomics, so a sum does not change
+from run to run. Plain version beside it: `grid_reduce_plain` (the Pallas
+function's tiles, fill and neutral masking, for any callable `map_op`).
+
+Kernel `csrc/reduce_vec.cu` replaces the Pallas `grid_reduce_vec`
 (opencv_contrib_tpu/ops/pallas/grid.py:155) in the role that function's
 docstring names: assembling the point-to-plane ICP normal system of
 `rgbd/icp.py::build_system` (fast_icp.cpp GetAbInvoker). A CUDA kernel
@@ -18,16 +29,81 @@ tile, pad and validity semantics, for any `map_op`) and `icp_getab_plain`
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from opencv_contrib_tpu_torch.ops.cuda import _build, use_kernel
+from opencv_contrib_tpu_torch.ops.cuda import transform as tf
 
-_THREADS = 256  # csrc/reduce_vec.cu THREADS
+_THREADS = 256  # csrc/reduce_vec.cu and csrc/reduce.cu THREADS
 _MAX_BLOCKS = 4 * 132  # four blocks per SM of an H100
 _OUT = 29  # the getAb map's outputs
 _RESULT = 44  # A (36), b (6), n_corr, mean_err
+KINDS = {"sum": 0, "min": 1, "max": 2}  # csrc/reduce.cu SUM, MIN, MAX
+_NEUTRAL = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+_RED = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}
+_FOLD = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def grid_reduce_plain(map_op, *arrays: torch.Tensor, kind: str = "sum", tile=(256, 256)) -> torch.Tensor:
+    """reduce(map_op(a0, a1, ...)) to a float32 scalar: the first array is
+    padded to a multiple of the tile with the neutral element, the others
+    with 0; each tile's padded cells are masked to the neutral element
+    before its reduction, and the tiles are folded in grid order into one
+    accumulator, as the Pallas `grid_reduce` does (with its default fill)."""
+    H, W = arrays[0].shape
+    th, tw = min(tile[0], H), min(tile[1], W)
+    neutral = _NEUTRAL[kind]
+    padded = [tf._pad2(a, th, tw, neutral if k == 0 else 0.0) for k, a in enumerate(arrays)]
+    Hp, Wp = padded[0].shape
+    dev = arrays[0].device
+    rows = torch.arange(Hp, device=dev)[:, None]
+    cols = torch.arange(Wp, device=dev)[None, :]
+    valid = (rows < H) & (cols < W)
+    acc = torch.full((), neutral, dtype=torch.float32, device=dev)
+    for i in range(0, Hp, th):
+        for j in range(0, Wp, tw):
+            mapped = map_op(*(a[i:i + th, j:j + tw] for a in padded))
+            val = _RED[kind](torch.where(valid[i:i + th, j:j + tw], mapped, neutral))
+            acc = _FOLD[kind](acc, val.to(torch.float32))
+    return acc
+
+
+def grid_reduce(m: tf.Map, *arrays: torch.Tensor, kind: str = "sum", div: float = 1.0) -> torch.Tensor:
+    """reduce(m(a0, a1, ...)) over the (H, W) views `arrays` (any strides),
+    as a float32 scalar on their device; a sum is divided by `div` (the
+    element count for a mean). A CUDA tensor launches the grid_reduce kernel;
+    a CPU tensor takes `grid_reduce_plain(m.fn)`."""
+    if kind not in KINDS:
+        raise ValueError(f"grid_reduce: kind must be one of {sorted(KINDS)}, got {kind!r}")
+    tf.check_map(m, arrays, "grid_reduce")
+    if m.name in tf.TRANSFORM_MAPS:
+        raise ValueError(f"grid_reduce: {m.name} is a transform map")
+    if kind != "sum" and div != 1.0:
+        raise ValueError("grid_reduce: div divides a sum only")
+    if not use_kernel(arrays[0]):
+        out = grid_reduce_plain(m.fn, *arrays, kind=kind)
+        return out / div if div != 1.0 else out
+    dev = arrays[0].device
+    H, W = tf.check_views(arrays, "grid_reduce", dev)
+    views = tf.pack_views(arrays)
+    hp, dp = tf.pack_params(m, dev, "grid_reduce")
+    blocks = min(-(-H * W // _THREADS), _MAX_BLOCKS)
+    partials = torch.empty(blocks, dtype=torch.float32, device=dev)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    lib = _build.lib("reduce")
+    with torch.cuda.device(dev):
+        _build.check(lib.grid_reduce_f32(tf.MAP_CODES[m.name], KINDS[kind], m.n_in, ctypes.addressof(views),
+                                         ctypes.addressof(hp), dp, H, W, tf.f32(div), blocks, partials.data_ptr(),
+                                         out.data_ptr(), _build.stream_of(out)), "grid_reduce_f32")
+    grid_reduce.launches += 1
+    return out[0]
+
+
+grid_reduce.launches = 0
 
 
 def grid_reduce_vec_plain(map_op, *arrays: torch.Tensor, out_dim: int, tile=(256, 256)) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Separable filters, gradients, the bilateral and the 3x3 median filter
-(the port of the parts of opencv_contrib_tpu/ops/filters.py the frontend,
-KinectFusion and dense flow use). Separable filters are shift-adds over a reflect-padded image
-(BORDER_REFLECT_101), as in the JAX version."""
+"""Separable filters, gradients, depthwise 2D correlation, the bilateral,
+guided and 3x3 median filters (the port of the parts of
+opencv_contrib_tpu/ops/filters.py the frontend, KinectFusion, dense flow and
+the photometric / quality path use). Separable filters are shift-adds over a
+reflect-padded image (BORDER_REFLECT_101), as in the JAX version."""
 
 from __future__ import annotations
 
@@ -13,6 +14,27 @@ import torch.nn.functional as F
 
 def _reflect_pad(img: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
     return F.pad(img[None, None], (left, right, top, bottom), mode="reflect")[0, 0]
+
+
+_PAD_MODES = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}
+
+
+def conv2d(img: torch.Tensor, kernel, border: str = "reflect") -> torch.Tensor:
+    """Depthwise 2D correlation of (H, W[, C]) with (kh, kw): `F.conv2d`
+    with one group per channel, on the image padded by `border`: 'reflect'
+    (BORDER_REFLECT_101, OpenCV's default), 'edge' (BORDER_REPLICATE) or
+    'zero' (BORDER_CONSTANT 0). Full float32 products on the card need
+    `utils.precision.f32_matmuls` (cuDNN takes TF32 by default)."""
+    if border not in _PAD_MODES:
+        raise ValueError(f"conv2d: border must be one of {sorted(_PAD_MODES)}, got {border!r}")
+    k = torch.as_tensor(kernel, dtype=torch.float32, device=img.device)
+    kh, kw = k.shape
+    x = img.to(torch.float32)
+    x = x[None, None] if x.ndim == 2 else torch.movedim(x, -1, 0)[None]
+    C = x.shape[1]
+    x = F.pad(x, ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2), mode=_PAD_MODES[border])
+    y = F.conv2d(x, k.expand(C, 1, kh, kw), groups=C)[0]
+    return y[0] if img.ndim == 2 else torch.movedim(y, 0, -1)
 
 
 def sep_filter2d(img: torch.Tensor, kr: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
@@ -61,6 +83,22 @@ def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
     n = 2 * radius + 1
     k = torch.full((n,), 1.0 / n, dtype=torch.float32, device=img.device)
     return sep_filter2d(img, k, k)
+
+
+def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int, eps: float) -> torch.Tensor:
+    """He et al. guided filter with a grayscale guide, O(1) in the radius
+    through box filters (ximgproc GuidedFilter)."""
+    I = guide.to(torch.float32)
+    p = src.to(torch.float32)
+    mean_I = box_filter(I, radius)
+    mean_p = box_filter(p, radius)
+    corr_Ip = box_filter(I * p, radius)
+    corr_II = box_filter(I * I, radius)
+    var_I = corr_II - mean_I * mean_I
+    cov_Ip = corr_Ip - mean_I * mean_p
+    a = cov_Ip / (var_I + eps)
+    b = mean_p - a * mean_I
+    return box_filter(a, radius) * I + box_filter(b, radius)
 
 
 def gradients(img: torch.Tensor):

@@ -42,18 +42,21 @@ def test_port_has_its_files():
     for need in ("entry.py", "interop.py", "ops/cuda/_build.py", "ops/cuda/scan.py",
                  "ops/cuda/matching.py", "features/detect.py", "ba/bundle.py", "rgbd/frame.py", "rgbd/icp.py",
                  "rgbd/tsdf.py", "rgbd/kinfu.py", "core/pyramid.py", "ops/cuda/reduce.py", "utils/sdf_scene.py",
-                 "flow/dis.py", "flow/tvl1.py", "flow/lk.py", "ops/cuda/pyramid.py", "ops/cuda/remap.py"):
+                 "flow/dis.py", "flow/tvl1.py", "flow/lk.py", "ops/cuda/pyramid.py", "ops/cuda/remap.py",
+                 "ops/cuda/transform.py", "ops/cuda/histogram.py", "ops/histogram.py", "ops/filters.py",
+                 "core/color.py", "intensity_transform/transforms.py", "xphoto/white_balance.py",
+                 "utils/metrics.py", "quality/__init__.py", "quality/brisque.py"):
         assert need in names
-    for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu"):
+    for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu", "transform.cu", "reduce.cu", "histogram.cu", "maps.cuh"):
         assert (PORT / "ops/cuda/csrc" / cu).exists()
     assert (ROOT / "chip_smoke.py").exists()
 
 
-@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow"])
+@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow", "photometric"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
     """Asked for "cuda" (their default) on a machine without a card, the
-    frontend, keyframe and dense-flow entry points raise instead of running
-    on the CPU."""
+    frontend, keyframe, dense-flow and photometric entry points raise
+    instead of running on the CPU."""
     import numpy as np
     import torch
 
@@ -65,7 +68,9 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
     call = {"frontend": lambda: entry.frontend(img, img, K=8),
             "keyframe_tick": lambda: entry.keyframe_tick(np.stack([img, img]), intr, K=8, n_ba=1, ba_views=2,
                                                          ba_points=8),
-            "dense_flow": lambda: entry.dense_flow(img, img, "tvl1", levels=2)}[name]
+            "dense_flow": lambda: entry.dense_flow(img, img, "tvl1", levels=2),
+            "photometric": lambda: entry.photometric(np.zeros((1, 32, 48, 3), np.float32),
+                                                     np.zeros((1, 32, 48, 3), np.float32))}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

@@ -29,6 +29,8 @@ from opencv_contrib_tpu_torch.ops import image as timage
 from opencv_contrib_tpu_torch.ops import integral as tinteg
 from opencv_contrib_tpu_torch.ops import cuda as tcuda
 from opencv_contrib_tpu_torch.ops.cuda import _build, pyramid, reduce, scan
+from opencv_contrib_tpu_torch.ops.cuda import histogram as thist
+from opencv_contrib_tpu_torch.ops.cuda import transform as ttf
 from opencv_contrib_tpu_torch.ops.cuda import matching as tmatch
 from opencv_contrib_tpu_torch.ops.cuda import remap as tremap
 
@@ -367,8 +369,13 @@ def test_cpu_calls_leave_launch_counters_at_zero(rng):
     pyramid.pyrdown(q, border="replicate")
     tremap.remap(torch.stack([q, q]), q, q)
     tremap.remap(q, q, q, max_disp=2)
+    ttf.grid_transform(ttf.mul(), q, q)
+    ttf.streamed_transform(ttf.gamma(0.5), q)
+    reduce.grid_reduce(ttf.sq(), q)
+    thist.grid_histogram(q, 16, -1.0, 1.0, tiles=(2, 2))
     assert tcuda.launches() == {"knn2": 0, "integral_image": 0, "grid_scan": 0, "grid_reduce_vec": 0,
-                                "pyrdown": 0, "remap": 0}
+                                "pyrdown": 0, "remap": 0, "grid_transform": 0, "streamed_transform": 0,
+                                "grid_reduce": 0, "grid_histogram": 0}
 
 
 def test_other_devices_raise():
@@ -377,7 +384,9 @@ def test_other_devices_raise():
     ok = torch.zeros(4, 4, dtype=torch.bool, device="meta")
     for fn in (scan.grid_scan, scan.integral_image, lambda a: tmatch.knn2(a, a),
                lambda a: reduce.icp_getab(a, pts, pts, ok, pts, pts, ok, a[0]),
-               pyramid.pyrdown, lambda a: tremap.remap(a, a, a)):
+               pyramid.pyrdown, lambda a: tremap.remap(a, a, a), lambda a: ttf.grid_transform(ttf.mul(), a, a),
+               lambda a: ttf.streamed_transform(ttf.gamma(0.5), a), lambda a: reduce.grid_reduce(ttf.sq(), a),
+               lambda a: thist.grid_histogram(a, 8, 0.0, 1.0)):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             fn(x)
 
@@ -412,3 +421,235 @@ def test_build_flags_and_signatures():
                      for p in params.split(",")]
             assert _build.SIGNATURES[src.stem][name] == kinds, name
             assert "return (int)cudaGetLastError();" in text
+
+
+# ---- grid_transform, streamed_transform, grid_reduce, grid_histogram --------
+
+def test_grid_transform_plain_matches_pallas(rng):
+    """Twin of tests/test_pallas_grid.py::test_grid_transform_elementwise:
+    300x515 in (128, 256) tiles, atol 1e-6."""
+    a = rng.normal(size=(300, 515)).astype(np.float32)
+    b = rng.normal(size=(300, 515)).astype(np.float32)
+    out = N(ttf.grid_transform_plain(lambda x, y: torch.tanh(x) * y + 0.5, T(a), T(b), tile=(128, 256)))
+    pal = np.asarray(pgrid.grid_transform(lambda x, y: jnp.tanh(x) * y + 0.5, jnp.asarray(a), jnp.asarray(b),
+                                          tile=(128, 256), interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out, np.tanh(a) * b + 0.5, rtol=0, atol=1e-6)
+
+
+def _jax_twins(m):
+    """The jnp expression of each map of ops/cuda/transform.py."""
+    hp = m.hparams
+    gate = lambda r, g, b: (jnp.maximum(jnp.maximum(r, g), b) < hp[0]).astype(jnp.float32)  # noqa: E731
+    return {
+        "gamma": lambda x: jnp.clip(x, 0.0, 1.0) ** hp[0],
+        "gray": lambda r, g, b: r * 0.299 + g * 0.587 + b * 0.114,
+        "gain": lambda x: jnp.clip(x * float(m.dparams[int(hp[0])]), 0.0, 1.0),
+        "ssim": lambda ma, mb, saa, sbb, sab: ((2 * ma * mb + hp[0]) * (2 * (sab - ma * mb) + hp[1]))
+        / ((ma * ma + mb * mb + hp[0]) * ((saa - ma * ma) + (sbb - mb * mb) + hp[1])),
+        "gms": lambda a, b, c, d: (2 * jnp.sqrt(a * a + b * b) * jnp.sqrt(c * c + d * d) + hp[0])
+        / (a * a + b * b + c * c + d * d + hp[0]),
+        "mscn": lambda x, mu, s2: (x - mu) / (jnp.sqrt(jnp.maximum(s2 - mu * mu, 0.0)) + 1.0),
+        "mul": lambda a, b: a * b,
+        "ident": lambda x: x,
+        "sqdiff": lambda a, b: (a - b) ** 2,
+        "sq": lambda x: x * x,
+        "abs": jnp.abs,
+        "neg_sq": lambda x: (x * (x < 0)) ** 2,
+        "pos_sq": lambda x: (x * (x > 0)) ** 2,
+        "neg": lambda x: (x < 0).astype(jnp.float32),
+        "pos": lambda x: (x > 0).astype(jnp.float32),
+        "gated": lambda r, g, b: (r, g, b)[int(hp[1])] * gate(r, g, b),
+        "gated_count": gate,
+        "sqdev": lambda x: (x - float(m.dparams[0])) ** 2,
+    }[m.name]
+
+
+TRANSFORM_CASES = {"gamma": lambda: ttf.gamma(1 / 2.2), "gray": ttf.gray,
+                   "gain": lambda: ttf.gain(torch.tensor([1.25, 1.0, 0.8]), 2),
+                   "ssim": lambda: ttf.ssim(1e-4, 9e-4), "gms": lambda: ttf.gms(0.0026), "mscn": ttf.mscn,
+                   "mul": ttf.mul}
+
+
+def _inputs(rng, name, n, shape):
+    """Inputs in each map's domain: values about [0, 1] for the gamma and
+    the gain; for SSIM and MSCN, means in [0, 1] and second moments whose
+    variance is either negative (clamped by MSCN) or at least 0.01, so that
+    XLA's fused `s2 - mu * mu` (an FMA) moves the square root by less than
+    the tolerance."""
+    if name in ("gamma", "gain"):
+        return [rng.uniform(-0.2, 1.2, size=shape).astype(np.float32) for _ in range(n)]
+    if name in ("ssim", "mscn"):
+        mu = [rng.uniform(0, 1, size=shape).astype(np.float32) for _ in range(2)]
+        var = rng.uniform(0.01, 0.05, size=shape).astype(np.float32)
+        var[rng.uniform(size=shape) < 0.1] = -0.01
+        second = [m * m + var for m in mu]
+        return [mu[0], mu[1], second[0], second[1], mu[0] * mu[1] + var / 2] if name == "ssim" else \
+            [rng.uniform(0, 1, size=shape).astype(np.float32), mu[0], second[0]]
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(n)]
+
+
+# atol against the Pallas twin. XLA's CPU compiler contracts the SSIM map's
+# `saa - mu_a * mu_a` into an FMA, so its variances differ by an ulp of mu^2
+# (6e-8) from the port's two roundings, which the quotient carries to 3.1e-6
+# at variances of 0.01 (ROADMAP Queue 3); the port's kernel and plain
+# version round alike.
+MAP_ATOL = {"ssim": 5e-6}
+
+
+@pytest.mark.parametrize("name", sorted(TRANSFORM_CASES))
+def test_transform_maps_match_pallas(rng, name):
+    """Each map of the path through grid_transform on the CPU against its
+    jnp expression through the Pallas grid_transform in interpret mode, at
+    a ragged 70x300 in (32, 128) tiles: atol 1e-6 (rtol 1e-6 beside it for
+    the quotients), SSIM's MAP_ATOL; and equal to the plain version's bits
+    in any tiling."""
+    m = TRANSFORM_CASES[name]()
+    xs = _inputs(rng, name, m.n_in, (70, 300))
+    out = N(ttf.grid_transform(m, *(T(x) for x in xs)))
+    pal = np.asarray(pgrid.grid_transform(_jax_twins(m), *(jnp.asarray(x) for x in xs), tile=(32, 128),
+                                          interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=1e-6, atol=MAP_ATOL.get(name, 1e-6))
+    np.testing.assert_array_equal(out, N(ttf.grid_transform_plain(m.fn, *(T(x) for x in xs), tile=(32, 128))))
+
+
+def test_grid_transform_reads_and_writes_strided_views(rng):
+    """Channel views of an interleaved (H, W, 3) frame, in and out."""
+    img = T(rng.uniform(size=(20, 33, 3)).astype(np.float32))
+    out = torch.zeros(20, 33, 3)
+    gains = torch.tensor([0.5, 2.0, 1.5])
+    for c in range(3):
+        ttf.grid_transform(ttf.gain(gains, c), img[..., c], out=out[..., c])
+    np.testing.assert_array_equal(N(out), N(torch.clamp(img * gains, 0.0, 1.0)))
+
+
+def test_transform_wrappers_check_their_maps():
+    x = torch.zeros(4, 4)
+    with pytest.raises(ValueError, match="takes 2 arrays"):
+        ttf.grid_transform(ttf.mul(), x)
+    with pytest.raises(ValueError, match="reduce map"):
+        ttf.grid_transform(ttf.sq(), x)
+    with pytest.raises(ValueError, match="transform map"):
+        reduce.grid_reduce(ttf.mul(), x, x)
+    with pytest.raises(ValueError, match="kind"):
+        reduce.grid_reduce(ttf.sq(), x, kind="mean")
+    with pytest.raises(ValueError, match=r"\(H, W\)"):
+        ttf.streamed_transform(ttf.gamma(0.5), torch.zeros(2, 3, 4))
+
+
+@pytest.mark.parametrize("shape,block", [((500, 256), 128), ((37, 300), 16)])
+def test_streamed_transform_plain_matches_pallas(rng, shape, block):
+    """Twin of tests/test_pallas_pipeline.py::test_streamed_transform_elementwise
+    (rtol, atol 1e-5), and the gamma map over a ragged last block."""
+    x = rng.normal(size=shape).astype(np.float32)
+    out = N(ttf.streamed_transform_plain(lambda a: torch.tanh(a) * 2.0 + 0.25, T(x), block=block))
+    pal = np.asarray(ppipe.streamed_transform(lambda a: jnp.tanh(a) * 2.0 + 0.25, jnp.asarray(x), block=block,
+                                              interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=1e-5, atol=1e-5)
+    m = ttf.gamma(1 / 2.2)
+    g = N(ttf.streamed_transform(m, T(x)))
+    pal = np.asarray(ppipe.streamed_transform(_jax_twins(m), jnp.asarray(x), block=block, interpret=True))
+    np.testing.assert_allclose(g, pal, rtol=1e-5, atol=1e-5)
+
+
+def test_grid_reduce_plain_matches_pallas(rng):
+    """Twins of tests/test_pallas_grid.py's grid_reduce cases: sums rtol
+    1e-5, min and max exact, and maps that are not neutral at the pad."""
+    a = rng.normal(size=(200, 330)).astype(np.float32)
+    ja = jnp.asarray(a)
+    for tmap, jmap, kind, tile in ((lambda x: x * x, lambda x: x * x, "sum", (128, 128)),
+                                   (lambda x: torch.exp(-x * x), lambda x: jnp.exp(-x * x), "sum", (128, 128)),
+                                   (lambda x: x, lambda x: x, "min", (64, 128)),
+                                   (lambda x: x, lambda x: x, "max", (64, 128)),
+                                   (lambda x: x + 10.0, lambda x: x + 10.0, "min", (64, 128))):
+        out = float(reduce.grid_reduce_plain(tmap, T(a), kind=kind, tile=tile))
+        pal = float(pgrid.grid_reduce(jmap, ja, kind=kind, tile=tile, interpret=True))
+        if kind == "sum":
+            np.testing.assert_allclose(out, pal, rtol=1e-5)
+        else:
+            assert out == pal
+
+
+REDUCE_CASES = {"ident": ttf.ident, "sqdiff": ttf.sqdiff, "sq": ttf.sq, "abs": ttf.abs_, "neg_sq": ttf.neg_sq,
+                "pos_sq": ttf.pos_sq, "neg": ttf.neg, "pos": ttf.pos, "gated": lambda: ttf.gated(0.9, 1),
+                "gated_count": lambda: ttf.gated_count(0.9), "sqdev": lambda: ttf.sqdev(torch.tensor(0.25))}
+
+
+@pytest.mark.parametrize("name", sorted(REDUCE_CASES))
+def test_reduce_maps_match_pallas(rng, name):
+    """Each reduce map of the path through grid_reduce on the CPU against
+    its jnp expression through the Pallas grid_reduce in interpret mode,
+    70x300 in (32, 128) tiles: sums rtol 1e-5, counts exact, min and max of
+    the identity exact."""
+    m = REDUCE_CASES[name]()
+    xs = [rng.uniform(-0.5, 1.0, size=(70, 300)).astype(np.float32) for _ in range(m.n_in)]
+    out = float(reduce.grid_reduce(m, *(T(x) for x in xs)))
+    pal = float(pgrid.grid_reduce(_jax_twins(m), *(jnp.asarray(x) for x in xs), tile=(32, 128), interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=1e-5)
+    if name in ("neg", "pos", "gated_count"):
+        assert out == pal == int(out) > 0
+    if name == "ident":
+        for kind in ("min", "max"):
+            assert float(reduce.grid_reduce(m, T(xs[0]), kind=kind)) == float(
+                pgrid.grid_reduce(lambda x: x, jnp.asarray(xs[0]), kind=kind, tile=(32, 128), interpret=True))
+    mean = float(reduce.grid_reduce(m, *(T(x) for x in xs), div=float(xs[0].size)))
+    np.testing.assert_allclose(mean, out / xs[0].size, rtol=1e-6)
+
+
+def test_grid_reduce_min_max_propagate_nan(rng):
+    x = rng.normal(size=(9, 40)).astype(np.float32)
+    x[4, 7] = np.nan
+    for kind in ("min", "max"):
+        assert np.isnan(float(reduce.grid_reduce(ttf.ident(), T(x), kind=kind)))
+
+
+def test_grid_histogram_drop_rule_matches_pallas(rng):
+    """Twin of tests/test_pallas_grid.py::test_grid_histogram (150x210, 16
+    bins, exact counts), with NaN and out-of-range values the rule drops."""
+    a = rng.random((150, 210)).astype(np.float32)
+    out = N(thist.grid_histogram(T(a), 16, 0.0, 1.0))
+    np.testing.assert_array_equal(out, np.histogram(a, bins=16, range=(0.0, 1.0))[0])
+    a[rng.uniform(size=a.shape) < 0.05] = np.nan
+    a[:4] = rng.uniform(-1, 2, size=(4, 210))
+    for bins, vmin, vmax in ((16, 0.0, 1.0), (10, -0.3, 0.7)):
+        out = N(thist.grid_histogram(T(a), bins, vmin, vmax))
+        pal = np.asarray(pgrid.grid_histogram(jnp.asarray(a), bins=bins, vmin=vmin, vmax=vmax, tile=(64, 128),
+                                              interpret=True))
+        np.testing.assert_array_equal(out, pal)
+
+
+def test_the_two_histogram_rules():
+    """4 bins over [0, 1] of [0, .5, 1, 1.5, -.2, NaN, .999999]: the Pallas
+    rule drops NaN and what lies outside [0, 1); ops.histogram's clamps."""
+    x = np.array([[0.0, 0.5, 1.0, 1.5, -0.2, np.nan, 0.999999]], np.float32)
+    drop = N(thist.grid_histogram(T(x), 4, 0.0, 1.0, rule="drop"))
+    clamp = N(thist.grid_histogram(T(x), 4, 0.0, 1.0, rule="clamp"))
+    np.testing.assert_array_equal(drop, [1, 0, 1, 1])
+    np.testing.assert_array_equal(clamp, [3, 0, 1, 3])
+    np.testing.assert_array_equal(drop, np.asarray(pgrid.grid_histogram(jnp.asarray(x), 4, 0.0, 1.0, interpret=True)))
+
+
+def test_grid_histogram_tiles_match_the_onehot_counts(rng):
+    """CLAHE's batched tile histograms (a 100x130 frame cropped to 8 x 8
+    tiles of 12 x 16) against the JAX one-hot counts of the same crop."""
+    from opencv_contrib_tpu.ops import histogram as jhist
+
+    x = rng.uniform(-0.1, 1.1, size=(100, 130)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.02] = np.nan
+    out = N(thist.grid_histogram(T(x), 256, 0.0, 1.0, rule="clamp", tiles=(8, 8)))
+    crop = jnp.asarray(x[:96, :128]).reshape(8, 12, 8, 16).transpose(0, 2, 1, 3).reshape(64, -1)
+    idx = jnp.clip((crop * 256).astype(jnp.int32), 0, 255)
+    np.testing.assert_array_equal(out, np.asarray(jhist._onehot_counts(idx, 256)))
+    assert out.shape == (64, 256) and out.sum() == 96 * 128
+
+
+def test_map_codes_match_the_header():
+    """MAP_CODES mirrors csrc/maps.cuh's MAP_* numbers, and every number
+    has its one functor case in the dispatch of its kind."""
+    text = (_build.CSRC / "maps.cuh").read_text()
+    codes = {k.lower(): int(v) for k, v in re.findall(r"constexpr int MAP_(\w+) = (\d+);", text)}
+    assert codes == ttf.MAP_CODES
+    cases = re.findall(r"case MAP_(\w+):", text)
+    assert sorted(c.lower() for c in cases) == sorted(ttf.MAP_CODES)
+    transform_part = text[text.index("dispatch_transform"):text.index("dispatch_reduce")]
+    assert sorted(c.lower() for c in re.findall(r"case MAP_(\w+):", transform_part)) == sorted(ttf.TRANSFORM_MAPS)
