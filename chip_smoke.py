@@ -43,10 +43,14 @@ Phases, one JSON line each:
       EPE gates, the plain path, a 96x128 pair on the card against the CPU,
       ms per pair, peak memory, and one profiled pair per method;
   (k) grid_transform (the path's maps, strided channel views included),
-      streamed_transform, grid_reduce (sum, min, max) and grid_histogram
-      (both rules, 8x8 batched tiles) against their plain versions at
-      1080x1920, at the clip's 8640x5760 for the stream, and at ragged
-      small shapes, each timed beside the nearest PyTorch call;
+      streamed_transform, grid_reduce (sum, min, max), grid_reduce_sums (the
+      path's three groups, against the plain version and bit for bit against
+      single grid_reduce calls) and grid_histogram (both rules, 8x8 batched
+      tiles) against their plain versions at 1080x1920, at the clip's
+      8640x5760 for the stream, and at ragged shapes and unaligned views
+      (both paths of the row walk), each timed beside the nearest PyTorch
+      call with L2-warm inputs, and the grid_transform / grid_reduce rows
+      also with the L2 flushed before each call;
   (l) the photometric path: `entry.photometric` on `entry.photo_clip()`
       (8 x 1080 x 1920 x 3) with the counters read around it and held to
       the counts its loops give, the restoration gate (the balanced clip
@@ -103,8 +107,22 @@ PATH_KERNELS = {"frontend": ("knn2", "integral_image", "grid_scan"),
 LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
 DEVICE_KERNELS = ("knn2_kernel", "knn2_merge_kernel", "row_sqnorm_kernel", "scan_rows_kernel", "scan_cols_kernel",
                   "grid_reduce_vec_kernel", "icp_getab_finalize_kernel", "pyrdown_kernel", "remap_kernel",
-                  "grid_transform_kernel", "streamed_transform_kernel", "grid_reduce_kernel",
-                  "grid_reduce_finalize_kernel", "grid_histogram_kernel")
+                  "grid_transform_vec4_kernel", "grid_transform_strided_kernel", "streamed_transform_kernel",
+                  "grid_reduce_vec4_kernel", "grid_reduce_strided_kernel", "grid_histogram_kernel")
+TRANSFORM_KERNELS = ("grid_transform_vec4_kernel", "grid_transform_strided_kernel")
+REDUCE_KERNELS = ("grid_reduce_vec4_kernel", "grid_reduce_strided_kernel")
+L2_FLUSH_BYTES = 128 << 20  # a write of this many bytes before each L2-cold call evicts the 50 MB L2
+# the kernel of a uint8 Tensor.zero_: the L2 flush, and the markers that open
+# each profiler window (a new trace drops its first few kernel events); no
+# timed call launches it, and it is left out of every device time
+FLUSH_KERNEL = "FillFunctor<unsigned char>"
+N_MARKERS = 8
+# device_ms: a trace drops the first kernel events of its window, and now and
+# then all of them; a window waits WINDOW_PAD_S before its markers and after
+# its last kernel, four times longer each time it is taken again, at most
+# N_WINDOWS times a call
+WINDOW_PAD_S = 0.01
+N_WINDOWS = 5
 PYRDOWN_SHAPES = [(436, 1024), (218, 512), (109, 256), (480, 640)]  # the Sintel pyramid's levels 0-2, and VGA
 REMAP_SHAPES = [(436, 1024), (55, 128)]  # the Sintel pyramid's finest and coarsest levels
 REMAP_FIELD_PX = 12.0  # smooth random displacements up to +-12 px leave the image at the borders
@@ -127,10 +145,11 @@ PHOTO_SMALL = (2, 100, 130)  # tests/test_torch_photometric.py's clip: its CLAHE
 # launches per frame on entry.photometric: grid_transform 3 (grayworld gains)
 # + 2 (gray of the output and of the clean frame) + 1 (SSIM map) + 1 (GMS
 # map) + 2 x 5 (BRISQUE: MSCN and 4 products a scale) + 1 (the score's
-# MSCN); grid_reduce 4 (grayworld) + 1 (MSE) + 1 (SSIM) + 2 (GMSD) + 2 x 26
-# (BRISQUE: 2 GGD and 4 x 6 AGGD moments a scale) + 2 (the score's GGD);
-# grid_histogram 1 (CLAHE's tiles); streamed_transform 1 a clip (the gamma)
-PHOTO_PER_FRAME = {"grid_transform": 18, "grid_reduce": 62, "grid_histogram": 1}
+# MSCN); grid_reduce 1 (grayworld's group) + 1 (MSE) + 1 (SSIM) + 2 (GMSD)
+# + 2 x 5 (BRISQUE: the GGD group and 4 AGGD groups a scale) + 1 (the
+# score's GGD group); grid_histogram 1 (CLAHE's tiles); streamed_transform 1
+# a clip (the gamma)
+PHOTO_PER_FRAME = {"grid_transform": 18, "grid_reduce": 16, "grid_histogram": 1}
 N_PHOTO_TIMED = 3
 ALPHA_FEATURES = [0, 2, 6, 10, 14, 18, 20, 24, 28, 32]  # BRISQUE's shape parameters, points of a 0.01 grid
 ALPHA_STEP = 0.01 + 1e-6
@@ -220,6 +239,9 @@ def plain_path():
     def grid_reduce(m, *arrays, kind="sum", div=1.0):
         return reduce.grid_reduce_plain(m.fn, *arrays, kind=kind) / div
 
+    def grid_reduce_sums(group, *arrays, div=1.0, kind="sum"):
+        return reduce.grid_reduce_sums_plain(group, *arrays, div=div)
+
     with mock.patch.object(integral, "integral_image", scan.integral_image_plain), \
             mock.patch.object(match, "use_kernel", lambda x: False), \
             mock.patch.object(matching, "knn2", knn2), \
@@ -229,6 +251,7 @@ def plain_path():
             mock.patch.object(transform, "grid_transform", grid_transform), \
             mock.patch.object(transform, "streamed_transform", lambda m, x: transform.streamed_transform_plain(m.fn, x)), \
             mock.patch.object(reduce, "grid_reduce", grid_reduce), \
+            mock.patch.object(reduce, "grid_reduce_sums", grid_reduce_sums), \
             mock.patch.object(histogram, "grid_histogram", histogram.grid_histogram_plain):
         yield
 
@@ -249,33 +272,56 @@ class Smoke:
         self.intr = np.asarray([500.0, 500.0, 320.0, 240.0, 0, 0, 0, 0, 0], np.float32)
         self.kernels = {}  # name -> timing row at the main path's shape
         self.launches = {}  # path -> launch counts
+        self.marker = self.l2_flush = None  # device_ms's window markers and L2 flush buffer
 
     def card(self, a):
         return self.torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.dev)
 
-    def device_ms(self, fn, iters: int = 10, names=None):
+    def device_ms(self, fn, iters: int = 10, names=None, cold: bool = False):
         """Device time of one call: the durations of the kernels it ran, from
         torch.profiler, without the host time between them; with `names`,
         (that time, the time of those of DEVICE_KERNELS alone), both from
-        one profiler window."""
+        one profiler window. cold: the L2 is flushed before each call by a
+        write of L2_FLUSH_BYTES, whose kernels are left out of the time.
+        A trace drops the first kernel events of its window, so each window
+        opens with a wait and N_MARKERS small uint8 fills, left out too; a
+        window where none of them survived is taken again with a longer
+        wait."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
+        if self.marker is None:
+            self.marker = torch.empty(16, dtype=torch.uint8, device=self.dev)
+        if cold and self.l2_flush is None:
+            self.l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=self.dev)
         fn()
         torch.cuda.synchronize()
-        for _ in range(3):  # a trace now and then comes back without its device events
+        pad, seen = WINDOW_PAD_S, []
+        for _ in range(N_WINDOWS):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(pad)
+                for _ in range(N_MARKERS):
+                    self.marker.zero_()
                 for _ in range(iters):
+                    if cold:
+                        self.l2_flush.zero_()
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(pad)
             ev = kernel_events(prof)
+            fills = sum(e.count for e in ev if FLUSH_KERNEL in e.key)
+            ev = [e for e in ev if FLUSH_KERNEL not in e.key]
             us = sum(e.self_device_time_total for e in ev)
+            seen.append({"pad_s": pad, "fills": fills, "us": us})
+            pad *= 4
+            if fills <= (iters if cold else 0):
+                continue  # the trace dropped every marker, so maybe some of fn's events too
             if us > 0:
                 if names is None:
                     return us / iters / 1e3
                 ours = sum(e.self_device_time_total for e in ev if any(is_ours(e.key, k) for k in names))
                 return us / iters / 1e3, ours / iters / 1e3
-        raise AssertionError("torch.profiler recorded no device time")
+        raise AssertionError(f"torch.profiler recorded no device time, or not every call's: {seen}")
 
     def wall_ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         """Mean time of one call, from CUDA events around `iters` calls: the
@@ -292,17 +338,21 @@ class Smoke:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def times(self, fns: dict, names=None) -> dict:
+    def times(self, fns: dict, names=None, cold: bool = False) -> dict:
         """`ms` (device) and `wall_ms` (events) of the kernel, its plain
         version and the library call, keyed by prefix; with `names`, also
         `kernel_ms`, the device time of those kernels alone in the kernel's
-        call (the same window as its `ms`, over 30 calls)."""
+        call (the same window as its `ms`, over 30 calls); with `cold`, also
+        `cold_ms` for every call but the plain version: the device time with
+        the L2 flushed before each of 30 calls."""
         out = {}
         for prefix, fn in fns.items():
             if names is not None and prefix == "":
                 out["ms"], out["kernel_ms"] = self.device_ms(fn, iters=30, names=names)
             else:
                 out[prefix + "ms"] = self.device_ms(fn)
+            if cold and prefix != "plain_":
+                out[prefix + "cold_ms"] = self.device_ms(fn, iters=30, cold=True)
             out[prefix + "wall_ms"] = self.wall_ms(fn, iters=20 if prefix != "plain_" else 5)
         return out
 
@@ -953,12 +1003,17 @@ class Smoke:
                                 for e in ev for k in DEVICE_KERNELS if is_ours(e.key, k)}}
 
     # ---- (k) -----------------------------------------------------------------
-    def row(self, kname, shape, err, fns, nbytes, ops, names, **extra):
-        return {"kernel": kname, "shape": list(shape), "max_abs_err": err, **extra,
-                **self.times(fns, names=names),
-                "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
-                "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes",
-                "bytes": nbytes, "ops": ops}
+    def row(self, kname, shape, err, fns, nbytes, ops, names, cold=False, **extra):
+        """A timing row; with `cold`, the bound's share of the L2-cold time
+        too (the DRAM bound is a bound on a cold call)."""
+        row = {"kernel": kname, "shape": list(shape), "max_abs_err": err, **extra,
+               **self.times(fns, names=names, cold=cold),
+               "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
+               "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes",
+               "bytes": nbytes, "ops": ops}
+        if cold:
+            row["bound_over_cold_ms"] = row["bound_ms"] / row["cold_ms"]
+        return row
 
     def ulp_check(self, out, ref, what):
         """out within 2 float32 ulp of ref (0 expected: the kernels round as
@@ -1000,13 +1055,25 @@ class Smoke:
             t_rows.append(self.row("grid_transform", xs[0].shape, err,
                                    {"": lambda: tf.grid_transform(m, *xs), "plain_": lambda: tf.grid_transform_plain(m.fn, *xs),
                                     "library_": lambda: m.fn(*xs)},
-                                   4 * (m.n_in + 1) * n, ops * n, ("grid_transform_kernel",), map=name))
-        for shape in ((7, 13), (33, 1000)):  # ragged, with an output view
-            a, b = (self.card(self.gen.standard_normal(shape)) for _ in range(2))
-            o = torch.zeros(shape[0], shape[1], 2, device=self.dev)
+                                   4 * (m.n_in + 1) * n, ops * n, TRANSFORM_KERNELS, cold=True, map=name,
+                                   path="vec4" if tf.vec4_path([*xs, out]) else "strided"))
+        check([r["path"] for r in t_rows] == ["vec4", "strided", "strided", "vec4", "vec4", "vec4"],
+              f"grid_transform paths {[r['path'] for r in t_rows]}")
+        # ragged shapes, an output view, and views that take each path: a
+        # padded row pitch with W % 4 != 0 (vec4 with a tail), a view that
+        # starts 4 bytes in (strided)
+        wide = self.card(self.gen.standard_normal((2, 33, 1004)))
+        for label, a, b in [(f"{sh}", *(self.card(self.gen.standard_normal(sh)) for _ in range(2)))
+                            for sh in ((7, 13), (33, 1000), (1, 4099))] + [
+                ("33x1001 of 33x1004 (vec4, tail)", wide[0, :, :1001], wide[1, :, :1001]),
+                ("33x1003 from column 1 (unaligned)", wide[0, :, 1:], wide[1, :, 1:])]:
+            o = torch.zeros(a.shape[0], a.shape[1], 2, device=self.dev)
             tf.grid_transform(tf.mul(), a, b, out=o[..., 1])
+            full = tf.grid_transform(tf.mul(), a, b)
             torch.cuda.synchronize()
-            check(bool((o[..., 1] == a * b).all()) and not bool(o[..., 0].any()), f"grid_transform out view {shape}")
+            check(bool((o[..., 1] == a * b).all()) and not bool(o[..., 0].any()) and bool((full == a * b).all()),
+                  f"grid_transform ragged {label}")
+        check(tf.vec4_path([wide[0, :, :1001]]) and not tf.vec4_path([wide[0, :, 1:]]), "ragged views' paths")
         self.kernels["grid_transform"] = t_rows[0]
 
         # streamed_transform: the gamma over the clip viewed as (T H, W 3), and ragged arrays
@@ -1046,20 +1113,62 @@ class Smoke:
             torch.cuda.synchronize()
             err = abs(float(out) - float(ref))
             check(err <= 1e-5 * mag if kind == "sum" else err == 0.0, f"grid_reduce {name} {kind}: err {err}, sum|.| {mag}")
+            again = kr.grid_reduce(m, *xs, kind=kind)
+            check(float(again) == float(out), f"grid_reduce {name} {kind}: a rerun gave other bits")
             n = xs[0].numel()
             r_rows.append(self.row("grid_reduce", xs[0].shape, err,
                                    {"": lambda: kr.grid_reduce(m, *xs, kind=kind),
                                     "plain_": lambda: kr.grid_reduce_plain(m.fn, *xs, kind=kind),
                                     "library_": lambda: lib(*xs)},
-                                   4 * m.n_in * n + 4, ops * n, ("grid_reduce_kernel", "grid_reduce_finalize_kernel"),
-                                   map=name, kind=kind, sum_abs=mag))
-        for shape in ((1, 1), (7, 13), (33, 1000), (1000, 33)):  # ragged: threads past the extent stay neutral
-            a = self.card(self.gen.standard_normal(shape))
-            for kind in ("sum", "min", "max"):
+                                   4 * m.n_in * n + 4, ops * n, REDUCE_KERNELS, cold=True,
+                                   map=name, kind=kind, sum_abs=mag, path="vec4" if tf.vec4_path(xs) else "strided"))
+        wide = self.card(self.gen.standard_normal((33, 1004)))
+        ragged = [(str(sh), self.card(self.gen.standard_normal(sh))) for sh in ((1, 1), (7, 13), (33, 1000), (1000, 33))]
+        for label, a in ragged + [("33x1001 of 33x1004 (vec4, tail)", wide[:, :1001]),
+                                  ("33x1003 from column 1 (unaligned)", wide[:, 1:])]:
+            for kind in ("sum", "min", "max"):  # threads past the extent stay neutral
                 o, rf = kr.grid_reduce(tf.ident(), a, kind=kind), kr.grid_reduce_plain(lambda v: v, a, kind=kind)
                 tol = 1e-5 * float(a.abs().sum()) if kind == "sum" else 0.0
-                check(abs(float(o) - float(rf)) <= tol, f"grid_reduce ragged {shape} {kind}: {float(o)} vs {float(rf)}")
+                check(abs(float(o) - float(rf)) <= tol, f"grid_reduce ragged {label} {kind}: {float(o)} vs {float(rf)}")
         self.kernels["grid_reduce"] = r_rows[0]
+
+        # grid_reduce_sums: the path's three groups, against the plain version
+        # (each sum within 1e-5 of its sum |map|) and bit for bit against the
+        # single grid_reduce calls they replace
+        prod = nrm[0] * nrm[1]
+        n = prod.numel()
+        groups = [("ggd", tf.ggd_moments(), [nrm[0]], (float(n),) * 2),
+                  ("aggd", tf.aggd_moments(), [prod], (1.0, 1.0, 1.0, 1.0, float(n), float(n))),
+                  ("aggd_540x960", tf.aggd_moments(), [prod[:h2, :w2].contiguous()], (1.0,) * 6),
+                  ("grayworld", tf.grayworld_sums(0.98), ch, (1.0,) * 4)]
+        for label, a in ragged[1:] + [("33x1001 of 33x1004", wide[:, :1001]), ("33x1003 unaligned", wide[:, 1:])]:
+            groups.append((f"aggd {label}", tf.aggd_moments(), [a], (1.0,) * 6))
+        rgb_s = self.card(self.gen.uniform(0, 1, size=(37, 301, 3)))
+        groups.append(("grayworld 37x301", tf.grayworld_sums(0.9), [rgb_s[..., c] for c in range(3)], (1.0,) * 4))
+        sums_checks = []
+        for label, group, xs, divs in groups:
+            out = kr.grid_reduce_sums(group, *xs, div=divs)
+            singles = torch.stack([kr.grid_reduce(m, *xs, div=d) for m, d in zip(group.maps, divs)])
+            ref = kr.grid_reduce_sums_plain(group, *xs, div=divs)
+            mag = torch.stack([kr.grid_reduce_plain(lambda *a, m=m: m.fn(*a).abs(), *xs) / d
+                               for m, d in zip(group.maps, divs)])
+            torch.cuda.synchronize()
+            same = bool(torch.equal(out.view(torch.int32), singles.view(torch.int32)))
+            err = (out - ref).abs()
+            check(same, f"grid_reduce_sums {label}: {out.tolist()} differs from the single calls {singles.tolist()}")
+            check(bool((err <= 1e-5 * mag).all()), f"grid_reduce_sums {label}: err {err.tolist()}, sum|.| {mag.tolist()}")
+            sums_checks.append({"group": label, "shape": list(xs[0].shape),
+                                "path": "vec4" if tf.vec4_path(xs) else "strided", "equal_to_single_calls": same,
+                                "max_abs_err": float(err.max()), "max_err_over_sum_abs": float((err / mag).max())})
+        aggd, divs = tf.aggd_moments(), (1.0, 1.0, 1.0, 1.0, float(n), float(n))
+        self.aggd_row = self.row(
+            "grid_reduce_sums", prod.shape, sums_checks[1]["max_abs_err"],
+            {"": lambda: kr.grid_reduce_sums(aggd, prod, div=divs),
+             "plain_": lambda: kr.grid_reduce_sums_plain(aggd, prod, div=divs),
+             "singles_": lambda: [kr.grid_reduce(m, prod, div=d) for m, d in zip(aggd.maps, divs)],
+             "library_": lambda: torch.stack([torch.sum(m.fn(prod)) / d for m, d in zip(aggd.maps, divs)])},
+            4 * n + 4 * 6, 12 * n, REDUCE_KERNELS, cold=True, group="aggd",
+            singles="six grid_reduce calls, one per map", library="six eager torch.sum of the maps")
 
         # grid_histogram: CLAHE's 8x8 tiles of a frame (the path's launch), the
         # frame in both rules, and ragged images with NaN and out-of-range values
@@ -1089,16 +1198,24 @@ class Smoke:
                     check(bool((o == kh.grid_histogram_plain(a, 10, 0.0, 1.0, rule, tiles)).all()),
                           f"grid_histogram ragged {shape} {rule} {tiles}")
         self.kernels["grid_histogram"] = h_rows[0]
+        self.l2_flush = None  # the later phases' peak memory leaves the flush buffer out
         emit({"phase": "k_grid_kernels",
               "tolerance": "transforms within 2 float32 ulp of the plain version (0 expected but for powf); sums "
-                           "within 1e-5 of sum |map|; min and max exact; histogram counts exact",
+                           "within 1e-5 of sum |map|; min and max exact; a rerun gives the same bits; "
+                           "grid_reduce_sums equal to the single grid_reduce calls bit for bit; histogram counts "
+                           "exact",
               "timing": "ms: device time per call (torch.profiler, 30 calls, inputs L2-warm where they fit in "
                         "the 50 MB L2), kernel_ms: the kernels' own in the same window (grid_histogram's ms adds "
-                        "its counts' zeroing and float conversion); wall_ms: CUDA events per call",
+                        "its counts' zeroing and float conversion); cold_ms: the same with a 128 MiB write before "
+                        "each call (its kernels left out), for the kernel and the library call; bound_over_cold_ms: "
+                        "the DRAM bound's share of the cold time; wall_ms: CUDA events per call",
               "library_call": {"grid_transform": "the map's eager PyTorch expression", "streamed_transform":
                                "torch.clamp(x, 0, 1) ** g", "grid_reduce": "torch.sum / amin / amax, F.mse_loss, "
-                               "or the map's eager expression summed", "grid_histogram": "torch.histc (the frame)"},
-              "grid_transform": t_rows, "streamed_transform": s_rows, "grid_reduce": r_rows, "grid_histogram": h_rows,
+                               "or the map's eager expression summed", "grid_reduce_sums": "six eager torch.sum of "
+                               "the maps (no one PyTorch call computes them)",
+                               "grid_histogram": "torch.histc (the frame)"},
+              "grid_transform": t_rows, "streamed_transform": s_rows, "grid_reduce": r_rows,
+              "grid_reduce_sums": {"checks": sums_checks, "aggd_six": self.aggd_row}, "grid_histogram": h_rows,
               "ok": True})
 
     # ---- (l) -----------------------------------------------------------------
@@ -1240,7 +1357,8 @@ class Smoke:
                          "max_abs_err": row["max_abs_err"], "ms": row["ms"], "kernel_ms": row.get("kernel_ms", row["ms"]),
                          "plain_ms": row["plain_ms"],
                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                         "library_ms": row["library_ms"], "wall_ms": row["wall_ms"]})
+                         "library_ms": row["library_ms"], "wall_ms": row["wall_ms"],
+                         **{k: row[k] for k in ("cold_ms", "library_cold_ms", "bound_over_cold_ms") if k in row}})
         emit({"kernels": line})
 
 

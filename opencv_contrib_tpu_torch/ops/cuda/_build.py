@@ -8,11 +8,14 @@ keyed on a hash of the sources and the flags, and loaded with `ctypes`. A
 later call, or a later process on the same checkout, reuses the libraries.
 
 Every C entry point returns `cudaGetLastError()` after its launches;
-`check()` raises when that is not 0.
+`check()` raises when that is not 0. The argtypes of each entry point are
+set once, when its library is loaded; `on_device()` enters a device guard
+only when the tensor's device is not the current one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -55,15 +58,18 @@ SIGNATURES = {
         "remap_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     },
     "transform": {
-        # map, n_in, views (host), hparams (host), dparams, H, W, blocks, stream
+        # map, n_in, views (host), hparams (host), dparams, H, W, vec4, stream
         "grid_transform_f32": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
         # map, hparams (host), dparams, x, y, n, blocks, stream
         "streamed_transform_f32": [_I, _P, _P, _P, _P, _I, _I, _P],
     },
     "reduce": {
         # map, kind, n_in, views (host), hparams (host), dparams, H, W, div,
-        # blocks, partials, out, stream
+        # vec4, scratch, out, stream
         "grid_reduce_f32": [_I, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
+        # group, n_in, views (host), hparams (host), H, W, div (host), vec4,
+        # scratch, out, stream
+        "grid_reduce_sums_f32": [_I, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
     },
     "histogram": {
         # x, rule, pitch, rows, cols, tiles_y, tiles_x, bins, vmin, vmax, q,
@@ -144,3 +150,14 @@ def stream_of(tensor) -> int:
     import torch
 
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def on_device(dev):
+    """A context that makes `dev` the current CUDA device: none when it
+    already is (entering `torch.cuda.device` costs host time on every
+    launch)."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

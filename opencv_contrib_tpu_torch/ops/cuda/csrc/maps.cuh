@@ -6,7 +6,9 @@
 // functor here, picked by its number (MAP_* below, mirrored by
 // ops/cuda/transform.py MAP_CODES) in a host-side switch that instantiates
 // the kernels for these maps and no others. Each functor has N inputs and
-// maps the N values of one element to one float.
+// maps the N values of one element to one float. The multi-output sum
+// groups of grid_reduce_sums (GROUP_* below, mirrored by GROUP_CODES) call
+// these functors, one per output.
 //
 // Bits: nvcc contracts a * b + c into an FMA by default, which rounds once
 // where PyTorch's separate kernels round twice. Every product, sum and
@@ -216,6 +218,64 @@ bool dispatch_reduce(int map, const float* hp, const float* dp, F&& f) {
   }
 }
 
+// ---- multi-output sum groups (grid_reduce_sums) ----------------------------
+// K outputs of one pass over the same N inputs; output k is computed by its
+// single map's functor, so a group's sums have the bits of K single calls.
+// Only the groups the path uses are instantiated: BRISQUE's GGD and AGGD
+// moments and grayworld's gated sums. Each comment lists the maps in output
+// order, as the group's constructor in ops/cuda/transform.py (GROUPS) does.
+constexpr int GROUP_GGD = 0;  // sq, abs
+constexpr int GROUP_AGGD = 1;  // neg, pos, neg_sq, pos_sq, abs, sq
+constexpr int GROUP_GRAYWORLD = 2;  // gated, gated, gated, gated_count
+
+// one map as a group of one output (grid_reduce's sum, min and max)
+template <class M>
+struct Single {
+  static constexpr int N = M::N, K = 1;
+  M m;
+  __device__ void operator()(const float* v, float* o) const { o[0] = m(v); }
+};
+
+struct GgdMoments {
+  static constexpr int N = 1, K = 2;
+  __device__ void operator()(const float* v, float* o) const {
+    o[0] = Sq{}(v);
+    o[1] = Abs{}(v);
+  }
+};
+
+struct AggdMoments {
+  static constexpr int N = 1, K = 6;
+  __device__ void operator()(const float* v, float* o) const {
+    o[0] = SideCount<true>{}(v);
+    o[1] = SideCount<false>{}(v);
+    o[2] = SideSq<true>{}(v);
+    o[3] = SideSq<false>{}(v);
+    o[4] = Abs{}(v);
+    o[5] = Sq{}(v);
+  }
+};
+
+struct GrayworldSums {  // the gated sums of channels 0, 1, 2 and their count
+  static constexpr int N = 3, K = 4;
+  float sat;
+  __device__ void operator()(const float* v, float* o) const {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) o[c] = Gated{sat, c}(v);
+    o[3] = GatedCount{sat}(v);
+  }
+};
+
+template <class F>
+bool dispatch_group(int group, const float* hp, F&& f) {
+  switch (group) {
+    case GROUP_GGD: f(GgdMoments{}); return true;
+    case GROUP_AGGD: f(AggdMoments{}); return true;
+    case GROUP_GRAYWORLD: f(GrayworldSums{hp[0]}); return true;
+    default: return false;
+  }
+}
+
 // views: n_in + 1 (input views, then the output) host triples (pointer,
 // pitch, stride), as ops/cuda/transform.py packs them
 template <int N>
@@ -226,10 +286,58 @@ Views<N> unpack(const long long* views) {
   return out;
 }
 
+// ---- the row walk of grid_transform and grid_reduce --------------------------
+// A block of TX threads takes a band of rows and its threads take columns, so
+// a row's offset is computed once per row (64-bit) and an element's offset in
+// its row in 32 bits (the wrappers refuse a row that spans 2**31 elements or
+// more): no per-element division. Two paths, chosen by the wrapper from the
+// views:
+//   vec4: every view has stride 1, a pitch that is a multiple of 4 and a
+//     16-byte aligned pointer: a thread takes U float4s of a row per step
+//     (16-byte loads, U in flight for each input), and block column 0 maps
+//     the row's last W % 4 elements one by one;
+//   strided: any strides: a thread takes U elements of a row per step,
+//     consecutive threads on consecutive columns.
+// The geometry is set by the macros below, so that
+// scripts/row_walk_geometry.py can build and time other choices with -D flags.
+#ifndef ROW_WALK_TX
+#define ROW_WALK_TX 128
+#endif
+// U on the vec4 path: a map runs fastest with one float4 per input and thread
+// (the most threads in flight), a reduction with four (fewer, fuller blocks
+// fold and write partials); the strided path takes four elements either way
+#ifndef ROW_WALK_MAP_U
+#define ROW_WALK_MAP_U 1
+#endif
+#ifndef ROW_WALK_REDUCE_U
+#define ROW_WALK_REDUCE_U 4
+#endif
+constexpr int TX = ROW_WALK_TX;
+constexpr int unroll(bool vec4, bool reduce) { return !vec4 ? 4 : reduce ? ROW_WALK_REDUCE_U : ROW_WALK_MAP_U; }
+
+// blocks along a row: enough for one step of u units a thread to cover it
+inline int row_blocks(int W, bool vec4, int u) {
+  const int units = vec4 ? W / 4 : W, per = TX * u;
+  return units > per ? (units + per - 1) / per : 1;
+}
+
 template <int N>
-__device__ __forceinline__ void load(const Views<N>& in, long long i, long long j, float* v) {
+__device__ __forceinline__ void row_ptrs(const Views<N>& in, int i, const float** row) {
 #pragma unroll
-  for (int a = 0; a < N; ++a) v[a] = __ldg(in.v[a].p + i * in.v[a].pitch + j * in.v[a].stride);
+  for (int a = 0; a < N; ++a) row[a] = in.v[a].p + (long long)i * in.v[a].pitch;
+}
+
+template <int N>
+__device__ __forceinline__ void load4(const float* const* row, int c, float4* x) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) x[a] = __ldg(reinterpret_cast<const float4*>(row[a]) + c);
+}
+
+// lane l (0-3) of N float4s: the N inputs of element 4 c + l
+template <int N>
+__device__ __forceinline__ void lane(const float4* x, int l, float* v) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) v[a] = l == 0 ? x[a].x : l == 1 ? x[a].y : l == 2 ? x[a].z : x[a].w;
 }
 
 }  // namespace maps

@@ -105,7 +105,7 @@ def grid_histogram(x: torch.Tensor, bins: int, vmin: float, vmax: float, rule: s
     per_tile = max(1, min(-(-rows * cols // (_THREADS * _ITEMS)), _MAX_BLOCKS // n_tiles))
     counts = torch.zeros((n_tiles, bins), dtype=torch.int32, device=x.device)
     lib = _build.lib("histogram")
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         _build.check(lib.grid_histogram_f32(x.data_ptr(), RULES[rule], x.stride(0), rows, cols, ty, tx, bins,
                                             f32(vmin), f32(vmax),
                                             _q(rule, bins, vmin, vmax), per_tile, counts.data_ptr(),

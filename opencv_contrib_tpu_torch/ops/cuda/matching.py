@@ -62,7 +62,7 @@ def knn2(q: torch.Tensor, t: torch.Tensor, tile_q: int = 512, tile_t: int = 2048
     dist = torch.empty((Q, 2), dtype=torch.float32, device=dev)
     idx = torch.empty(Q, dtype=torch.int32, device=dev)
     lib = _build.lib("knn2")
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.check(lib.knn2_f32(
             q.data_ptr(), t.data_ptr(), Q, T, D, span, tn.data_ptr(),
             part_best.data_ptr(), part_second.data_ptr(), part_idx.data_ptr(),

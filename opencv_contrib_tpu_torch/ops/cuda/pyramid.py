@@ -68,7 +68,7 @@ def pyrdown(x: torch.Tensor, border: str = "reflect101") -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty(((H + 1) // 2, (W + 1) // 2), dtype=torch.float32, device=x.device)
     lib = _build.lib("pyrdown")
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         _build.check(lib.pyrdown_f32(x.data_ptr(), out.data_ptr(), H, W, BORDERS[border],
                                      _build.stream_of(x)), "pyrdown_f32")
     pyrdown.launches += 1

@@ -1,15 +1,19 @@
-"""Tiled map reductions: to a scalar (`grid_reduce`), and to a vector, with
-the ICP getAb system built by one.
+"""Tiled map reductions: to a scalar (`grid_reduce`), to K sums in one pass
+(`grid_reduce_sums`), and to a vector, with the ICP getAb system built by
+one.
 
 Kernel `csrc/reduce.cu` replaces the Pallas `grid_reduce`
 (opencv_contrib_tpu/ops/pallas/grid.py:91), cudev's gridCalcSum / MinVal /
 MaxVal: a fused map + sum, min or max. The map is one of the `Map`s of
 `ops/cuda/transform.py` (functors in `csrc/maps.cuh`). On the photometric /
-quality path it takes grayworld's gated sums, the MSE, the SSIM and GMSD
-means and every moment of BRISQUE's fits. Block partials are folded by a
-second launch in a fixed order, with no atomics, so a sum does not change
-from run to run. Plain version beside it: `grid_reduce_plain` (the Pallas
-function's tiles, fill and neutral masking, for any callable `map_op`).
+quality path it takes the MSE, the SSIM and GMSD means, and through
+`grid_reduce_sums` grayworld's gated sums and BRISQUE's moments (one pass
+per group of maps over the same inputs). One launch a call: the block that
+finishes last folds the block partials in a fixed order (an integer ticket,
+no float atomics), so a sum does not change from run to run, and each sum of
+a group has the bits of its single-map call. Plain versions beside it:
+`grid_reduce_plain` (the Pallas function's tiles, fill and neutral masking,
+for any callable `map_op`) and `grid_reduce_sums_plain`.
 
 Kernel `csrc/reduce_vec.cu` replaces the Pallas `grid_reduce_vec`
 (opencv_contrib_tpu/ops/pallas/grid.py:155) in the role that function's
@@ -38,8 +42,13 @@ import torch.nn.functional as F
 from opencv_contrib_tpu_torch.ops.cuda import _build, use_kernel
 from opencv_contrib_tpu_torch.ops.cuda import transform as tf
 
-_THREADS = 256  # csrc/reduce_vec.cu and csrc/reduce.cu THREADS
-_MAX_BLOCKS = 4 * 132  # four blocks per SM of an H100
+_THREADS = 256  # csrc/reduce_vec.cu THREADS
+_MAX_BLOCKS = 4 * 132  # grid_reduce_vec: four blocks per SM of an H100
+_SUM_BLOCKS = 1024  # csrc/reduce.cu MAX_BLOCKS
+_MAX_SUMS = 8  # grid_reduce_sums: outputs a launch
+# csrc/reduce.cu's scratch: the ticket (an unsigned int, 0 between launches),
+# then _MAX_SUMS partials per block from float 4 on
+_SCRATCH_FLOATS = 4 + _SUM_BLOCKS * _MAX_SUMS
 _OUT = 29  # the getAb map's outputs
 _RESULT = 44  # A (36), b (6), n_corr, mean_err
 KINDS = {"sum": 0, "min": 1, "max": 2}  # csrc/reduce.cu SUM, MIN, MAX
@@ -72,6 +81,19 @@ def grid_reduce_plain(map_op, *arrays: torch.Tensor, kind: str = "sum", tile=(25
     return acc
 
 
+_scratch: dict = {}
+
+
+def _scratch_for(dev: torch.device, stream: int) -> torch.Tensor:
+    """grid_reduce's ticket and partials, made once per device and stream:
+    the kernel sets the ticket back to 0 at its end, and launches on one
+    stream run one after another, so no two reductions share it at once."""
+    buf = _scratch.get((dev, stream))
+    if buf is None:
+        buf = _scratch[(dev, stream)] = torch.zeros(_SCRATCH_FLOATS, dtype=torch.float32, device=dev)
+    return buf
+
+
 def grid_reduce(m: tf.Map, *arrays: torch.Tensor, kind: str = "sum", div: float = 1.0) -> torch.Tensor:
     """reduce(m(a0, a1, ...)) over the (H, W) views `arrays` (any strides),
     as a float32 scalar on their device; a sum is divided by `div` (the
@@ -91,19 +113,86 @@ def grid_reduce(m: tf.Map, *arrays: torch.Tensor, kind: str = "sum", div: float 
     H, W = tf.check_views(arrays, "grid_reduce", dev)
     views = tf.pack_views(arrays)
     hp, dp = tf.pack_params(m, dev, "grid_reduce")
-    blocks = min(-(-H * W // _THREADS), _MAX_BLOCKS)
-    partials = torch.empty(blocks, dtype=torch.float32, device=dev)
     out = torch.empty(1, dtype=torch.float32, device=dev)
+    stream = _build.stream_of(out)
     lib = _build.lib("reduce")
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.check(lib.grid_reduce_f32(tf.MAP_CODES[m.name], KINDS[kind], m.n_in, ctypes.addressof(views),
-                                         ctypes.addressof(hp), dp, H, W, tf.f32(div), blocks, partials.data_ptr(),
-                                         out.data_ptr(), _build.stream_of(out)), "grid_reduce_f32")
+                                         ctypes.addressof(hp), dp, H, W, tf.f32(div), int(tf.vec4_path(arrays)),
+                                         _scratch_for(dev, stream).data_ptr(), out.data_ptr(), stream),
+                     "grid_reduce_f32")
     grid_reduce.launches += 1
     return out[0]
 
 
 grid_reduce.launches = 0
+
+
+def _divs(div, k: int) -> list:
+    divs = [div] * k if isinstance(div, (int, float)) else list(div)
+    if len(divs) != k:
+        raise ValueError(f"grid_reduce_sums: div takes one float or one per map ({k}), got {len(divs)}")
+    return divs
+
+
+def grid_reduce_sums_plain(group: tf.Group, *arrays: torch.Tensor, div=1.0) -> torch.Tensor:
+    """(K,) float32: `grid_reduce_plain` of each of the group's map sums,
+    divided by its div, stacked."""
+    out = []
+    for m, d in zip(group.maps, _divs(div, len(group.maps))):
+        r = grid_reduce_plain(m.fn, *arrays)
+        out.append(r / d if d != 1.0 else r)
+    return torch.stack(out)
+
+
+def _key(group: tf.Group) -> tuple:
+    return group.name, group.hparams, tuple((m.name, m.n_in, m.hparams) for m in group.maps)
+
+
+def _check_group(group, kind: str) -> None:
+    """Raises unless `group` is a group the kernel instantiates (K <= 8 sum
+    maps of one arity), as its constructor in transform.GROUPS builds it."""
+    if kind != "sum":
+        raise ValueError(f"grid_reduce_sums: sums only, got kind {kind!r}; min and max take grid_reduce")
+    try:
+        want = tf.GROUPS[group.name](*group.hparams)
+    except (AttributeError, KeyError, TypeError):
+        want = None
+    if want is None or _key(group) != _key(want):
+        raise ValueError(f"grid_reduce_sums: {group!r} is not one of the kernel's groups; "
+                         f"transform.{', transform.'.join(f.__name__ for f in tf.GROUPS.values())} build them")
+
+
+def grid_reduce_sums(group: tf.Group, *arrays: torch.Tensor, div=1.0, kind: str = "sum") -> torch.Tensor:
+    """(K,) float32 on the arrays' device: the sum of each of the group's K
+    maps over the same (H, W) views, divided by `div` (one float, or one per
+    map), in one pass. `group` is one of transform.GROUPS' (csrc/maps.cuh
+    GROUP_*), and `kind` "sum": min and max take `grid_reduce`. A CUDA tensor
+    launches the grid_reduce kernel once, and each sum has the bits of its
+    single `grid_reduce` call; a CPU tensor takes `grid_reduce_sums_plain`."""
+    _check_group(group, kind)
+    maps = group.maps
+    for m in maps:
+        tf.check_map(m, arrays, "grid_reduce_sums")
+    divs = _divs(div, len(maps))
+    if not use_kernel(arrays[0]):
+        return grid_reduce_sums_plain(group, *arrays, div=divs)
+    dev = arrays[0].device
+    H, W = tf.check_views(arrays, "grid_reduce_sums", dev)
+    views = tf.pack_views(arrays)
+    hp = (ctypes.c_float * 4)(*group.hparams, *([0.0] * (4 - len(group.hparams))))
+    dv = (ctypes.c_float * len(maps))(*(tf.f32(d) for d in divs))
+    out = torch.empty(len(maps), dtype=torch.float32, device=dev)
+    stream = _build.stream_of(out)
+    lib = _build.lib("reduce")
+    with _build.on_device(dev):
+        _build.check(lib.grid_reduce_sums_f32(tf.GROUP_CODES[group.name], maps[0].n_in, ctypes.addressof(views),
+                                              ctypes.addressof(hp), H, W, ctypes.addressof(dv),
+                                              int(tf.vec4_path(arrays)), _scratch_for(dev, stream).data_ptr(),
+                                              out.data_ptr(), stream),
+                     "grid_reduce_sums_f32")
+    grid_reduce.launches += 1  # one launch of the grid_reduce kernel
+    return out
 
 
 def grid_reduce_vec_plain(map_op, *arrays: torch.Tensor, out_dim: int, tile=(256, 256)) -> torch.Tensor:
@@ -203,7 +292,7 @@ def icp_getab(T, src_points, src_normals, src_valid, dst_points, dst_normals, ds
     out = torch.empty(_RESULT, dtype=f32, device=dev)
     dist2 = float(np.float32(dist_thresh * dist_thresh))
     lib = _build.lib("reduce_vec")
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.check(lib.icp_getab_f32(*(a.data_ptr() for a in args), n, Hd, Wd, dist2,
                                        _cos32(angle_thresh), blocks, partials.data_ptr(), out.data_ptr(),
                                        _build.stream_of(src_points)), "icp_getab_f32")

@@ -102,7 +102,7 @@ def remap(maps: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, max_disp: int 
     out = torch.empty_like(maps)
     bounded = max_disp is not None
     lib = _build.lib("remap")
-    with torch.cuda.device(maps.device):
+    with _build.on_device(maps.device):
         _build.check(lib.remap_f32(maps.data_ptr(), dy.data_ptr(), dx.data_ptr(), out.data_ptr(), C, H, W,
                                    int(bounded), float(int(max_disp)) if bounded else 0.0,
                                    _clamp_limit(H), _clamp_limit(W), _build.stream_of(maps)), "remap_f32")

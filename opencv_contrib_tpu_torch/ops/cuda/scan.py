@@ -67,7 +67,7 @@ def grid_scan(x: torch.Tensor) -> torch.Tensor:
     H, W = x.shape
     out = torch.empty_like(x)
     lib = _build.lib("scan")
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         _build.check(lib.scan_rows_f32(x.data_ptr(), out.data_ptr(), H, W,
                                        _build.stream_of(x)), "scan_rows_f32")
     grid_scan.launches += 1
@@ -85,7 +85,7 @@ def integral_image(x: torch.Tensor) -> torch.Tensor:
     H, W = rows.shape
     out = torch.empty_like(rows)
     lib = _build.lib("scan")
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         _build.check(lib.scan_cols_f32(rows.data_ptr(), out.data_ptr(), H, W,
                                        _build.stream_of(x)), "scan_cols_f32")
     integral_image.launches += 1

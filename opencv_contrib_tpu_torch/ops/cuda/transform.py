@@ -9,7 +9,10 @@ roles their docstrings name: cudev's gridTransform, and the Stream/Async
 overlap of a map over an array that lives in device memory. On the
 photometric / quality path they apply the grayworld gains, convert RGB to
 gray and compute the SSIM, GMS and MSCN maps and BRISQUE's pairwise
-products, and the clip-wide gamma. Both are bound by bytes.
+products, and the clip-wide gamma. Both are bound by bytes. grid_transform
+walks rows (a block a band of rows, a thread columns) with float4 accesses
+where every view is contiguous along its rows and 16-byte aligned
+(`vec4_path`), and scalar ones otherwise (channel views).
 
 A CUDA kernel cannot take a Python `op`, so a map is a `Map`: its number in
 `csrc/maps.cuh` (MAP_CODES), its arity, its host parameters (floats) and
@@ -40,9 +43,10 @@ MAP_CODES = {"gamma": 0, "gray": 1, "gain": 2, "ssim": 3, "gms": 4, "mscn": 5, "
              "sqdiff": 8, "sq": 9, "abs": 10, "neg_sq": 11, "pos_sq": 12, "neg": 13, "pos": 14, "gated": 15,
              "gated_count": 16, "sqdev": 17}
 TRANSFORM_MAPS = ("gamma", "gray", "gain", "ssim", "gms", "mscn", "mul")
-_THREADS = 256  # csrc/transform.cu THREADS
+# csrc/maps.cuh GROUP_*: grid_reduce_sums' multi-output groups (their maps:
+# the constructors in GROUPS below)
+GROUP_CODES = {"ggd": 0, "aggd": 1, "grayworld": 2}
 _CHUNK = 2048  # csrc/transform.cu CHUNK: floats a streamed block stages at once
-_MAX_BLOCKS = 16 * 132  # grid_transform: sixteen blocks per SM of an H100
 _STREAM_BLOCKS = 8 * 132  # streamed_transform: eight persistent blocks (16 KB of staging each) per SM
 
 
@@ -52,6 +56,15 @@ class Map(NamedTuple):
     fn: Callable  # the plain PyTorch map of n_in same-shape tensors
     hparams: tuple = ()  # host floats, at most 4
     dparams: torch.Tensor | None = None  # device parameters (float32)
+
+
+class Group(NamedTuple):
+    """K sum maps over the same inputs that `reduce.grid_reduce_sums` folds
+    in one pass: one of csrc/maps.cuh's GROUP_* functors, as the
+    constructors below build them."""
+    name: str  # a key of GROUP_CODES and GROUPS
+    maps: tuple  # the Maps, in output order
+    hparams: tuple = ()  # the constructor's arguments, the functor's host floats
 
 
 def f32(v: float) -> float:
@@ -165,6 +178,28 @@ def sqdev(mean: torch.Tensor) -> Map:
     return Map("sqdev", 1, lambda x: (x - m[0]) * (x - m[0]), (), m)
 
 
+# ---- the groups of grid_reduce_sums (csrc/maps.cuh GROUP_*) ----------------------
+
+def ggd_moments() -> Group:
+    """BRISQUE's GGD fit: the sums of x * x and |x|."""
+    return Group("ggd", (sq(), abs_()))
+
+
+def aggd_moments() -> Group:
+    """BRISQUE's AGGD fit: the counts and square sums of each side, and the
+    sums of |x| and x * x."""
+    return Group("aggd", (neg(), pos(), neg_sq(), pos_sq(), abs_(), sq()))
+
+
+def grayworld_sums(sat: float) -> Group:
+    """Grayworld: the gated sums of channels 0, 1, 2 and their count."""
+    sat = f32(sat)
+    return Group("grayworld", (gated(sat, 0), gated(sat, 1), gated(sat, 2), gated_count(sat)), (sat,))
+
+
+GROUPS = {"ggd": ggd_moments, "aggd": aggd_moments, "grayworld": grayworld_sums}
+
+
 # ---- plain versions ------------------------------------------------------------
 
 def _pad2(x: torch.Tensor, th: int, tw: int, fill: float = 0.0) -> torch.Tensor:
@@ -218,7 +253,17 @@ def check_views(arrays, who: str, device) -> tuple:
                              f"got {tuple(a.shape)} {a.dtype} on {a.device}")
     if shape[0] * shape[1] == 0 or shape[0] * shape[1] >= 2 ** 31:
         raise ValueError(f"{who}: {shape} is empty or has 2**31 elements or more")
+    if any((shape[1] - 1) * a.stride(1) >= 2 ** 31 for a in arrays):
+        raise ValueError(f"{who}: a row spans 2**31 elements or more (the kernel's column offsets are 32-bit)")
     return shape
+
+
+def vec4_path(arrays) -> bool:
+    """True when every view takes the kernels' float4 path (csrc/maps.cuh,
+    the row walk): stride 1, a row pitch that is a multiple of 4 (or one
+    row), a 16-byte aligned pointer; else they take the strided path."""
+    return all(a.stride(1) == 1 and (a.stride(0) % 4 == 0 or a.shape[0] == 1) and a.data_ptr() % 16 == 0
+               for a in arrays)
 
 
 def pack_views(arrays) -> ctypes.Array:
@@ -262,11 +307,11 @@ def grid_transform(m: Map, *arrays: torch.Tensor, out: torch.Tensor | None = Non
         raise ValueError(f"grid_transform: out is {tuple(out.shape)}, expected {(H, W)}")
     views = pack_views([*arrays, out])
     hp, dp = pack_params(m, dev, "grid_transform")
-    blocks = min(-(-H * W // _THREADS), _MAX_BLOCKS)
     lib = _build.lib("transform")
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.check(lib.grid_transform_f32(MAP_CODES[m.name], m.n_in, ctypes.addressof(views), ctypes.addressof(hp),
-                                            dp, H, W, blocks, _build.stream_of(out)), "grid_transform_f32")
+                                            dp, H, W, int(vec4_path([*arrays, out])), _build.stream_of(out)),
+                     "grid_transform_f32")
     grid_transform.launches += 1
     return out
 
@@ -297,7 +342,7 @@ def streamed_transform(m: Map, x: torch.Tensor) -> torch.Tensor:
     hp, dp = pack_params(m, x.device, "streamed_transform")
     blocks = max(1, min(-(-n // _CHUNK), _STREAM_BLOCKS))
     lib = _build.lib("transform")
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         _build.check(lib.streamed_transform_f32(MAP_CODES[m.name], ctypes.addressof(hp), dp, x.data_ptr(),
                                                 out.data_ptr(), n, blocks, _build.stream_of(x)),
                      "streamed_transform_f32")

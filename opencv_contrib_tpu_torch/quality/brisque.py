@@ -4,8 +4,8 @@ feature stage): MSCN coefficients and AGGD fits over 4 pairwise products at
 2 scales -> a 36-dim feature vector.
 
 The MSCN map and the pairwise products go through the grid_transform
-kernel and every moment of the fits through grid_reduce (52 launches a
-frame at two scales); the fits' scalar arithmetic stays on the device. The
+kernel and the moments of each fit through one grid_reduce_sums launch (10
+a frame at two scales); the fits' scalar arithmetic stays on the device. The
 shape parameter alpha is the point of a 980-point grid whose gamma-function
 ratio is nearest the moment ratio; the ratio tables are computed once per
 device, in float32 on the CPU."""
@@ -47,15 +47,10 @@ def mscn_coefficients(img: torch.Tensor, sigma: float = 7.0 / 6.0) -> torch.Tens
     return transform.grid_transform(transform.mscn(), img, mu, s2)
 
 
-def _mean(m: transform.Map, x: torch.Tensor) -> torch.Tensor:
-    return reduce.grid_reduce(m, x, div=float(x.numel()))
-
-
 def _ggd_params(x: torch.Tensor):
     """Moment-matched generalized-gaussian (alpha, sigma)."""
     gam, ggd, _ = _tables(x.device)
-    sigma2 = _mean(transform.sq(), x)
-    E = _mean(transform.abs_(), x)
+    sigma2, E = reduce.grid_reduce_sums(transform.ggd_moments(), x, div=float(x.numel()))
     rho = sigma2 / torch.clamp(E * E, min=1e-12)
     alpha = gam[torch.argmin(torch.abs(ggd - rho))]
     return alpha, torch.sqrt(sigma2)
@@ -64,13 +59,15 @@ def _ggd_params(x: torch.Tensor):
 def _aggd_params(x: torch.Tensor):
     """Asymmetric GGD fit -> (alpha, mean, sigma_l, sigma_r)."""
     gam, _, rr = _tables(x.device)
-    nl = torch.clamp(reduce.grid_reduce(transform.neg(), x), min=1.0)
-    nr = torch.clamp(reduce.grid_reduce(transform.pos(), x), min=1.0)
-    sigma_l = torch.sqrt(reduce.grid_reduce(transform.neg_sq(), x) / nl)
-    sigma_r = torch.sqrt(reduce.grid_reduce(transform.pos_sq(), x) / nr)
+    n = float(x.numel())
+    s_neg, s_pos, s_neg_sq, s_pos_sq, E, sq_mean = reduce.grid_reduce_sums(
+        transform.aggd_moments(), x, div=(1.0, 1.0, 1.0, 1.0, n, n))
+    nl = torch.clamp(s_neg, min=1.0)
+    nr = torch.clamp(s_pos, min=1.0)
+    sigma_l = torch.sqrt(s_neg_sq / nl)
+    sigma_r = torch.sqrt(s_pos_sq / nr)
     gamma_hat = sigma_l / torch.clamp(sigma_r, min=1e-12)
-    E = _mean(transform.abs_(), x)
-    rho = _mean(transform.sq(), x) / torch.clamp(E * E, min=1e-12)
+    rho = sq_mean / torch.clamp(E * E, min=1e-12)
     rhat = rho * (gamma_hat ** 3 + 1) * (gamma_hat + 1) / torch.clamp((gamma_hat ** 2 + 1) ** 2, min=1e-12)
     alpha = gam[torch.argmin(torch.abs(rr - rhat))]
     const = torch.exp(torch.lgamma(1.0 / alpha) - torch.lgamma(2.0 / alpha))

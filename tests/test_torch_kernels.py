@@ -372,6 +372,7 @@ def test_cpu_calls_leave_launch_counters_at_zero(rng):
     ttf.grid_transform(ttf.mul(), q, q)
     ttf.streamed_transform(ttf.gamma(0.5), q)
     reduce.grid_reduce(ttf.sq(), q)
+    reduce.grid_reduce_sums(ttf.aggd_moments(), q)
     thist.grid_histogram(q, 16, -1.0, 1.0, tiles=(2, 2))
     assert tcuda.launches() == {"knn2": 0, "integral_image": 0, "grid_scan": 0, "grid_reduce_vec": 0,
                                 "pyrdown": 0, "remap": 0, "grid_transform": 0, "streamed_transform": 0,
@@ -386,7 +387,7 @@ def test_other_devices_raise():
                lambda a: reduce.icp_getab(a, pts, pts, ok, pts, pts, ok, a[0]),
                pyramid.pyrdown, lambda a: tremap.remap(a, a, a), lambda a: ttf.grid_transform(ttf.mul(), a, a),
                lambda a: ttf.streamed_transform(ttf.gamma(0.5), a), lambda a: reduce.grid_reduce(ttf.sq(), a),
-               lambda a: thist.grid_histogram(a, 8, 0.0, 1.0)):
+               lambda a: reduce.grid_reduce_sums(ttf.ggd_moments(), a), lambda a: thist.grid_histogram(a, 8, 0.0, 1.0)):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             fn(x)
 
@@ -603,6 +604,75 @@ def test_grid_reduce_min_max_propagate_nan(rng):
         assert np.isnan(float(reduce.grid_reduce(ttf.ident(), T(x), kind=kind)))
 
 
+GROUP_CASES = {"ggd": ttf.ggd_moments, "aggd": ttf.aggd_moments, "grayworld": lambda: ttf.grayworld_sums(0.9)}
+
+
+@pytest.mark.parametrize("shape", [(70, 300), (37, 301)], ids=["70x300", "ragged_37x301"])
+@pytest.mark.parametrize("group", sorted(GROUP_CASES))
+def test_grid_reduce_sums_match_single_maps_and_pallas(rng, group, shape):
+    """Each group of grid_reduce_sums (the kernel's multi-output sums) on the
+    CPU: equal to per-map grid_reduce_plain bit for bit, divided as
+    grid_reduce divides, and each sum against its jnp map through the Pallas
+    grid_reduce in interpret mode in (32, 128) tiles at rtol 1e-5, counts
+    exact."""
+    grp = GROUP_CASES[group]()
+    assert grp.name == group
+    maps = grp.maps
+    xs = [rng.uniform(-0.5, 1.0, size=shape).astype(np.float32) for _ in range(maps[0].n_in)]
+    out = N(reduce.grid_reduce_sums_plain(grp, *(T(x) for x in xs)))
+    single = np.array([float(reduce.grid_reduce_plain(m.fn, *(T(x) for x in xs))) for m in maps], np.float32)
+    np.testing.assert_array_equal(out, single)
+    np.testing.assert_array_equal(N(reduce.grid_reduce_sums(grp, *(T(x) for x in xs))), out)
+    divs = [float(k + 2) for k in range(len(maps))]
+    np.testing.assert_array_equal(N(reduce.grid_reduce_sums(grp, *(T(x) for x in xs), div=divs)),
+                                  [float(reduce.grid_reduce(m, *(T(x) for x in xs), div=d)) for m, d in zip(maps, divs)])
+    for m, v in zip(maps, out):
+        pal = float(pgrid.grid_reduce(_jax_twins(m), *(jnp.asarray(x) for x in xs), tile=(32, 128), interpret=True))
+        np.testing.assert_allclose(v, pal, rtol=1e-5)
+        if m.name in ("neg", "pos", "gated_count"):
+            assert v == pal == int(v) > 0
+
+
+def test_grid_reduce_sums_refuses_what_the_kernel_does_not_take():
+    """On the CPU as on the card: min / max, and every Group that is not one
+    its constructor builds (mixed arity, a transform map, more than 8 maps,
+    none, maps out of order, a grayworld group with mixed gates, a bare
+    tuple of maps); a div per map of the wrong length. The constructors'
+    groups pass."""
+    x = torch.zeros(4, 4)
+    for kind in ("min", "max"):
+        with pytest.raises(ValueError, match="sums only"):
+            reduce.grid_reduce_sums(ttf.ggd_moments(), x, kind=kind)
+    gw = ttf.grayworld_sums(0.9)
+    for bad in (ttf.Group("ggd", (ttf.sq(), ttf.gated_count(0.9))), ttf.Group("ggd", (ttf.sq(), ttf.gamma(0.5))),
+                ttf.Group("aggd", (ttf.sq(),) * 9), ttf.Group("ggd", ()), ttf.Group("ggd", (ttf.abs_(), ttf.sq())),
+                ttf.Group("grayworld", gw.maps[:2] + (ttf.gated(0.8, 2),) + gw.maps[3:], gw.hparams),
+                ttf.Group("grayworld", gw.maps, (0.8,)), ttf.Group("ggd", ttf.ggd_moments().maps, (1.0,)),
+                ttf.Group("median", (ttf.sq(),)), (ttf.sq(), ttf.abs_())):
+        with pytest.raises(ValueError, match="not one of the kernel's groups"):
+            reduce.grid_reduce_sums(bad, *([x] * 3))
+    with pytest.raises(ValueError, match="one per map"):
+        reduce.grid_reduce_sums(ttf.ggd_moments(), x, div=(1.0, 2.0, 3.0))
+    with pytest.raises(ValueError, match="takes 1 arrays"):
+        reduce.grid_reduce_sums(ttf.ggd_moments(), x, x)
+    assert reduce.grid_reduce_sums(ttf.grayworld_sums(0.5), x, x, x).shape == (4,)
+    assert reduce.grid_reduce_sums(ttf.aggd_moments(), x).shape == (6,)
+
+
+def test_the_row_walk_paths():
+    """vec4_path: the float4 path for views with stride 1, a row pitch that
+    is a multiple of 4 (or one row) and a 16-byte aligned pointer; the
+    strided path for the rest; and no row may span 2**31 elements."""
+    a = torch.zeros(33, 1004)
+    assert ttf.vec4_path([a]) and ttf.vec4_path([a[:, :1001], a[2:, :8]]) and ttf.vec4_path([torch.zeros(1, 7)])
+    assert not ttf.vec4_path([a[:, 1:]]) and not ttf.vec4_path([torch.zeros(5, 7)])
+    rgb = torch.zeros(4, 8, 3)
+    assert not ttf.vec4_path([rgb[..., 0]]) and not ttf.vec4_path([a, a.t()[:33, :33]])
+    wide = torch.empty_strided((1, 2), (1, 2 ** 31), device="meta")
+    with pytest.raises(ValueError, match="spans 2"):
+        ttf.check_views([wide], "t", wide.device)
+
+
 def test_grid_histogram_drop_rule_matches_pallas(rng):
     """Twin of tests/test_pallas_grid.py::test_grid_histogram (150x210, 16
     bins, exact counts), with NaN and out-of-range values the rule drops."""
@@ -653,3 +723,25 @@ def test_map_codes_match_the_header():
     assert sorted(c.lower() for c in cases) == sorted(ttf.MAP_CODES)
     transform_part = text[text.index("dispatch_transform"):text.index("dispatch_reduce")]
     assert sorted(c.lower() for c in re.findall(r"case MAP_(\w+):", transform_part)) == sorted(ttf.TRANSFORM_MAPS)
+
+
+def test_group_codes_match_the_header():
+    """GROUP_CODES and the constructors of transform.GROUPS mirror
+    csrc/maps.cuh's GROUP_* numbers and the maps each lists in output order;
+    each group has its dispatch case, and its functor calls those maps'
+    functors in that order."""
+    text = (_build.CSRC / "maps.cuh").read_text()
+    found = re.findall(r"constexpr int GROUP_(\w+) = (\d+);  // (.*)", text)
+    assert {k.lower(): int(v) for k, v, _ in found} == ttf.GROUP_CODES
+    assert sorted(ttf.GROUPS) == sorted(GROUP_CASES) == sorted(ttf.GROUP_CODES)
+    names = {g: tuple(m.name for m in GROUP_CASES[g]().maps) for g in GROUP_CASES}
+    assert {k.lower(): tuple(m.strip() for m in maps.split(",")) for k, _, maps in found} == names
+    assert sorted(c.lower() for c in re.findall(r"case GROUP_(\w+):", text)) == sorted(ttf.GROUP_CODES)
+    functor = {"sq": "Sq{}", "abs": "Abs{}", "neg": "SideCount<true>{}", "pos": "SideCount<false>{}",
+               "neg_sq": "SideSq<true>{}", "pos_sq": "SideSq<false>{}"}
+    for struct, group in (("GgdMoments", "ggd"), ("AggdMoments", "aggd")):
+        body = text[text.index(f"struct {struct}"):]
+        body = body[:body.index("};")]
+        calls = re.findall(r"o\[(\d)\] = (\w+(?:<\w+>)?\{\})\(v\);", body)
+        assert [int(k) for k, _ in calls] == list(range(len(names[group])))
+        assert [f for _, f in calls] == [functor[m] for m in names[group]]

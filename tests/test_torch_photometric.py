@@ -105,6 +105,29 @@ def test_simple_wb(clip):
     np.testing.assert_allclose(N(txp.simple_wb(T(x), 0.02)), np.asarray(jxp.simple_wb(J(x), 0.02)), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("q", [0.0, 0.005, 0.1, 0.25, 0.5, 0.51, 0.73, 0.995, 1.0])
+def test_quantile_linear_matches_numpy_on_ties(rng, q):
+    """Columns of repeated values (sorted, shuffled, constant, with a NaN):
+    equal to np.quantile's linear rule, NaN where the column holds one."""
+    col = np.repeat(np.arange(7, dtype=np.float32), [1, 3, 2, 5, 1, 4, 2])[:, None]
+    x = np.concatenate([col, rng.permutation(col), np.full_like(col, 2.5), col], axis=1)
+    x[3, 3] = np.nan
+    (out,) = txp.white_balance._quantile_linear(T(x), (q,))
+    np.testing.assert_array_equal(N(out), np.quantile(x, q, axis=0, method="linear"))
+
+
+def test_simple_wb_past_2_24_values_a_channel(rng):
+    """A (2**24 + 3)-row column, past torch.quantile's limit: the quantiles
+    and the stretch equal np.quantile's linear rule."""
+    x = rng.standard_normal((2 ** 24 + 3, 1)).astype(np.float32)
+    lo, hi = txp.white_balance._quantile_linear(T(x), (0.005, 0.995))
+    qlo, qhi = np.quantile(x, 0.005, axis=0), np.quantile(x, 0.995, axis=0)
+    np.testing.assert_array_equal(N(lo), qlo)
+    np.testing.assert_array_equal(N(hi), qhi)
+    out = N(txp.simple_wb(torch.from_numpy(x)))
+    np.testing.assert_array_equal(out, np.clip((x - qlo) / np.maximum(qhi - qlo, np.float32(1e-6)), 0.0, 1.0))
+
+
 def test_histogram_clamp_rule_keeps_the_jax_contract():
     """Out-of-range values count in the end bins and NaN in bin 0, exactly."""
     x = np.array([[0.0, 0.5, 1.0, 1.5, -0.2, np.nan, 0.999999, 0.99999994]], np.float32)
