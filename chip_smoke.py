@@ -12,9 +12,16 @@ points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`,
 Phases, one JSON line each:
   (a) build and launch checks at small ragged shapes;
   (b) knn2 against its plain version at 8192x8192x128 (the matcher bench),
-      1000x3000x64 (ragged) and 512x512x64 (the keyframe tick's matches);
-  (c) integral_image and grid_scan against their plain versions at 480x640
-      and 2048x2048;
+      1000x3000x64 (ragged) and 512x512x64 (the keyframe tick's matches):
+      one device launch a call, the same bits on a rerun, for other splits of
+      the train set (explicit tile_t, split and unsplit, run in turns many
+      times: the ticket is reset), and with the best and second best in
+      different spans; timed L2-warm and L2-cold;
+  (c) grid_scan at 64x256 (CLAHE's CDFs) and 480x640, integral_image at
+      480x640, 2048x2048 and 4000x8000, against their plain versions, and
+      integral_image at ragged shapes; `ops.integral.integral` (the
+      padded table) one device launch a call, its zero row and column, and
+      its interior equal to integral_image bit for bit; a rerun equal;
   (d) the two-frame frontend at VGA with K=512 (ratio_test_match and
       ratio_test_match_fused), with the launch counters set to 0 before it
       and read after it, and the kernel path against the plain path on the
@@ -50,7 +57,8 @@ Phases, one JSON line each:
       8640x5760 for the stream, and at ragged shapes and unaligned views
       (both paths of the row walk), each timed beside the nearest PyTorch
       call with L2-warm inputs, and the grid_transform / grid_reduce rows
-      also with the L2 flushed before each call;
+      also with the L2 flushed before each call (a read of 128 MiB, which
+      leaves clean lines);
   (l) the photometric path: `entry.photometric` on `entry.photo_clip()`
       (8 x 1080 x 1920 x 3) with the counters read around it and held to
       the counts its loops give, the restoration gate (the balanced clip
@@ -100,21 +108,24 @@ SOURCES = {  # kernel -> (CUDA source, the Pallas function it replaces)
 }
 # the kernels each main path runs; a kernel's launches are reported from the
 # last path that runs it
-PATH_KERNELS = {"frontend": ("knn2", "integral_image", "grid_scan"),
-                "keyframe_tick": ("knn2", "integral_image", "grid_scan"), "kinfu_tick": ("grid_reduce_vec",),
+PATH_KERNELS = {"frontend": ("knn2", "integral_image"),
+                "keyframe_tick": ("knn2", "integral_image"), "kinfu_tick": ("grid_reduce_vec",),
                 "dense_flow": ("pyrdown", "remap"),
-                "photometric": ("grid_transform", "streamed_transform", "grid_reduce", "grid_histogram")}
+                "photometric": ("grid_transform", "streamed_transform", "grid_reduce", "grid_histogram", "grid_scan")}
 LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
-DEVICE_KERNELS = ("knn2_kernel", "knn2_merge_kernel", "row_sqnorm_kernel", "scan_rows_kernel", "scan_cols_kernel",
-                  "grid_reduce_vec_kernel", "icp_getab_finalize_kernel", "pyrdown_kernel", "remap_kernel",
+DEVICE_KERNELS = ("knn2_kernel", "scan_rows_kernel", "integral_kernel", "grid_reduce_vec_kernel", "icp_getab_finalize_kernel", "pyrdown_kernel", "remap_kernel",
                   "grid_transform_vec4_kernel", "grid_transform_strided_kernel", "streamed_transform_kernel",
                   "grid_reduce_vec4_kernel", "grid_reduce_strided_kernel", "grid_histogram_kernel")
 TRANSFORM_KERNELS = ("grid_transform_vec4_kernel", "grid_transform_strided_kernel")
 REDUCE_KERNELS = ("grid_reduce_vec4_kernel", "grid_reduce_strided_kernel")
-L2_FLUSH_BYTES = 128 << 20  # a write of this many bytes before each L2-cold call evicts the 50 MB L2
-# the kernel of a uint8 Tensor.zero_: the L2 flush, and the markers that open
-# each profiler window (a new trace drops its first few kernel events); no
-# timed call launches it, and it is left out of every device time
+# a read of this many bytes (torch.amax of an int16 buffer) before each
+# L2-cold call evicts the 50 MB L2 and leaves it holding clean lines: a write
+# would leave dirty lines whose write-back the timed call would pay. Its
+# kernels, found by profiling it alone, are left out of every device time.
+L2_FLUSH_BYTES = 128 << 20
+# the kernel of a uint8 Tensor.zero_: the markers that open each profiler
+# window (a new trace drops its first few kernel events); no timed call
+# launches it, and it is left out of every device time
 FLUSH_KERNEL = "FillFunctor<unsigned char>"
 N_MARKERS = 8
 # device_ms: a trace drops the first kernel events of its window, and now and
@@ -147,15 +158,27 @@ PHOTO_SMALL = (2, 100, 130)  # tests/test_torch_photometric.py's clip: its CLAHE
 # map) + 2 x 5 (BRISQUE: MSCN and 4 products a scale) + 1 (the score's
 # MSCN); grid_reduce 1 (grayworld's group) + 1 (MSE) + 1 (SSIM) + 2 (GMSD)
 # + 2 x 5 (BRISQUE: the GGD group and 4 AGGD groups a scale) + 1 (the
-# score's GGD group); grid_histogram 1 (CLAHE's tiles); streamed_transform 1
-# a clip (the gamma)
-PHOTO_PER_FRAME = {"grid_transform": 18, "grid_reduce": 16, "grid_histogram": 1}
+# score's GGD group); grid_histogram 1 (CLAHE's tiles); grid_scan 1 (CLAHE's
+# tile CDFs); streamed_transform 1 a clip (the gamma)
+PHOTO_PER_FRAME = {"grid_transform": 18, "grid_reduce": 16, "grid_histogram": 1, "grid_scan": 1}
 N_PHOTO_TIMED = 3
 ALPHA_FEATURES = [0, 2, 6, 10, 14, 18, 20, 24, 28, 32]  # BRISQUE's shape parameters, points of a 0.01 grid
 ALPHA_STEP = 0.01 + 1e-6
 ULP2 = 2.0 ** -22  # two float32 ulp, relative
 KNN2_SHAPES = [(8192, 8192, 128), (1000, 3000, 64), (512, 512, 64)]
-SCAN_SHAPES = [(480, 640), (2048, 2048)]
+# explicit tile_t that split the train set otherwise than the wrapper's plan
+# (tests/test_torch_kernels.py holds the plans), one of them unsplit
+KNN2_SPLITS = {(1000, 3000, 64): (1024, 3000), (512, 512, 64): (128, 512)}
+N_KNN2_TURNS = 12  # split and unsplit calls in turns, each against the first bits
+# integral_image: the frontend's VGA frame, a square image of three slabs
+# across, and a tall and wide one of 17 slabs across; grid_scan: CLAHE's 64
+# tile CDFs of 256 bins (its main path) and a VGA frame
+SCAN_SHAPES = [(480, 640), (2048, 2048), (4000, 8000)]
+GRID_SCAN_SHAPES = [(64, 256), (480, 640)]
+# W % 4 != 0 (the scalar path), one row, fewer rows than a band, short and
+# wide (bands of 8 rows, 8 slabs across), 48 bands of 105 rows (47 earlier
+# bands' totals in three groups), and three slabs across with W % 4 != 0
+SCAN_RAGGED = [(481, 643), (1, 7), (37, 5), (40, 8000), (5000, 64), (1000, 3001)]
 N_FRAMES, K, N_BA = 32, 512, 10
 FRONTEND = dict(K=K, threshold=20.0, ratio=0.85)  # bench.py's keyframe settings
 # The bench frames' float32 summed-area table reaches ~4e7 (ulp 4), so two
@@ -229,7 +252,7 @@ def plain_path():
     from opencv_contrib_tpu_torch.ops import integral
     from opencv_contrib_tpu_torch.ops.cuda import histogram, matching, pyramid, reduce, remap, scan, transform
 
-    def knn2(q, t, tile_q=512, tile_t=2048):
+    def knn2(q, t, tile_q=512, tile_t=None):
         return matching.knn2_plain(q, t, tile_q)
 
     def grid_transform(m, *arrays, out=None):
@@ -242,7 +265,8 @@ def plain_path():
     def grid_reduce_sums(group, *arrays, div=1.0, kind="sum"):
         return reduce.grid_reduce_sums_plain(group, *arrays, div=div)
 
-    with mock.patch.object(integral, "integral_image", scan.integral_image_plain), \
+    with mock.patch.object(integral, "integral_padded", scan.integral_padded_plain), \
+            mock.patch.object(scan, "grid_scan", scan.grid_scan_plain), \
             mock.patch.object(match, "use_kernel", lambda x: False), \
             mock.patch.object(matching, "knn2", knn2), \
             mock.patch.object(reduce, "icp_getab", reduce.icp_getab_plain), \
@@ -256,44 +280,55 @@ def plain_path():
         yield
 
 
-class Smoke:
-    def __init__(self):
-        import torch
+class Timer:
+    """Device times of calls on one card, from torch.profiler."""
 
-        from opencv_contrib_tpu_torch import entry
-        from opencv_contrib_tpu_torch.ops import cuda as kern
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.marker = self.l2_flush = None  # the window markers and the L2 flush buffer
+        self.flush_keys = frozenset()  # the flush's kernels
 
-        self.torch, self.entry, self.kern = torch, entry, kern
-        self.dev = torch.device("cuda", 0)
-        self.name = torch.cuda.get_device_name(0)
-        self.bw, self.flops = next((v for k, v in CARD_PEAKS.items() if k in self.name), CARD_PEAKS["H100"])
-        self.gen = np.random.default_rng(0)
-        self.frames = entry.make_frames(n_frames=N_FRAMES, H=480, W=640, seed=0)
-        self.intr = np.asarray([500.0, 500.0, 320.0, 240.0, 0, 0, 0, 0, 0], np.float32)
-        self.kernels = {}  # name -> timing row at the main path's shape
-        self.launches = {}  # path -> launch counts
-        self.marker = self.l2_flush = None  # device_ms's window markers and L2 flush buffer
+    def flush_l2(self):
+        self.torch.amax(self.l2_flush)
 
-    def card(self, a):
-        return self.torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.dev)
+    def _flush_setup(self):
+        """The flush buffer, and the names of the kernels its read runs (from
+        a window of flushes alone), which every device time leaves out."""
+        from torch.profiler import ProfilerActivity, profile
 
-    def device_ms(self, fn, iters: int = 10, names=None, cold: bool = False):
-        """Device time of one call: the durations of the kernels it ran, from
-        torch.profiler, without the host time between them; with `names`,
-        (that time, the time of those of DEVICE_KERNELS alone), both from
-        one profiler window. cold: the L2 is flushed before each call by a
-        write of L2_FLUSH_BYTES, whose kernels are left out of the time.
-        A trace drops the first kernel events of its window, so each window
-        opens with a wait and N_MARKERS small uint8 fills, left out too; a
-        window where none of them survived is taken again with a longer
-        wait."""
+        torch = self.torch
+        self.l2_flush = torch.zeros(L2_FLUSH_BYTES // 2, dtype=torch.int16, device=self.dev)
+        self.flush_l2()
+        torch.cuda.synchronize()
+        for _ in range(N_WINDOWS):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(WINDOW_PAD_S)
+                for _ in range(N_MARKERS):
+                    self.marker.zero_()
+                for _ in range(4):
+                    self.flush_l2()
+                torch.cuda.synchronize()
+                time.sleep(WINDOW_PAD_S)
+            keys = {e.key for e in kernel_events(prof) if FLUSH_KERNEL not in e.key}
+            if keys:
+                self.flush_keys = frozenset(keys)
+                return
+        raise AssertionError("torch.profiler recorded none of the L2 flush's kernels")
+
+    def device_events(self, fn, iters: int = 10, cold: bool = False):
+        """The kernel events of `iters` calls of fn in one profiler window,
+        the markers and the flush left out. cold: the L2 is flushed before
+        each call by a read of L2_FLUSH_BYTES. A trace drops the first
+        kernel events of its window, so each window opens with a wait and
+        N_MARKERS small uint8 fills; a window where none of them survived is
+        taken again with a longer wait."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         if self.marker is None:
             self.marker = torch.empty(16, dtype=torch.uint8, device=self.dev)
         if cold and self.l2_flush is None:
-            self.l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=self.dev)
+            self._flush_setup()
         fn()
         torch.cuda.synchronize()
         pad, seen = WINDOW_PAD_S, []
@@ -304,24 +339,42 @@ class Smoke:
                     self.marker.zero_()
                 for _ in range(iters):
                     if cold:
-                        self.l2_flush.zero_()
+                        self.flush_l2()
                     fn()
                 torch.cuda.synchronize()
                 time.sleep(pad)
             ev = kernel_events(prof)
             fills = sum(e.count for e in ev if FLUSH_KERNEL in e.key)
-            ev = [e for e in ev if FLUSH_KERNEL not in e.key]
+            ev = [e for e in ev if FLUSH_KERNEL not in e.key and e.key not in self.flush_keys]
             us = sum(e.self_device_time_total for e in ev)
             seen.append({"pad_s": pad, "fills": fills, "us": us})
             pad *= 4
-            if fills <= (iters if cold else 0):
-                continue  # the trace dropped every marker, so maybe some of fn's events too
-            if us > 0:
-                if names is None:
-                    return us / iters / 1e3
-                ours = sum(e.self_device_time_total for e in ev if any(is_ours(e.key, k) for k in names))
-                return us / iters / 1e3, ours / iters / 1e3
+            if fills > 0 and us > 0:
+                return ev
         raise AssertionError(f"torch.profiler recorded no device time, or not every call's: {seen}")
+
+    def device_ms(self, fn, iters: int = 10, names=None, cold: bool = False):
+        """Device time of one call: the durations of the kernels it ran, from
+        torch.profiler, without the host time between them; with `names`,
+        (that time, the time of those of DEVICE_KERNELS alone), both from
+        one profiler window."""
+        ev = self.device_events(fn, iters, cold)
+        us = sum(e.self_device_time_total for e in ev)
+        if names is None:
+            return us / iters / 1e3
+        ours = sum(e.self_device_time_total for e in ev if any(is_ours(e.key, k) for k in names))
+        return us / iters / 1e3, ours / iters / 1e3
+
+    def launches_per_call(self, fn, iters: int = 10) -> dict:
+        """Device launches of one call: all of its kernels, and by name those
+        of DEVICE_KERNELS."""
+        ev = self.device_events(fn, iters)
+        out = {"all": sum(e.count for e in ev) / iters}
+        for k in DEVICE_KERNELS:
+            n = sum(e.count for e in ev if is_ours(e.key, k))
+            if n:
+                out[k] = n / iters
+        return out
 
     def wall_ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         """Mean time of one call, from CUDA events around `iters` calls: the
@@ -337,6 +390,27 @@ class Smoke:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+
+class Smoke(Timer):
+    def __init__(self):
+        import torch
+
+        from opencv_contrib_tpu_torch import entry
+        from opencv_contrib_tpu_torch.ops import cuda as kern
+
+        super().__init__(torch, torch.device("cuda", 0))
+        self.entry, self.kern = entry, kern
+        self.name = torch.cuda.get_device_name(0)
+        self.bw, self.flops = next((v for k, v in CARD_PEAKS.items() if k in self.name), CARD_PEAKS["H100"])
+        self.gen = np.random.default_rng(0)
+        self.frames = entry.make_frames(n_frames=N_FRAMES, H=480, W=640, seed=0)
+        self.intr = np.asarray([500.0, 500.0, 320.0, 240.0, 0, 0, 0, 0, 0], np.float32)
+        self.kernels = {}  # name -> timing row at the main path's shape
+        self.launches = {}  # path -> launch counts
+
+    def card(self, a):
+        return self.torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.dev)
 
     def times(self, fns: dict, names=None, cold: bool = False) -> dict:
         """`ms` (device) and `wall_ms` (events) of the kernel, its plain
@@ -415,12 +489,20 @@ class Smoke:
               "nvcc_flags": list(_build.NVCC_FLAGS), "ok": True})
 
     # ---- (b) -----------------------------------------------------------------
+    def one_launch(self, fn, what: str, kname: str) -> dict:
+        """fn makes one device launch a call, and it is kname's."""
+        n = self.launches_per_call(fn)
+        check(n["all"] == 1 and n.get(kname) == 1, f"{what}: device launches per call {n}")
+        return n
+
     def knn2(self):
         from opencv_contrib_tpu_torch.ops.cuda import matching as fused
         from opencv_contrib_tpu_torch.utils.precision import f32_matmul_precision
 
         torch = self.torch
-        rows = []
+        same = lambda a, b: bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))  # noqa: E731
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        rows, splits = [], []
         for Q, Tn, D in KNN2_SHAPES:
             q, t = self.card(self.gen.normal(size=(Q, D))), self.card(self.gen.normal(size=(Tn, D)))
             with f32_matmul_precision():
@@ -431,45 +513,108 @@ class Smoke:
                 worst = float(((d - dp).abs() / (1e-4 + 1e-5 * dp.abs())).max())
                 agree = float((i == ip).float().mean())
                 check(worst <= 1.0 and agree >= 0.999, f"knn2 {Q}x{Tn}x{D}: err/tol {worst}, idx agreement {agree}")
+                check(same(fused.knn2(q, t), (d, i)), f"knn2 {Q}x{Tn}x{D}: a rerun changed the bits")
+                n = self.one_launch(lambda: fused.knn2(q, t), f"knn2 {Q}x{Tn}x{D}", "knn2_kernel")
+                for tile_t in KNN2_SPLITS.get((Q, Tn, D), ()):
+                    check(fused.plan(Q, Tn, sms, tile_t)[2] != fused.plan(Q, Tn, sms)[2], "knn2: same split")
+                    for turn in range(N_KNN2_TURNS):  # split and unsplit in turns: each resets its tickets
+                        check(same(fused.knn2(q, t, tile_t=None if turn % 2 else tile_t), (d, i)),
+                              f"knn2 {Q}x{Tn}x{D}: tile_t {tile_t} (turn {turn}) changed the bits")
+                    splits.append({"shape": [Q, Tn, D], "plan": fused.plan(Q, Tn, sms),
+                                   "tile_t": tile_t, "other_plan": fused.plan(Q, Tn, sms, tile_t), "same_bits": True})
                 fns = {"": lambda: fused.knn2(q, t), "plain_": lambda: fused.knn2_plain(q, t),
                        "library_": lambda: torch.topk(torch.cdist(q, t), 2, dim=1, largest=False)}
-                times = self.times(fns)
+                times = self.times(fns, cold=True)
             nbytes, ops = 4 * (Q * D + Tn * D + 3 * Q), 2 * Q * Tn * D
-            rows.append({"shape": [Q, Tn, D], "max_abs_err": err, "err_over_tol": worst, "idx_agree": agree,
-                         **times,
+            rows.append({"shape": [Q, Tn, D], "plan": fused.plan(Q, Tn, sms), "max_abs_err": err,
+                         "err_over_tol": worst, "idx_agree": agree, "launches_per_call": n, **times,
                          "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
                          "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes",
                          "pairs_per_s": Q * Tn / (times["ms"] * 1e-3)})
+        # best and second best in different spans: each query's two nearest
+        # train rows are 512 rows apart, more than a span
+        q = self.card(self.gen.normal(size=(512, 64)))
+        t = torch.cat([q + 0.01, q + 0.02, self.card(self.gen.normal(size=(512, 64)))])
+        with f32_matmul_precision():
+            d, i = fused.knn2(q, t)
+            dp, ip = fused.knn2_plain(q, t)
+        span = fused.plan(512, 1536, sms)[1]
+        check(span <= 256 and bool((i == torch.arange(512, device=self.dev, dtype=torch.int32)).all())
+              and torch.allclose(d, dp, rtol=1e-5, atol=1e-4) and same(fused.knn2(q, t, tile_t=1536), (d, i)),
+              f"knn2: best and second best in spans {span} rows long")
+        cross = {"shape": [512, 1536, 64], "span": span, "second_minus_best_max": float((d[:, 1] - d[:, 0]).max()),
+                 "max_abs_err": float((d - dp).abs().max())}
         self.kernels["knn2"] = rows[0]
-        emit({"phase": "b_knn2", "tolerance": "rtol 1e-5, atol 1e-4; idx agreement >= 0.999",
-              "timing": "ms: device time per call (torch.profiler); wall_ms: CUDA events per call",
-              "library_call": "torch.topk(torch.cdist(q, t), 2, largest=False)", "runs": rows, "ok": True})
+        emit({"phase": "b_knn2", "tolerance": "rtol 1e-5, atol 1e-4; idx agreement >= 0.999; equal bits on a "
+                                               "rerun and for other splits",
+              "timing": "ms: device time per call (torch.profiler); cold_ms: the same with a 128 MiB read before "
+                        "each call (its kernels left out); wall_ms: CUDA events per call",
+              "library_call": "torch.topk(torch.cdist(q, t), 2, largest=False)", "sms": sms, "runs": rows,
+              "splits": splits, "cross_span": cross, "ok": True})
 
     # ---- (c) -----------------------------------------------------------------
     def scan(self):
+        import torch.nn.functional as F
+
+        from opencv_contrib_tpu_torch.ops import integral
         from opencv_contrib_tpu_torch.ops.cuda import scan
 
         torch = self.torch
         rows = []
-        for H, W in SCAN_SHAPES:
+
+        def held(kname, fn, plain, library, dev_name, H, W):
             x = self.card(self.gen.uniform(0, 255, size=(H, W)))
-            for kname, fn, plain, library in (
-                    ("integral_image", scan.integral_image, scan.integral_image_plain,
-                     lambda a: torch.cumsum(torch.cumsum(a, 0), 1)),
-                    ("grid_scan", scan.grid_scan, scan.grid_scan_plain, lambda a: torch.cumsum(a, 1))):
-                out, ref = fn(x), plain(x)
-                torch.cuda.synchronize()
-                err, top = float((out - ref).abs().max()), float(ref.abs().max())
-                check(err <= 2e-6 * top, f"{kname} {H}x{W}: max err {err} > 2e-6 * {top}")
-                row = {"kernel": kname, "shape": [H, W], "max_abs_err": err, "max_abs": top,
-                       **self.times({"": lambda: fn(x), "plain_": lambda: plain(x), "library_": lambda: library(x)}),
-                       "bound_ms": 2 * 4 * H * W / self.bw * 1e3, "bound_by": "bytes"}
-                rows.append(row)
-                if (H, W) == SCAN_SHAPES[0]:
-                    self.kernels[kname] = row
-        emit({"phase": "c_scan", "tolerance": "max abs err <= 2e-6 * max|out|",
-              "timing": "ms: device time per call (torch.profiler); wall_ms: CUDA events per call",
-              "library_call": "torch.cumsum (twice for integral_image)", "runs": rows, "ok": True})
+            out, ref = fn(x), plain(x)
+            torch.cuda.synchronize()
+            err, top = float((out - ref).abs().max()), float(ref.abs().max())
+            check(err <= 2e-6 * top, f"{kname} {H}x{W}: max err {err} > 2e-6 * {top}")
+            check(torch.equal(fn(x), out), f"{kname} {H}x{W}: a rerun changed the bits")
+            n = self.one_launch(lambda: fn(x), f"{kname} {H}x{W}", dev_name)
+            row = {"kernel": kname, "shape": [H, W], "max_abs_err": err, "max_abs": top, "launches_per_call": n,
+                   **self.times({"": lambda: fn(x), "plain_": lambda: plain(x), "library_": lambda: library(x)},
+                                cold=True),
+                   "bound_ms": 2 * 4 * H * W / self.bw * 1e3, "bound_by": "bytes"}
+            rows.append(row)
+            return x, row
+
+        for H, W in GRID_SCAN_SHAPES:
+            _, row = held("grid_scan", scan.grid_scan, scan.grid_scan_plain, lambda a: torch.cumsum(a, 1),
+                          "scan_rows_kernel", H, W)
+            if (H, W) == GRID_SCAN_SHAPES[0]:
+                self.kernels["grid_scan"] = row
+        for H, W in SCAN_SHAPES:
+            x, row = held("integral_image", scan.integral_image, scan.integral_image_plain,
+                          lambda a: torch.cumsum(torch.cumsum(a, 0), 1), "integral_kernel", H, W)
+            row["slabs"] = scan.slabs(H, W)
+            if (H, W) == SCAN_SHAPES[0]:
+                self.kernels["integral_image"] = row
+            # the padded table of ops.integral.integral, in the same launch
+            ii = integral.integral(x)
+            top = float(ii.abs().max())
+            err = float((ii - F.pad(scan.integral_image_plain(x), (1, 0, 1, 0))).abs().max())
+            check(tuple(ii.shape) == (H + 1, W + 1) and err <= 2e-6 * top and not bool(ii[0].any())
+                  and not bool(ii[:, 0].any()) and torch.equal(ii[1:, 1:], scan.integral_image(x))
+                  and torch.equal(integral.integral(x), ii), f"integral {H}x{W}: max err {err}")
+            n = self.one_launch(lambda: integral.integral(x), f"integral {H}x{W}", "integral_kernel")
+            rows.append({"kernel": "integral (padded)", "shape": [H, W], "max_abs_err": err, "max_abs": top,
+                         "launches_per_call": n, "ms": self.device_ms(lambda: integral.integral(x), iters=30),
+                         "cold_ms": self.device_ms(lambda: integral.integral(x), iters=30, cold=True),
+                         "bound_ms": 4 * (H * W + (H + 1) * (W + 1)) / self.bw * 1e3, "bound_by": "bytes"})
+        ragged = []
+        for H, W in SCAN_RAGGED:
+            x = self.card(self.gen.uniform(0, 255, size=(H, W)))
+            out, ref = scan.integral_image(x), scan.integral_image_plain(x)
+            ii = integral.integral(x)
+            torch.cuda.synchronize()
+            err, top = float((out - ref).abs().max()), float(ref.abs().max())
+            check(err <= 2e-6 * top and torch.equal(ii[1:, 1:], out) and not bool(ii[0].any())
+                  and not bool(ii[:, 0].any()), f"integral_image ragged {H}x{W}: max err {err}")
+            ragged.append({"shape": [H, W], "slabs": scan.slabs(H, W), "max_abs_err": err, "max_abs": top})
+        emit({"phase": "c_scan", "tolerance": "max abs err <= 2e-6 * max|out|; equal bits on a rerun; the padded "
+                                               "table's interior equal to integral_image",
+              "timing": "ms: device time per call (torch.profiler); cold_ms: the same with a 128 MiB read before "
+                        "each call (its kernels left out); wall_ms: CUDA events per call",
+              "library_call": "torch.cumsum (twice for integral_image)", "runs": rows, "ragged": ragged, "ok": True})
 
     # ---- (d) -----------------------------------------------------------------
     def stages(self, frames, device, threshold):

@@ -37,12 +37,13 @@ SIGNATURES = {
     "scan": {
         # x, y, H, W, stream
         "scan_rows_f32": [_P, _P, _I, _I, _P],
-        "scan_cols_f32": [_P, _P, _I, _I, _P],
+        # x, out, H, W, pitch, pad, slab rows, slab columns, ctrl, base, epoch,
+        # column totals, row totals, stream
+        "integral_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P],
     },
     "knn2": {
-        # q, t, Q, T, D, span, tn, part_best, part_second, part_idx,
-        # dist, idx, stream
-        "knn2_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        # q, t, Q, T, D, large, span, tickets, partials, dist, idx, stream
+        "knn2_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "reduce_vec": {
         # T, intr, src_pts, src_nrm, src_valid, dst_pts, dst_nrm, dst_valid,

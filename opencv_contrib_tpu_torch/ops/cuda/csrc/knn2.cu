@@ -1,8 +1,8 @@
 // Fused brute-force 2-NN under squared L2 (f32), with a running top-2.
 //
 // Replaces opencv_contrib_tpu/ops/pallas/matching.py::knn2 (body
-// _knn2_kernel): each block owns a query tile in shared memory, streams
-// train tiles, and keeps a running (best, second, best_idx) per query, so
+// _knn2_kernel): each block owns a query tile, streams train tiles through
+// shared memory, and keeps a running (best, second, best_idx) per query, so
 // the Q x T distance matrix is never written to device memory.
 //
 // Bound: operations. 2*Q*T*D flops for Q*D + T*D inputs; at 8192 x 8192 x
@@ -11,33 +11,74 @@
 // cores, which keeps 10 mantissa bits and would not hold the distances to
 // the plain version's tolerance).
 //
-// Design:
-//   - 256 threads, 16 x 16, each computing a 4 x 4 register tile of dot
-//     products for a 64-query x 64-train tile; the query tile (all of D) is
-//     staged once, transposed, in shared memory, the train tile in 32-deep
-//     chunks, so each thread reads one float4 of each per depth step.
-//   - each thread folds its distances into a per-row running top-2 in
-//     registers, visiting its columns in increasing train index; the 16
-//     threads that share a row merge with shuffles at the end.
-//   - blockIdx.y splits the train set into spans of `span` rows so that
-//     enough blocks fill the card at small Q; a second kernel merges the
-//     spans' partial top-2 in order.
-//   - ties go to the lower train index; the second best excludes only the
-//     best's column (as the Pallas merge does).
-//   - ragged edges (Q, T, D not multiples of the tiles) are masked here.
+// What held the first design back: 64 x 64 tiles and a 2048-row span gave
+// 8 blocks on 132 SMs at the keyframe tick's 512 x 512; the staging read one
+// scalar per (row, k), so a warp's load touched 32 rows; a 4 x 4 register
+// tile read two float4 from shared memory per 16 FMAs; and a call made up to
+// three launches (train norms, the kernel, a merge of the spans) and set the
+// shared-memory attribute every time. Now:
+//   - two tile shapes, one template: Large (128 queries x 128 train rows,
+//     256 threads, an 8 x 8 register tile each) where the problem has many
+//     tiles, Small (32 x 64, 128 threads, 4 x 4) elsewhere; the wrapper
+//     picks the shape from (Q, T) and splits the train set into spans
+//     (blockIdx.y) so that about one Large or four Small blocks run on each
+//     SM;
+//   - both tiles are staged row-major as they lie in memory, DK deep a
+//     chunk (Large 64, Small 32), with 16-byte cp.async copies (consecutive
+//     threads on consecutive addresses of one row; 4-byte copies when D % 4
+//     != 0 or a pointer is not 16-byte aligned) into a ring of chunks (Large
+//     2, Small 3), so the copy of the next chunks overlaps the FMAs of this
+//     one. Rows are padded to DK + 4 floats (144 or 272 bytes): the float4
+//     reads of eight neighbouring rows by a quarter-warp hit eight different
+//     16-byte bank groups;
+//   - each thread reads one float4 of each of its rows and columns per four
+//     depth steps, JB columns at a time (Large: 4, so 16 + 8 float4 per 256
+//     FMAs; Small: 4 + 4 per 64). Large takes about 250 registers, one
+//     block an SM: cut to 128 for two, it spills and runs slower;
+//   - one launch: the train norms (and the query norms, on the first train
+//     tile) are taken from the staged rows; each span's block writes its
+//     partial top-2, fences, and draws a ticket of its query tile; the block
+//     that draws the last ticket merges the spans in span order (reading the
+//     partials from the L2, __ldcg) and sets the ticket back to 0;
+//   - the shared-memory attribute is set once per device and instantiation.
+// The bits do not depend on the tile shape, the split or the block order:
+// every dot product and norm accumulates in increasing k with fmaf, d is
+// (qn + tn) - 2 dot (2 dot is exact, so contraction cannot change it), and
+// the top-2 of a set of candidates does not depend on the order of merging:
+// ties go to the lower train index, and the second best is the smallest
+// candidate other than the best's column. No float atomics. Ragged edges (Q,
+// T, D not multiples of the tiles) are zero-filled by the copies and masked.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <limits.h>
+#include <math.h>
 
 namespace {
 
-constexpr int TQ = 64;   // queries per block
-constexpr int TT = 64;   // train rows per tile
-constexpr int DK = 32;   // depth of one staged train chunk
-constexpr int SQ = TQ + 4;  // padded shared-memory row strides (16-byte aligned)
-constexpr int ST = TT + 4;
+constexpr int TX = 16;  // threads along a train tile; the shuffle merge spans them
+constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
+
+// TQ x TT tile, RI x RJ a thread, JB of its RJ columns' float4 in registers
+// at once, MINB blocks an SM for __launch_bounds__, DK deep chunks in a
+// ring of STAGES; shared rows of DK + 4 floats (a stride of 16 bytes past a
+// multiple of 128, so eight rows' float4 fall in eight bank groups)
+template <int TQ_, int TT_, int RI_, int RJ_, int JB_, int MINB_, int DK_, int STAGES_>
+struct Tile {
+  static constexpr int TQ = TQ_, TT = TT_, RI = RI_, RJ = RJ_, JB = JB_, MINB = MINB_;
+  static constexpr int DK = DK_, SROW = DK_ + 4, STAGES = STAGES_;
+  static constexpr int TY = TQ / RI;
+  static constexpr int THREADS = TX * TY;
+  static constexpr int STAGE_FLOATS = (TQ + TT) * SROW;
+  static constexpr int SMEM = STAGES * STAGE_FLOATS * (int)sizeof(float);
+  static_assert(TT == TX * RJ && TQ == TY * RI && RJ % JB == 0 && DK % 32 == 0, "tile");
+  static_assert(THREADS >= TQ + TT, "one thread per norm");
+};
+// Large: at 8192 x 8192 x 128 on an H100, JB 4 beat 8, DK 64 in 2 stages
+// beat 32 in 3, and two blocks an SM (128 registers) spilled and were slower
+using Large = Tile<128, 128, 8, 8, 4, 1, 64, 2>;  // ops/cuda/matching.py _LARGE
+using Small = Tile<32, 64, 4, 4, 4, 1, 32, 3>;    // ops/cuda/matching.py _SMALL
 
 struct Top2 {
   float best, second;
@@ -65,117 +106,134 @@ __device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
   return r;
 }
 
-__global__ void row_sqnorm_kernel(const float* __restrict__ t, int T, int D, float* __restrict__ tn) {
-  // one warp per row
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= T) return;
-  const float* tr = t + (size_t)row * D;
-  float s = 0.f;
-  for (int k = lane; k < D; k += 32) s = fmaf(tr[k], tr[k], s);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-  if (lane == 0) tn[row] = s;
+// the copies of chunk c (train tile c / n_k of the span, depth chunk c % n_k)
+// into its ring slot: query rows first, then train rows, DK floats each;
+// out-of-range rows and depths are zero-filled
+template <class C, bool VEC>
+__device__ __forceinline__ void stage(float* smem, int c, int n_k, const float* __restrict__ q,
+                                      const float* __restrict__ t, int Q, int D, int q0, int t_begin,
+                                      int t_end) {
+  constexpr int TQ = C::TQ, TT = C::TT, DK = C::DK, SROW = C::SROW, STAGES = C::STAGES, W = VEC ? 4 : 1;
+  float* dst = smem + (c % STAGES) * C::STAGE_FLOATS;
+  const int t0 = t_begin + (c / n_k) * TT, k0 = (c % n_k) * DK;
+  for (int e = threadIdx.x; e < (TQ + TT) * (DK / W); e += C::THREADS) {
+    const int r = e / (DK / W), kk = (e % (DK / W)) * W, k = k0 + kk;
+    const bool is_q = r < TQ;
+    const int row = is_q ? q0 + r : t0 + (r - TQ);
+    const bool ok = (is_q ? row < Q : row < t_end) && k < D;
+    const float* src = ok ? (is_q ? q : t) + (size_t)row * D + k : q;
+    __pipeline_memcpy_async(dst + r * SROW + kk, src, W * sizeof(float), ok ? 0 : W * sizeof(float));
+  }
 }
 
-__global__ void __launch_bounds__(256) knn2_kernel(
-    const float* __restrict__ q, const float* __restrict__ t,
-    const float* __restrict__ tn, int Q, int T, int D, int Dp, int span,
-    float* __restrict__ part_best, float* __restrict__ part_second,
-    int* __restrict__ part_idx, float* __restrict__ dist, int* __restrict__ idx_out,
-    int n_split) {
+template <class C, bool VEC>
+__global__ void __launch_bounds__(C::THREADS, C::MINB) knn2_kernel(
+    const float* __restrict__ q, const float* __restrict__ t, int Q, int T, int D, int span,
+    unsigned* __restrict__ tickets, float* __restrict__ part, float* __restrict__ dist,
+    int* __restrict__ idx_out) {
+  constexpr int TQ = C::TQ, TT = C::TT, RI = C::RI, RJ = C::RJ, JB = C::JB, TY = C::TY, NT = C::THREADS;
+  constexpr int DK = C::DK, SROW = C::SROW, STAGES = C::STAGES;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [Dp][SQ]
-  float* Ts = Qs + (size_t)Dp * SQ;             // [DK][ST]
-  __shared__ float qn_s[TQ];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ float qn_s[TQ], tn_s[TT];
+  __shared__ bool last;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int q0 = blockIdx.x * TQ;
-  const int t_begin = blockIdx.y * span;
-  const int t_end = min(T, t_begin + span);
+  const int t_begin = blockIdx.y * span, t_end = min(T, t_begin + span);
+  const int n_k = (D + DK - 1) / DK;
+  const int total = (t_end - t_begin + TT - 1) / TT * n_k;  // chunks of this block
 
-  // stage the query tile transposed: thread -> (row r, 8-deep k group)
-  {
-    const int r = tid & (TQ - 1);
-    const int kg = tid >> 6;  // 0..3
-    const bool ok_r = q0 + r < Q;
-    const float* qr = q + (size_t)(q0 + r) * D;
-    for (int k0 = kg * 8; k0 < Dp; k0 += 32) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = k0 + i;
-        Qs[k * SQ + r] = (ok_r && k < D) ? qr[k] : 0.f;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) stage<C, VEC>(smem, s, n_k, q, t, Q, D, q0, t_begin, t_end);
+    __pipeline_commit();
+  }
+
+  float acc[RI][RJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) acc[i][j] = 0.f;
+  Top2 run[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) run[i] = Top2{INFINITY, INFINITY, INT_MAX};
+  // threads 0..TT-1 take the norm of one train row of each tile; the next TQ
+  // threads that of one query row, on the first tile
+  float nrm = 0.f;
+
+  for (int c = 0; c < total; ++c) {
+    __pipeline_wait_prior(STAGES - 2);  // this thread's copies of chunk c have landed
+    __syncthreads();                    // everyone's have, and chunk c - 1 is consumed
+    if (c + STAGES - 1 < total) stage<C, VEC>(smem, c + STAGES - 1, n_k, q, t, Q, D, q0, t_begin, t_end);
+    __pipeline_commit();  // an empty group past the last chunk keeps the count
+    const float* As = smem + (c % STAGES) * C::STAGE_FLOATS;
+    const float* Bs = As + TQ * SROW;
+    const int kc = c % n_k;
+
+    const bool tn_thread = tid < TT;
+    const bool qn_thread = !tn_thread && tid < TT + TQ && c < n_k;
+    if (tn_thread || qn_thread) {
+      const float* row = tn_thread ? Bs + tid * SROW : As + (tid - TT) * SROW;
+      if (tn_thread && kc == 0) nrm = 0.f;
+#pragma unroll
+      for (int k = 0; k < DK; k += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(row + k);
+        nrm = fmaf(v.x, v.x, nrm);
+        nrm = fmaf(v.y, v.y, nrm);
+        nrm = fmaf(v.z, v.z, nrm);
+        nrm = fmaf(v.w, v.w, nrm);
       }
     }
-  }
-  __syncthreads();
-  if (tid < TQ) {
-    float s = 0.f;
-    for (int k = 0; k < D; ++k) {
-      const float v = Qs[k * SQ + tid];
-      s = fmaf(v, v, s);
-    }
-    qn_s[tid] = s;
-  }
 
-  Top2 run[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) run[i] = Top2{INFINITY, INFINITY, INT_MAX};
-
-  for (int t0 = t_begin; t0 < t_end; t0 += TT) {
-    float acc[4][4];
+    for (int k = 0; k < DK; k += 4) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j0 = 0; j0 < RJ; j0 += JB) {
+        float4 b[JB];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < Dp; k0 += DK) {
-      __syncthreads();  // the previous chunk has been consumed
-      {
-        const int c = tid & (TT - 1);
-        const int kg = tid >> 6;  // 0..3, 8 deep each
-        const bool ok_c = t0 + c < t_end;
-        const float* tr = t + (size_t)(t0 + c) * D;
+        for (int j = 0; j < JB; ++j) b[j] = *reinterpret_cast<const float4*>(Bs + (tx + TX * (j0 + j)) * SROW + k);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int k = k0 + kg * 8 + i;
-          Ts[(kg * 8 + i) * ST + c] = (ok_c && k < D) ? tr[k] : 0.f;
+        for (int i = 0; i < RI; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(As + (ty + TY * i) * SROW + k);
+#pragma unroll
+          for (int j = 0; j < JB; ++j) {
+            float& s = acc[i][j0 + j];
+            s = fmaf(a.x, b[j].x, s);
+            s = fmaf(a.y, b[j].y, s);
+            s = fmaf(a.z, b[j].z, s);
+            s = fmaf(a.w, b[j].w, s);
+          }
         }
       }
+    }
+
+    if (kc == n_k - 1) {  // the tile's dot products are complete
+      if (tn_thread) tn_s[tid] = nrm;
+      if (qn_thread) qn_s[tid - TT] = nrm;
       __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < DK; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&Qs[(k0 + k) * SQ + ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Ts[k * ST + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+      const int t0 = t_begin + (c / n_k) * TT;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < RJ; ++j) {
+        const int col = t0 + tx + TX * j;  // increasing in j
+        if (col < t_end) {
+          const float tnc = tn_s[tx + TX * j];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = t0 + tx * 4 + j;
-      if (col < t_end) {
-        const float tnc = tn[col];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float d = (qn_s[ty * 4 + i] + tnc) - 2.f * acc[i][j];
-          push(run[i], d, col);
+          for (int i = 0; i < RI; ++i) push(run[i], (qn_s[ty + TY * i] + tnc) - 2.f * acc[i][j], col);
         }
       }
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) acc[i][j] = 0.f;
     }
   }
 
   // merge across the 16 threads (tx) that share each row
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
+    for (int o = TX / 2; o > 0; o >>= 1) {
       Top2 other;
       other.best = __shfl_xor_sync(FULL, run[i].best, o);
       other.second = __shfl_xor_sync(FULL, run[i].second, o);
@@ -183,10 +241,13 @@ __global__ void __launch_bounds__(256) knn2_kernel(
       run[i] = merge(run[i], other);
     }
   }
+
+  const int n_split = gridDim.y;
+  const size_t P = (size_t)n_split * Q;  // partials: best [0, P), second [P, 2P), idx bits [2P, 3P)
   if (tx == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int row = q0 + ty + TY * i;
       if (row >= Q) continue;
       if (n_split == 1) {
         dist[2 * (size_t)row] = run[i].best;
@@ -194,52 +255,66 @@ __global__ void __launch_bounds__(256) knn2_kernel(
         idx_out[row] = run[i].idx == INT_MAX ? 0 : run[i].idx;
       } else {
         const size_t p = (size_t)blockIdx.y * Q + row;
-        part_best[p] = run[i].best;
-        part_second[p] = run[i].second;
-        part_idx[p] = run[i].idx;
+        part[p] = run[i].best;
+        part[P + p] = run[i].second;
+        part[2 * P + p] = __int_as_float(run[i].idx);
       }
     }
   }
+  if (n_split == 1) return;
+  __syncthreads();  // the block's partials are written; thread 0 fences them before its ticket
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(tickets + blockIdx.x, 1u) == (unsigned)n_split - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int r = tid; r < TQ; r += NT) {
+    const int row = q0 + r;
+    if (row >= Q) continue;
+    Top2 m{INFINITY, INFINITY, INT_MAX};
+    for (int s = 0; s < n_split; ++s) {  // span order
+      const size_t p = (size_t)s * Q + row;
+      m = merge(m, Top2{__ldcg(part + p), __ldcg(part + P + p), __float_as_int(__ldcg(part + 2 * P + p))});
+    }
+    dist[2 * (size_t)row] = m.best;
+    dist[2 * (size_t)row + 1] = m.second;
+    idx_out[row] = m.idx == INT_MAX ? 0 : m.idx;
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0u;  // the next launch on this stream starts from 0
 }
 
-__global__ void knn2_merge_kernel(const float* __restrict__ part_best,
-                                  const float* __restrict__ part_second,
-                                  const int* __restrict__ part_idx, int Q, int n_split,
-                                  float* __restrict__ dist, int* __restrict__ idx_out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= Q) return;
-  Top2 r{INFINITY, INFINITY, INT_MAX};
-  for (int s = 0; s < n_split; ++s) {
-    const size_t p = (size_t)s * Q + row;
-    r = merge(r, Top2{part_best[p], part_second[p], part_idx[p]});
+template <class C, bool VEC>
+int launch(const float* q, const float* t, int Q, int T, int D, int span, unsigned* tickets, float* part,
+           float* dist, int* idx, cudaStream_t stream) {
+  static bool attr_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(knn2_kernel<C, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) attr_set[dev] = true;
   }
-  dist[2 * (size_t)row] = r.best;
-  dist[2 * (size_t)row + 1] = r.second;
-  idx_out[row] = r.idx == INT_MAX ? 0 : r.idx;
+  const dim3 grid((Q + C::TQ - 1) / C::TQ, (T + span - 1) / span);
+  knn2_kernel<C, VEC><<<grid, C::THREADS, C::SMEM, stream>>>(q, t, Q, T, D, span, tickets, part, dist, idx);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int knn2_f32(const float* q, const float* t, int Q, int T, int D, int span,
-                        float* tn, float* part_best, float* part_second, int* part_idx,
-                        float* dist, int* idx, cudaStream_t stream) {
-  if (Q <= 0 || T <= 0 || D <= 0 || span <= 0 || span % TT != 0) return (int)cudaErrorInvalidValue;
-  const int Dp = (D + DK - 1) / DK * DK;
-  const size_t smem = ((size_t)Dp * SQ + (size_t)DK * ST) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(knn2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  row_sqnorm_kernel<<<(T + 7) / 8, 256, 0, stream>>>(t, T, D, tn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n_split = (T + span - 1) / span;
-  const dim3 grid((Q + TQ - 1) / TQ, n_split);
-  knn2_kernel<<<grid, 256, smem, stream>>>(q, t, tn, Q, T, D, Dp, span, part_best, part_second,
-                                           part_idx, dist, idx, n_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (n_split > 1) {
-    knn2_merge_kernel<<<(Q + 255) / 256, 256, 0, stream>>>(part_best, part_second, part_idx, Q,
-                                                          n_split, dist, idx);
+// large: 1 for the Large tile, 0 for Small; span: train rows a block, a
+// multiple of the tile's train rows; tickets: one unsigned int per query
+// tile, 0 between launches; part: 3 * ceil(T / span) * Q floats
+extern "C" int knn2_f32(const float* q, const float* t, int Q, int T, int D, int large, int span,
+                        unsigned* tickets, float* part, float* dist, int* idx, cudaStream_t stream) {
+  const int tt = large ? Large::TT : Small::TT;
+  if (Q <= 0 || T <= 0 || D <= 0 || span <= 0 || span % tt != 0) return (int)cudaErrorInvalidValue;
+  const bool vec = D % 4 == 0 && ((reinterpret_cast<size_t>(q) | reinterpret_cast<size_t>(t)) % 16 == 0);
+  if (large) {
+    return vec ? launch<Large, true>(q, t, Q, T, D, span, tickets, part, dist, idx, stream)
+               : launch<Large, false>(q, t, Q, T, D, span, tickets, part, dist, idx, stream);
   }
-  return (int)cudaGetLastError();
+  return vec ? launch<Small, true>(q, t, Q, T, D, span, tickets, part, dist, idx, stream)
+             : launch<Small, false>(q, t, Q, T, D, span, tickets, part, dist, idx, stream);
 }

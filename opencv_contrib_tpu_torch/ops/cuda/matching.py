@@ -3,9 +3,12 @@
 Kernel: `csrc/knn2.cu`. It replaces the Pallas `knn2`
 (opencv_contrib_tpu/ops/pallas/matching.py:73, body `_knn2_kernel` :29).
 It is bound by operations (2*Q*T*D f32 FMAs on the CUDA cores against
-(Q + T) * D inputs); each block keeps a query tile in shared memory, streams
-train tiles through it, and folds distances into a running top-2 in
-registers, so the Q x T matrix never reaches device memory (see the source).
+(Q + T) * D inputs); each block keeps a running top-2 of its query tile in
+registers while train tiles stream through shared memory, so the Q x T
+matrix never reaches device memory. One launch a call: the train set is
+split into spans so that about one block runs on each SM, and the block
+that finishes a query tile's last span merges the spans (see the source).
+The result does not depend on the split.
 """
 
 from __future__ import annotations
@@ -15,7 +18,14 @@ import torch
 from opencv_contrib_tpu_torch.features.match import Matches, l2_distance_matrix, top2
 from opencv_contrib_tpu_torch.ops.cuda import _build, use_kernel
 
-_TILE = 64  # the kernel's query and train tile (csrc/knn2.cu TQ, TT)
+# the kernel's tile shapes (csrc/knn2.cu Large, Small): (queries, train rows)
+_LARGE = (128, 128)
+_SMALL = (32, 64)
+# Large when the problem has at least this many Large tiles an SM: enough
+# that each block streams several train tiles
+_LARGE_TILES_PER_SM = 8
+# blocks an SM the split aims at, by tile shape
+_BLOCKS_PER_SM = {True: 1, False: 4}
 
 
 def knn2_plain(q: torch.Tensor, t: torch.Tensor, tile_q: int = 512):
@@ -30,14 +40,55 @@ def knn2_plain(q: torch.Tensor, t: torch.Tensor, tile_q: int = 512):
     return torch.cat(dists), torch.cat(idxs)
 
 
-def knn2(q: torch.Tensor, t: torch.Tensor, tile_q: int = 512, tile_t: int = 2048):
+def plan(Q: int, T: int, sms: int, tile_t: int | None = None):
+    """(large, span, n_split) of a launch: the tile shape, the train rows a
+    block streams (a multiple of the tile's) and the number of spans. With
+    tile_t None the spans are as many as make the blocks about
+    _BLOCKS_PER_SM an SM (that many times sms / query tiles, rounded); an
+    explicit tile_t sets the span, rounded up to the tile."""
+    large = -(-Q // _LARGE[0]) * -(-T // _LARGE[1]) >= _LARGE_TILES_PER_SM * sms
+    tq, tt = _LARGE if large else _SMALL
+    if tile_t is None:
+        span = -(-T // max(1, round(_BLOCKS_PER_SM[large] * sms / -(-Q // tq))))
+    else:
+        span = max(tile_t, 1)
+    span = -(-span // tt) * tt
+    return large, span, -(-T // span)
+
+
+_sms: dict = {}
+_scratch: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _sms.get(dev)
+    if n is None:
+        n = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+def _scratch_for(dev: torch.device, stream: int, q_tiles: int, n_part: int):
+    """The tickets (one a query tile, 0 between launches: the merging block
+    sets its ticket back) and the spans' partial top-2, made once per device
+    and stream and grown when a call needs more: launches on one stream run
+    one after another, so no two calls share them at once."""
+    tickets, part = _scratch.get((dev, stream), (None, None))
+    if tickets is None or tickets.numel() < q_tiles:
+        tickets = torch.zeros(max(q_tiles, 256), dtype=torch.int32, device=dev)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    _scratch[(dev, stream)] = (tickets, part)
+    return tickets, part
+
+
+def knn2(q: torch.Tensor, t: torch.Tensor, tile_q: int = 512, tile_t: int | None = None):
     """Fused 2-NN: q (Q, D), t (T, D) float32 -> (dists (Q, 2), idx (Q,) int32).
 
-    On the card each block streams `tile_t` train rows (rounded up to the
-    kernel's 64-row tile) and the spans' partial top-2 are merged; the query
-    tile is the kernel's own 64 rows. The plain version computes `tile_q`
-    distance rows at a time. Unlike the Pallas kernel, neither Q nor T has to
-    be a multiple of a tile.
+    On the card each block streams a span of train rows: `tile_t` rows
+    (rounded up to the kernel's train tile) if given, else a split that puts
+    about one block on each SM (`plan`); the result has the same bits either
+    way. The plain version computes `tile_q` distance rows at a time. Unlike
+    the Pallas kernel, neither Q nor T has to be a multiple of a tile.
     """
     if not use_kernel(q):
         return knn2_plain(q, t, tile_q)
@@ -52,21 +103,17 @@ def knn2(q: torch.Tensor, t: torch.Tensor, tile_q: int = 512, tile_t: int = 2048
     if Q == 0 or T == 0 or D == 0 or D > 768:
         raise ValueError(f"knn2: unsupported shape Q={Q} T={T} D={D}")
     q, t = q.contiguous(), t.contiguous()
-    span = -(-max(tile_t, 1) // _TILE) * _TILE
-    n_split = -(-T // span)
     dev = q.device
-    tn = torch.empty(T, dtype=torch.float32, device=dev)
-    part_best = torch.empty(n_split * Q, dtype=torch.float32, device=dev)
-    part_second = torch.empty_like(part_best)
-    part_idx = torch.empty(n_split * Q, dtype=torch.int32, device=dev)
+    large, span, n_split = plan(Q, T, _sm_count(dev), tile_t)
+    q_tiles = -(-Q // (_LARGE if large else _SMALL)[0])
     dist = torch.empty((Q, 2), dtype=torch.float32, device=dev)
     idx = torch.empty(Q, dtype=torch.int32, device=dev)
+    stream = _build.stream_of(q)
+    tickets, part = _scratch_for(dev, stream, q_tiles, 3 * n_split * Q)
     lib = _build.lib("knn2")
     with _build.on_device(dev):
-        _build.check(lib.knn2_f32(
-            q.data_ptr(), t.data_ptr(), Q, T, D, span, tn.data_ptr(),
-            part_best.data_ptr(), part_second.data_ptr(), part_idx.data_ptr(),
-            dist.data_ptr(), idx.data_ptr(), _build.stream_of(q)), "knn2_f32")
+        _build.check(lib.knn2_f32(q.data_ptr(), t.data_ptr(), Q, T, D, int(large), span, tickets.data_ptr(),
+                                  part.data_ptr(), dist.data_ptr(), idx.data_ptr(), stream), "knn2_f32")
     knn2.launches += 1
     return dist, idx
 

@@ -1,20 +1,25 @@
 """Prefix-sum kernels for summed-area tables: `grid_scan` (inclusive row
-scan) and `integral_image` (inclusive 2D scan, no zero row).
+scan), `integral_image` (inclusive 2D scan, no zero row) and
+`integral_padded` (the zero-padded (H + 1, W + 1) table of
+`ops.integral.integral`).
 
 Kernel: `csrc/scan.cu`. It replaces the Pallas `integral_image`
 (opencv_contrib_tpu/ops/pallas/grid.py:282, body `_scan_rows_kernel` :260)
 and `grid_scan` (ops/pallas/pipeline.py:35). It is bound by bytes (one add
 per element against 8 bytes moved); the TPU kernels' carried scratch prefix
-becomes a warp-per-row scan with the carry in a register, and the columns
-pass is a second launch with coalesced loads (see the source). One row-scan
-kernel serves both wrappers: `integral_image` is `grid_scan`, then the
-column scan.
+becomes a warp-per-row scan with the carry in a register. `grid_scan` is
+that row scan alone; the 2D scan is one launch of slabs of rows and
+columns, each adding the column totals of the slabs above it and the row
+totals of those to its left in a fixed order (see the source); it takes any
+width, and it writes the padded table itself, so `integral` is one launch a
+frame.
 
 The plain versions sum in the order of XLA's CPU cumsum (blocks of 16,
 sequential inside a block, the block totals scanned the same way), so on
 the CPU the port's summed-area table is bit-identical to the JAX package's.
 That matters downstream: a VGA table reaches ~4e7, where one float32 ulp is
-4, and the detector's box sums are differences of four such entries.
+4, and the detector's box sums are differences of four such entries. The
+kernel's order is its own but fixed by (H, W): a rerun gives the same bits.
 """
 
 from __future__ import annotations
@@ -74,23 +79,106 @@ def grid_scan(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def integral_image(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive 2D prefix sum (H, W) -> (H, W) float32, no zero row: the
-    row scan of `grid_scan`, then a column scan."""
-    if not use_kernel(x):
-        return integral_image_plain(x)
+def integral_padded_plain(x: torch.Tensor) -> torch.Tensor:
+    return F.pad(integral_image_plain(x), (1, 0, 1, 0))
+
+
+_BANDS = 48  # integral: about this many bands of rows (scripts/integral_geometry.py: 32, 40 and 56 were slower)
+_COLS = 1024  # csrc/scan.cu MAX_COLS: columns a slab
+_MIN_COLS = 128  # a slab's columns may shrink to this to keep about _BANDS bands
+_MIN_ROWS = 8  # rows a band at least: a short image takes fewer bands, not bands of a row or two
+_GROUPS = 4  # csrc/scan.cu GROUPS: rows of group sums beside the slab
+_SMEM_MAX = 200 * 1024  # csrc/scan.cu MAX_SMEM: a slab's rows, E, the group sums and the row carries
+_EPOCHS = 1 << 31  # launches a scratch serves (a status holds the epoch in 32 bits)
+
+
+def slabs(H: int, W: int) -> tuple[int, int]:
+    """(R, Cw): the integral kernel's slabs of R rows by Cw columns (a
+    multiple of 4). About _BANDS bands of at least _MIN_ROWS rows, so a
+    slab reads the totals of at most about _BANDS slabs above it; as
+    many columns as then fit in the shared memory beside E, the group sums
+    and the row carries, up to _COLS, and the fewest slabs across of that
+    width, as even as that allows. Only past about 18,000 rows (a slab of
+    _MIN_COLS columns) does the band count grow. The table's bits depend on
+    (R, Cw), so they depend on (H, W) alone."""
+    words = _SMEM_MAX // 4
+    R = min(max(-(-H // _BANDS), _MIN_ROWS, 1), (words - (1 + _GROUPS) * _MIN_COLS) // (_MIN_COLS + 1))
+    widest = min(_COLS, (words - R) // (R + 1 + _GROUPS) // 4 * 4)
+    nc = -(-W // widest)
+    return R, -(-W // (4 * nc)) * 4
+
+
+class _Scratch:
+    """The integral kernel's control words (the slab ticket, then two
+    statuses a slab) and its slabs' column and row totals, for one device
+    and stream. The kernel sets nothing back: each launch draws its tickets
+    from `base` on and marks its statuses with its `epoch`, and both count
+    on here. Launches on one stream run one after another, so no two share
+    it at once."""
+
+    def __init__(self, dev: torch.device, n_ctrl: int, n_tot: int, n_rtot: int):
+        self.ctrl = torch.zeros(n_ctrl, dtype=torch.int32, device=dev)
+        self.tot = torch.empty(n_tot, dtype=torch.float32, device=dev)
+        self.rtot = torch.empty(n_rtot, dtype=torch.float32, device=dev)
+        self.base, self.epoch = 0, 0
+
+    def next(self, tickets: int) -> tuple[int, int]:
+        """(base, epoch) of the next launch, which draws `tickets`, as the C
+        ints that carry their 32 bits."""
+        base, self.base, self.epoch = self.base, (self.base + tickets) % (1 << 32), self.epoch + 1
+        return base - (1 << 32) if base >= 1 << 31 else base, self.epoch
+
+
+_scratch: dict = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, n_ctrl: int, n_tot: int, n_rtot: int) -> _Scratch:
+    sc = _scratch.get((dev, stream))
+    if (sc is None or sc.ctrl.numel() < n_ctrl or sc.tot.numel() < n_tot or sc.rtot.numel() < n_rtot
+            or sc.epoch >= _EPOCHS - 1):
+        sc = _scratch[(dev, stream)] = _Scratch(dev, n_ctrl, n_tot, n_rtot)
+    return sc
+
+
+def _integral(x: torch.Tensor, pad: int, name: str) -> torch.Tensor:
     x = x.to(torch.float32)
-    _check(x, "integral_image")
-    rows = grid_scan(x)
-    H, W = rows.shape
-    out = torch.empty_like(rows)
+    _check(x, name)
+    x = x.contiguous()
+    H, W = x.shape
+    out = torch.empty((H + pad, W + pad), dtype=torch.float32, device=x.device)
+    R, Cw = slabs(H, W)
+    n = -(-H // R) * -(-W // Cw)
+    stream = _build.stream_of(x)
+    sc = _scratch_for(x.device, stream, 1 + 2 * n, n * Cw, n * R)
+    base, epoch = sc.next(n)
     lib = _build.lib("scan")
     with _build.on_device(x.device):
-        _build.check(lib.scan_cols_f32(rows.data_ptr(), out.data_ptr(), H, W,
-                                       _build.stream_of(x)), "scan_cols_f32")
+        err = lib.integral_f32(x.data_ptr(), out.data_ptr(), H, W, W + pad, pad, R, Cw, sc.ctrl.data_ptr(), base,
+                               epoch, sc.tot.data_ptr(), sc.rtot.data_ptr(), stream)
+    if err != 0:  # a launch refused drew no tickets: the counts here no longer match the ticket
+        _scratch.pop((x.device, stream), None)
+    _build.check(err, "integral_f32")
     integral_image.launches += 1
     return out
 
 
+def integral_image(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive 2D prefix sum (H, W) -> (H, W) float32, no zero row: one
+    launch of the integral kernel on a CUDA tensor."""
+    if not use_kernel(x):
+        return integral_image_plain(x)
+    return _integral(x, 0, "integral_image")
+
+
+def integral_padded(x: torch.Tensor) -> torch.Tensor:
+    """The zero-padded summed-area table (H + 1, W + 1) float32,
+    out[i, j] = sum(x[:i, :j]): one launch of the integral kernel, which
+    writes the zero row and column itself; on a CPU tensor, the plain table
+    padded."""
+    if not use_kernel(x):
+        return integral_padded_plain(x)
+    return _integral(x, 1, "integral_padded")
+
+
 grid_scan.launches = 0
-integral_image.launches = 0
+integral_image.launches = 0  # both integral wrappers count the one kernel

@@ -5,8 +5,10 @@ The JAX version counts with one-hot matrix products and looks LUTs up with
 one-hot products, because TPU scatters and gathers pay per row
 (histogram.py:13-56). Here counts come from the grid_histogram kernel
 (`ops/cuda/histogram.py`, the "clamp" rule of `histogram`), CLAHE's 64 tile
-histograms from one batched launch of it, and LUT lookups are direct
-gathers.
+histograms from one batched launch of it, CLAHE's tile CDFs from one
+launch of the grid_scan kernel (`ops/cuda/scan.py`; on the CPU its plain
+version sums in the order of the JAX package's `jnp.cumsum`), and LUT
+lookups are direct gathers.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from opencv_contrib_tpu_torch.ops.cuda import histogram as khist
+from opencv_contrib_tpu_torch.ops.cuda import scan
 
 
 def histogram(img: torch.Tensor, bins: int = 256, vmin: float = 0.0, vmax: float = 1.0) -> torch.Tensor:
@@ -61,7 +64,7 @@ def clahe(img: torch.Tensor, clip_limit: float = 4.0, grid: int = 8, bins: int =
     limit = clip_limit * (th * tw) / bins
     excess = torch.sum(torch.clamp(counts - limit, min=0.0), dim=1, keepdim=True)
     clipped = torch.clamp(counts, max=limit) + excess / bins
-    cdf = torch.cumsum(clipped, dim=1)
+    cdf = scan.grid_scan(clipped)  # (g*g, bins), one row a tile
     luts = (cdf / torch.clamp(cdf[:, -1:], min=1.0)).reshape(-1)  # (g*g*bins,)
 
     dev = x.device

@@ -1,23 +1,23 @@
 """Integral images and box sums (the port of opencv_contrib_tpu/ops/integral.py).
 
-`integral` is the zero-padded (H+1, W+1) table of cv::integral. Its 2D
-prefix sum is `ops.cuda.scan.integral_image`: the scan kernel on a CUDA
-tensor, two `torch.cumsum`s on a CPU tensor.
+`integral` is the zero-padded (H+1, W+1) table of cv::integral, from
+`ops.cuda.scan.integral_padded`: one launch of the integral kernel, which
+writes the padded table, on a CUDA tensor; on a CPU tensor the plain 2D
+scan (the JAX package's summation order), padded.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from opencv_contrib_tpu_torch.ops.cuda.scan import integral_image
+from opencv_contrib_tpu_torch.ops.cuda.scan import integral_padded
 from opencv_contrib_tpu_torch.ops.image import _gather2d
 
 
 def integral(img: torch.Tensor) -> torch.Tensor:
     """Summed-area table with one row/col of zero padding: out (H+1, W+1),
     out[i, j] = sum(img[:i, :j])."""
-    return F.pad(integral_image(img.to(torch.float32)), (1, 0, 1, 0))
+    return integral_padded(img.to(torch.float32))
 
 
 def box_sum(ii: torch.Tensor, y0, x0, h, w) -> torch.Tensor:

@@ -26,6 +26,7 @@ from opencv_contrib_tpu.ops.pallas import pipeline as ppipe
 from opencv_contrib_tpu.ops.pallas import remap as premap
 from opencv_contrib_tpu_torch.features import match as fmatch
 from opencv_contrib_tpu_torch.ops import image as timage
+from opencv_contrib_tpu_torch.ops.histogram import clahe
 from opencv_contrib_tpu_torch.ops import integral as tinteg
 from opencv_contrib_tpu_torch.ops import cuda as tcuda
 from opencv_contrib_tpu_torch.ops.cuda import _build, pyramid, reduce, scan
@@ -363,6 +364,8 @@ def test_cpu_calls_leave_launch_counters_at_zero(rng):
     scan.grid_scan(q)
     scan.integral_image(q)
     tinteg.integral(q)
+    scan.integral_padded(q)
+    clahe(T(rng.uniform(size=(32, 48)).astype(np.float32)))
     (sp, sn, sv, dp, dn, dv), intr = _getab_frames(rng)
     reduce.icp_getab(torch.eye(4), T(sp), T(sn), T(sv), T(dp), T(dn), T(dv), T(intr))
     pyramid.pyrdown(q)
@@ -379,11 +382,93 @@ def test_cpu_calls_leave_launch_counters_at_zero(rng):
                                 "grid_reduce": 0, "grid_histogram": 0}
 
 
+@pytest.mark.parametrize("Q,Tn", [(512, 512), (1000, 3000), (8192, 8192), (70, 130), (2048, 2048), (1, 100000)])
+def test_knn2_plan_covers_the_train_set_and_fills_the_card(Q, Tn):
+    """The wrapper's split: the span is a multiple of the kernel's train
+    tile, the spans cover every train row and no span is empty, and at the
+    shapes of the path the blocks are at least about one an SM of an H100
+    (132 SMs)."""
+    large, span, n_split = tmatch.plan(Q, Tn, 132)
+    tq, tt = tmatch._LARGE if large else tmatch._SMALL
+    assert span % tt == 0 and (n_split - 1) * span < Tn <= n_split * span
+    blocks = -(-Q // tq) * n_split
+    if (Q, Tn) in ((512, 512), (1000, 3000), (8192, 8192), (2048, 2048)):
+        assert blocks >= 0.95 * 132, (large, span, n_split)
+    assert large == ((Q, Tn) == (8192, 8192))
+
+
+def test_knn2_plan_honours_an_explicit_tile_t():
+    """tile_t sets the span, rounded up to the train tile, whatever the SM
+    count; the tile shape depends on (Q, T) alone."""
+    assert tmatch.plan(512, 512, 132, 128) == (False, 128, 4)
+    assert tmatch.plan(512, 512, 8, 128) == (False, 128, 4)
+    assert tmatch.plan(512, 512, 132, 100) == (False, 128, 4)
+    assert tmatch.plan(1000, 3000, 132, 3000) == (False, 3008, 1)
+    assert tmatch.plan(8192, 8192, 132, 256) == (True, 256, 32)
+    assert tmatch.plan(512, 512, 132)[0] == tmatch.plan(512, 512, 132, 2048)[0]
+
+
+def test_knn2_tiles_match_the_source():
+    """The tile shapes in the wrapper mirror csrc/knn2.cu's Large and Small
+    tiles."""
+    text = (_build.CSRC / "knn2.cu").read_text()
+    tiles = dict((n, tuple(int(v) for v in a)) for n, *a in
+                 re.findall(r"using (Large|Small) = Tile<(\d+), (\d+),", text))
+    assert tiles == {"Large": tmatch._LARGE, "Small": tmatch._SMALL}
+
+
+@pytest.mark.parametrize("H,W", [(480, 640), (2048, 2048), (481, 643), (1, 7), (37, 5), (40, 8000), (3001, 16),
+                                 (4000, 8000), (1000, 3001), (8, 12000), (20000, 20000), (100000, 4)])
+def test_integral_bands_fit_the_shared_memory(H, W):
+    """Slabs of R rows by Cw columns at any width: the slab's rows, E, 4
+    rows of group sums and the row carries within the kernel's shared
+    memory (csrc/scan.cu MAX_SMEM, GROUPS, MAX_COLS); the slabs cover the
+    table and none is empty; about 48 bands of at least 8 rows up to
+    18,000 rows, so no slab reads the totals of more than about 48."""
+    R, Cw = scan.slabs(H, W)
+    nb, nc = -(-H // R), -(-W // Cw)
+    assert R >= 1 and Cw % 4 == 0 and 4 <= Cw <= scan._COLS
+    assert ((R + 1 + scan._GROUPS) * Cw + R) * 4 <= scan._SMEM_MAX
+    assert (nb - 1) * R < H <= nb * R and (nc - 1) * Cw < W <= nc * Cw
+    assert R >= min(H, scan._MIN_ROWS) and (nb <= scan._BANDS or H > 18000)
+    text = (_build.CSRC / "scan.cu").read_text()
+    assert f"constexpr int MAX_SMEM = {scan._SMEM_MAX // 1024} * 1024;" in text
+    assert f"constexpr int GROUPS = {scan._GROUPS};" in text
+    assert f"constexpr int MAX_COLS = {scan._COLS};" in text
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (480, 640), (33, 47), (1, 5)])
+def test_integral_padded_is_the_plain_table_padded(rng, shape):
+    """`integral` and `scan.integral_padded` on the CPU: the plain 2D scan
+    padded with a zero row and column, bit for bit, and so the JAX
+    package's `ops.integral.integral`."""
+    img = rng.uniform(0, 255, shape).astype(np.float32)
+    ref = torch.nn.functional.pad(scan.integral_image_plain(T(img)), (1, 0, 1, 0))
+    for out in (tinteg.integral(T(img)), scan.integral_padded(T(img)), scan.integral_padded_plain(T(img))):
+        assert out.shape == (shape[0] + 1, shape[1] + 1) and out.dtype == torch.float32
+        assert torch.equal(out, ref)
+    np.testing.assert_array_equal(N(ref), np.asarray(jinteg.integral(jnp.asarray(img))))
+
+
+def test_clahe_cdfs_go_through_grid_scan(rng, monkeypatch):
+    """CLAHE's 64 tile CDFs are one grid_scan call of (64, 256)."""
+    calls = []
+    real = scan.grid_scan
+
+    def spy(x):
+        calls.append(tuple(x.shape))
+        return real(x)
+
+    monkeypatch.setattr(scan, "grid_scan", spy)
+    clahe(T(rng.uniform(size=(40, 56)).astype(np.float32)))
+    assert calls == [(64, 256)]
+
+
 def test_other_devices_raise():
     x = torch.zeros(4, 4, device="meta")
     pts = torch.zeros(4, 4, 3, device="meta")
     ok = torch.zeros(4, 4, dtype=torch.bool, device="meta")
-    for fn in (scan.grid_scan, scan.integral_image, lambda a: tmatch.knn2(a, a),
+    for fn in (scan.grid_scan, scan.integral_image, scan.integral_padded, lambda a: tmatch.knn2(a, a),
                lambda a: reduce.icp_getab(a, pts, pts, ok, pts, pts, ok, a[0]),
                pyramid.pyrdown, lambda a: tremap.remap(a, a, a), lambda a: ttf.grid_transform(ttf.mul(), a, a),
                lambda a: ttf.streamed_transform(ttf.gamma(0.5), a), lambda a: reduce.grid_reduce(ttf.sq(), a),
