@@ -33,7 +33,9 @@ Phases, one JSON line each:
       busy share and kernel times from torch.profiler;
   (g) grid_reduce_vec (the ICP getAb system) against its plain version on
       levels 0-2 of a 480x640 orbit frame, at identity and at a
-      1 cm / 0.01 rad offset;
+      1 cm / 0.01 rad offset: one device launch a call, the same bits on
+      calls in turns across levels and poses (a ticket left set would show),
+      timed L2-warm and L2-cold;
   (h) KinectFusion: the bench tick of bench.py::bench_kinfu_vga512 (VGA,
       512^3, 12288 sparse blocks; ms per tick and peak memory), an 8-frame
       VGA orbit through `entry.kinfu_track` with the counters read around it
@@ -53,10 +55,12 @@ Phases, one JSON line each:
       streamed_transform, grid_reduce (sum, min, max), grid_reduce_sums (the
       path's three groups, against the plain version and bit for bit against
       single grid_reduce calls) and grid_histogram (both rules, 8x8 batched
-      tiles) against their plain versions at 1080x1920, at the clip's
-      8640x5760 for the stream, and at ragged shapes and unaligned views
-      (both paths of the row walk), each timed beside the nearest PyTorch
-      call with L2-warm inputs, and the grid_transform / grid_reduce rows
+      tiles; one device launch a call, the same bits on calls in turns, and
+      ragged shapes on both walks, float4 and scalar, with tiles of one and
+      of several blocks, up to 12,288 bins) against their plain versions at
+      1080x1920, at the clip's 8640x5760 for the stream, and at ragged
+      shapes and unaligned views (both paths of the row walk), each timed
+      beside the nearest PyTorch call with L2-warm inputs, and most rows
       also with the L2 flushed before each call (a read of 128 MiB, which
       leaves clean lines);
   (l) the photometric path: `entry.photometric` on `entry.photo_clip()`
@@ -113,9 +117,10 @@ PATH_KERNELS = {"frontend": ("knn2", "integral_image"),
                 "dense_flow": ("pyrdown", "remap"),
                 "photometric": ("grid_transform", "streamed_transform", "grid_reduce", "grid_histogram", "grid_scan")}
 LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
-DEVICE_KERNELS = ("knn2_kernel", "scan_rows_kernel", "integral_kernel", "grid_reduce_vec_kernel", "icp_getab_finalize_kernel", "pyrdown_kernel", "remap_kernel",
-                  "grid_transform_vec4_kernel", "grid_transform_strided_kernel", "streamed_transform_kernel",
-                  "grid_reduce_vec4_kernel", "grid_reduce_strided_kernel", "grid_histogram_kernel")
+DEVICE_KERNELS = ("knn2_kernel", "scan_rows_kernel", "integral_kernel", "grid_reduce_vec_kernel", "pyrdown_kernel",
+                  "remap_kernel", "grid_transform_vec4_kernel", "grid_transform_strided_kernel",
+                  "streamed_transform_kernel", "grid_reduce_vec4_kernel", "grid_reduce_strided_kernel",
+                  "grid_histogram_kernel")
 TRANSFORM_KERNELS = ("grid_transform_vec4_kernel", "grid_transform_strided_kernel")
 REDUCE_KERNELS = ("grid_reduce_vec4_kernel", "grid_reduce_strided_kernel")
 # a read of this many bytes (torch.amax of an int16 buffer) before each
@@ -192,6 +197,17 @@ KINFU_BENCH = dict(frame_shape=(480, 640), volume_resolution=(512, 512, 512), vo
 KINFU_ORBIT = dict(KINFU_BENCH, volume_size=3.2, volume_center=(0.0, 0.0, 2.2))  # tests/test_rgbd.py's scene
 N_ORBIT, ORBIT_SWEEP = 8, 0.5
 ICP_OFFSET = [0.01, 0.0, 0.0, 0.01, 0.0, 0.0]  # 0.01 rad about x, 1 cm along x
+N_GETAB_TURNS = 4  # getAb at each level and pose in turns, each against its first bits
+# grid_histogram: calls in turns (CLAHE's tiles, the frame in both rules),
+# each against its first bits; and ragged cases, each in both rules at every
+# (bins, vmin, vmax) below: up to the wrapper's 12,288 bins, a clamp range
+# of 1 and 2 (powers of two) and of 1.5 (not), each against the plain
+# version on the card and on the CPU
+N_HIST_TURNS = 4
+HIST_RAGGED_SHAPES = [((101, 257), None), ((101, 257), (2, 1)), ((5, 3), None), ((5, 3), (2, 1)),
+                      ((257, 1024), (2, 4)), ((130, 1030), (2, 2)), ((1, 100000), None), ((1, 100003), None),
+                      ((1, 1000003), None), ((64, 256), (8, 8))]
+HIST_RAGGED_BINS = [(10, 0.0, 1.0), (256, 0.0, 2.0), (1000, -0.25, 1.25), (12288, 0.0, 1.0)]
 STAGE_PREFIX = "kinfu."  # KinFu.update's record_function ranges
 
 
@@ -807,7 +823,7 @@ class Smoke(Timer):
         dst = frame.make_frame(depths[0], intr)
         src = frame.make_frame(depths[1], intr)
         offset = se3.exp_se3(self.card(ICP_OFFSET))
-        rows = []
+        rows, calls = [], []
         for lvl in range(3):
             it = frame.level_intrinsics(intr, lvl)
             s, d = src[lvl], dst[lvl]
@@ -822,6 +838,9 @@ class Smoke(Timer):
                 errb = float((b - bp).abs().max() / bp.abs().max())
                 check(dn <= max(3.0, 1e-3 * float(n_p)) and errA <= 1e-4 and errb <= 1e-4,
                       f"grid_reduce_vec level {lvl} {label}: n {float(n)} vs {float(n_p)}, A {errA}, b {errb}")
+                calls.append((f"level {lvl} {label}", args, torch.cat([A.reshape(-1), b, n[None], err[None]])))
+                launches = self.one_launch(lambda: reduce.icp_getab(*args), f"getAb level {lvl} {label}",
+                                           "grid_reduce_vec_kernel")
                 work = getab_work(T, s, d, it, 0.1 * (1 << lvl))
                 # bytes: what the map reads at each of its gates (the source's valid
                 # flag for every pixel, its point where valid, the target's flag where
@@ -833,19 +852,30 @@ class Smoke(Timer):
                 nbytes = (H * W + 12 * work["src_valid"] + work["in_target"] + 12 * work["target_valid"]
                           + 24 * work["near"] + 4 * (16 + 9 + 44))
                 ops = 24 * work["src_valid"] + 8 * work["target_valid"] + 20 * work["near"] + 71 * int(n_p)
-                row = {"level": lvl, "T": label, "shape": [H, W], "n_corr": float(n), "n_corr_plain": float(n_p),
-                       "A_err_over_max": errA, "b_err_over_max": errb,
+                row = {"level": lvl, "T": label, "shape": [H, W], "blocks": reduce.getab_plan(H, W),
+                       "n_corr": float(n), "n_corr_plain": float(n_p), "A_err_over_max": errA, "b_err_over_max": errb,
                        "max_abs_err": max(float((A - Ap).abs().max()), float((b - bp).abs().max())),
-                       **self.times({"": lambda: reduce.icp_getab(*args), "plain_": lambda: reduce.icp_getab_plain(*args)}),
+                       "launches_per_call": launches,
+                       **self.times({"": lambda: reduce.icp_getab(*args), "plain_": lambda: reduce.icp_getab_plain(*args)},
+                                    cold=True),
                        "library_ms": None, "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
                        "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes",
                        "bytes": nbytes, "ops": ops, "work": work}
                 rows.append(row)
                 if lvl == 0 and label == "offset":
                     self.kernels["grid_reduce_vec"] = row
-        emit({"phase": "g_reduce_vec", "tolerance": "n_corr within max(3, 0.1%); A, b within 1e-4 of max|A|, max|b|",
-              "timing": "ms: device time per call (torch.profiler); wall_ms: CUDA events per call",
-              "library_call": None, "runs": rows, "ok": True})
+        # every level and pose in turns, so each call follows one at another
+        # block count: a ticket left set would change the bits
+        for turn in range(N_GETAB_TURNS):
+            for what, args, first in calls:
+                A, b, n, err = reduce.icp_getab(*args)
+                check(torch.equal(torch.cat([A.reshape(-1), b, n[None], err[None]]).view(torch.int32),
+                                  first.view(torch.int32)), f"getAb {what}: turn {turn} changed the bits")
+        emit({"phase": "g_reduce_vec", "tolerance": "n_corr within max(3, 0.1%); A, b within 1e-4 of max|A|, max|b|; "
+                                                     "one device launch a call; equal bits on calls in turns",
+              "timing": "ms: device time per call (torch.profiler); cold_ms: the same with a 128 MiB read before "
+                        "each call (its kernels left out); wall_ms: CUDA events per call",
+              "turns": N_GETAB_TURNS, "library_call": None, "runs": rows, "ok": True})
 
     # ---- (h) -----------------------------------------------------------------
     def kinfu(self):
@@ -1315,52 +1345,93 @@ class Smoke(Timer):
             4 * n + 4 * 6, 12 * n, REDUCE_KERNELS, cold=True, group="aggd",
             singles="six grid_reduce calls, one per map", library="six eager torch.sum of the maps")
 
-        # grid_histogram: CLAHE's 8x8 tiles of a frame (the path's launch), the
-        # frame in both rules, and ragged images with NaN and out-of-range values
+        # grid_histogram: CLAHE's 8x8 tiles of a frame (the path's launch) and
+        # the frame in both rules, each one launch; the three in turns; then
+        # ragged images with NaN and out-of-range values on both walks
         gray = torch.clamp(u[3] * 1.1 - 0.05, -1.0, 2.0)
-        h_rows = []
+        h_rows, h_calls = [], []
         for label, rule, tiles, bins, vmin, vmax in (("clahe_tiles", "clamp", (8, 8), 256, 0.0, 1.0),
                                                       ("frame_clamp", "clamp", None, 256, 0.0, 1.0),
                                                       ("frame_drop", "drop", None, 256, 0.0, 1.0)):
-            out = kh.grid_histogram(gray, bins, vmin, vmax, rule=rule, tiles=tiles)
+            def hist(bins=bins, vmin=vmin, vmax=vmax, rule=rule, tiles=tiles):
+                return kh.grid_histogram(gray, bins, vmin, vmax, rule=rule, tiles=tiles)
+
+            out = hist()
             ref = kh.grid_histogram_plain(gray, bins, vmin, vmax, rule=rule, tiles=tiles)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             check(err == 0.0, f"grid_histogram {label}: counts differ by {err}")
+            check(torch.equal(out.cpu(), kh.grid_histogram_plain(gray.cpu(), bins, vmin, vmax, rule, tiles)),
+                  f"grid_histogram {label}: counts differ from the plain version on the CPU")
+            h_calls.append((label, hist, out))
+            launches = self.one_launch(hist, f"grid_histogram {label}", "grid_histogram_kernel")
             n_out = bins * (1 if tiles is None else tiles[0] * tiles[1])
-            h_rows.append(self.row("grid_histogram", gray.shape, err,
-                                   {"": lambda: kh.grid_histogram(gray, bins, vmin, vmax, rule=rule, tiles=tiles),
-                                    "plain_": lambda: kh.grid_histogram_plain(gray, bins, vmin, vmax, rule, tiles),
-                                    "library_": lambda: torch.histc(gray, bins=bins, min=vmin, max=vmax)},
-                                   4 * gray.numel() + 4 * n_out, 4 * gray.numel(), ("grid_histogram_kernel",),
-                                   label=label, rule=rule, tiles=tiles))
-        for shape in ((101, 257), (5, 3)):
-            a = self.card(self.gen.uniform(-0.5, 1.5, size=shape))
+            fns = {"": hist, "plain_": lambda: kh.grid_histogram_plain(gray, bins, vmin, vmax, rule, tiles)}
+            if tiles is None:  # one PyTorch call histograms a frame; none a batch of tiles
+                fns["library_"] = lambda: torch.histc(gray, bins=bins, min=vmin, max=vmax)
+            ty, tx = tiles or (1, 1)
+            tile_h, tile_w = gray.shape[0] // ty, gray.shape[1] // tx
+            vec4 = kh.vec4_walk(gray, tile_h, tile_w, ty)
+            h_rows.append(self.row("grid_histogram", gray.shape, err, fns, 4 * gray.numel() + 4 * n_out,
+                                   4 * gray.numel(), ("grid_histogram_kernel",), cold=True, label=label, rule=rule,
+                                   tiles=tiles, launches_per_call=launches, walk="vec4" if vec4 else "scalar",
+                                   plan=kh.plan(tile_h, tile_w, ty * tx, vec4)))
+        h_rows[0]["library_ms"] = None
+        for turn in range(N_HIST_TURNS):
+            for label, hist, first in h_calls:
+                check(torch.equal(hist().view(torch.int32), first.view(torch.int32)),
+                      f"grid_histogram {label}: turn {turn} changed the bits")
+        h_ragged = []
+        wide = self.card(self.gen.uniform(-0.5, 1.5, size=(200, 1028)))
+        cases = [(f"{shape} tiles {tiles}", self.card(self.gen.uniform(-0.5, 1.5, size=shape)), tiles)
+                 for shape, tiles in HIST_RAGGED_SHAPES]
+        cases += [("200x1027 from column 1 (unaligned)", wide[:, 1:], (2, 2)),
+                  ("200x1024 from column 1 (tiles of 512, 4 bytes off)", wide[:, 1:1025], (2, 2))]
+        for label, a, tiles in cases:
             a[a > 1.4] = float("nan")
+            a_cpu = a.cpu()
+            ty, tx = tiles or (1, 1)
+            tile_h, tile_w = a.shape[0] // ty, a.shape[1] // tx
+            vec4 = kh.vec4_walk(a, tile_h, tile_w, ty)
             for rule in ("drop", "clamp"):
-                for tiles in (None, (2, 1)):
-                    o = kh.grid_histogram(a, 10, 0.0, 1.0, rule=rule, tiles=tiles)
-                    check(bool((o == kh.grid_histogram_plain(a, 10, 0.0, 1.0, rule, tiles)).all()),
-                          f"grid_histogram ragged {shape} {rule} {tiles}")
+                for bins, vmin, vmax in HIST_RAGGED_BINS:
+                    o = kh.grid_histogram(a, bins, vmin, vmax, rule=rule, tiles=tiles)
+                    check(bool((o == kh.grid_histogram_plain(a, bins, vmin, vmax, rule, tiles)).all()),
+                          f"grid_histogram ragged {label} {rule} {bins} [{vmin}, {vmax})")
+                    # a witness off the card: the plain version on the CPU,
+                    # whose division does not depend on the card's dispatch
+                    check(bool((o.cpu() == kh.grid_histogram_plain(a_cpu, bins, vmin, vmax, rule, tiles)).all()),
+                          f"grid_histogram ragged {label} {rule} {bins} [{vmin}, {vmax}) against the CPU")
+            per_tile, _, spread = kh.plan(tile_h, tile_w, ty * tx, vec4)
+            h_ragged.append({"case": label, "walk": "vec4" if vec4 else "scalar", "blocks_per_tile": per_tile,
+                             "spread": spread})
+        walks = {(r["walk"], r["blocks_per_tile"] > 1) for r in h_ragged}
+        check(walks == {("vec4", True), ("vec4", False), ("scalar", True), ("scalar", False)}
+              and any(r["spread"] > 1 for r in h_ragged) and h_rows[1]["plan"][2] > 1,
+              f"grid_histogram ragged cases cover {walks}, spreads {[r['spread'] for r in h_ragged]}")
+        check(not kh.vec4_walk(wide[:, 1:], 100, 513, 2) and not kh.vec4_walk(wide[:, 1:1025], 100, 512, 2)
+              and kh.vec4_walk(wide[:, :1024], 100, 512, 2) and h_rows[0]["walk"] == "vec4", "grid_histogram walks")
         self.kernels["grid_histogram"] = h_rows[0]
+        h_rows[0]["frame_ms"], h_rows[0]["frame_library_ms"] = h_rows[2]["ms"], h_rows[2]["library_ms"]
         self.l2_flush = None  # the later phases' peak memory leaves the flush buffer out
         emit({"phase": "k_grid_kernels",
               "tolerance": "transforms within 2 float32 ulp of the plain version (0 expected but for powf); sums "
                            "within 1e-5 of sum |map|; min and max exact; a rerun gives the same bits; "
                            "grid_reduce_sums equal to the single grid_reduce calls bit for bit; histogram counts "
-                           "exact",
+                           "exact, one device launch a call, equal bits on calls in turns",
               "timing": "ms: device time per call (torch.profiler, 30 calls, inputs L2-warm where they fit in "
-                        "the 50 MB L2), kernel_ms: the kernels' own in the same window (grid_histogram's ms adds "
-                        "its counts' zeroing and float conversion); cold_ms: the same with a 128 MiB write before "
+                        "the 50 MB L2), kernel_ms: the kernels' own in the same window; cold_ms: the same with a "
+                        "128 MiB read before "
                         "each call (its kernels left out), for the kernel and the library call; bound_over_cold_ms: "
                         "the DRAM bound's share of the cold time; wall_ms: CUDA events per call",
               "library_call": {"grid_transform": "the map's eager PyTorch expression", "streamed_transform":
                                "torch.clamp(x, 0, 1) ** g", "grid_reduce": "torch.sum / amin / amax, F.mse_loss, "
                                "or the map's eager expression summed", "grid_reduce_sums": "six eager torch.sum of "
                                "the maps (no one PyTorch call computes them)",
-                               "grid_histogram": "torch.histc (the frame)"},
+                               "grid_histogram": "torch.histc (the frame; none for CLAHE's tiles)"},
               "grid_transform": t_rows, "streamed_transform": s_rows, "grid_reduce": r_rows,
               "grid_reduce_sums": {"checks": sums_checks, "aggd_six": self.aggd_row}, "grid_histogram": h_rows,
+              "grid_histogram_ragged": h_ragged, "grid_histogram_turns": N_HIST_TURNS,
               "ok": True})
 
     # ---- (l) -----------------------------------------------------------------
@@ -1503,7 +1574,8 @@ class Smoke(Timer):
                          "plain_ms": row["plain_ms"],
                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                          "library_ms": row["library_ms"], "wall_ms": row["wall_ms"],
-                         **{k: row[k] for k in ("cold_ms", "library_cold_ms", "bound_over_cold_ms") if k in row}})
+                         **{k: row[k] for k in ("cold_ms", "library_cold_ms", "bound_over_cold_ms", "frame_ms",
+                                                "frame_library_ms") if k in row}})
         emit({"kernels": line})
 
 

@@ -47,7 +47,7 @@ SIGNATURES = {
     },
     "reduce_vec": {
         # T, intr, src_pts, src_nrm, src_valid, dst_pts, dst_nrm, dst_valid,
-        # n, Hd, Wd, dist2, cos_thresh, blocks, partials, out, stream
+        # n, Hd, Wd, dist2, cos_thresh, blocks, scratch, out, stream
         "icp_getab_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],
     },
     "pyrdown": {
@@ -73,9 +73,10 @@ SIGNATURES = {
         "grid_reduce_sums_f32": [_I, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
     },
     "histogram": {
-        # x, rule, pitch, rows, cols, tiles_y, tiles_x, bins, vmin, vmax, q,
-        # blocks_per_tile, counts, stream
-        "grid_histogram_f32": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P],
+        # x, rule, vec4, pitch, rows, cols, tiles_y, tiles_x, bins, vmin,
+        # vmax, q, inv_q, blocks_per_tile, chunk, spread, tickets, counts,
+        # out, stream
+        "grid_histogram_f32": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P],
     },
 }
 

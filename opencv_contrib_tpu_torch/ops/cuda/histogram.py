@@ -4,9 +4,13 @@ Kernel: `csrc/histogram.cu`. It replaces the Pallas `grid_histogram`
 (opencv_contrib_tpu/ops/pallas/grid.py:205) in the role its docstring names,
 cudev's gridHistogram: on the photometric path it counts CLAHE's 64 tile
 histograms in one launch and the frame histogram of `ops/histogram.py`. It is
-bound by bytes (each value read once); counts are int32 in shared memory,
-then integer atomics, so they are exact and repeatable, and are returned as
-float32.
+bound by bytes (each value read once). One launch a call, with no memset and
+no cast: `plan` gives each tile blocks that take equal runs of its values
+(float4 loads where `vec4_walk` holds, scalar ones otherwise), which count
+into int32 bins in shared memory; a tile's blocks add their counts into
+cached scratch (`_scratch_for`) and the block that draws the tile's last
+ticket writes them as float32 and zeroes the scratch again. Integer sums,
+so the counts are exact and repeatable.
 
 Two bin rules (`RULES`), one kernel template parameter:
 
@@ -24,6 +28,8 @@ the kernel: `grid_histogram_plain` (the same index arithmetic, counted with
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from opencv_contrib_tpu_torch.ops.cuda import _build, use_kernel
@@ -32,9 +38,13 @@ from opencv_contrib_tpu_torch.ops.cuda.transform import f32
 RULES = {"drop": 0, "clamp": 1}  # csrc/histogram.cu DROP, CLAMP
 BELOW_ONE = f32(1.0 - 1e-7)
 _THREADS = 256  # csrc/histogram.cu THREADS
-_ITEMS = 16  # values a thread counts, at least, before another block is added
-_MAX_BLOCKS = 8 * 132  # eight blocks per SM of an H100, over all tiles
-_MAX_BINS = 12288  # int32 bins in 48 KB of shared memory
+_ITEMS = 16  # values a thread counts, at least, before a tile takes another block
+_MAX_BLOCKS = 4 * 132  # four blocks per SM of an H100, over all tiles
+_SMEM = 48 * 1024  # csrc/histogram.cu SMEM: the shared bins
+_MAX_BINS = _SMEM // 4  # int32 bins in _SMEM
+_SPREAD_BLOCKS = 32  # blocks of a tile, at most, that add into one copy of its counts
+_MAX_SPREAD = 16  # csrc/histogram.cu MAX_SPREAD: copies of a tile's counts
+_MAX_TILES = 65535  # the grid's y dimension
 
 
 def _q(rule: str, bins: int, vmin: float, vmax: float) -> float:
@@ -50,9 +60,60 @@ def bin_index(x: torch.Tensor, bins: int, vmin: float, vmax: float, rule: str) -
         ok = (x >= f32(vmin)) & (x < f32(vmax))
         idx = torch.clamp((x - f32(vmin)) * q, 0.0, bins - 1).to(torch.int64)
         return torch.where(ok, idx, -1)
-    v = (x - f32(vmin)) / q
+    # a divisor on x's device: PyTorch's CUDA division by a Python scalar
+    # multiplies by the scalar's reciprocal, which rounds otherwise than the
+    # quotient the rule (and the CPU, and the kernel) takes
+    v = (x - f32(vmin)) / torch.full((), q, dtype=torch.float32, device=x.device)
     v = torch.where(torch.isnan(v), 0.0, torch.clamp(v, 0.0, BELOW_ONE))
     return (v * float(bins)).to(torch.int64)
+
+
+def vec4_walk(x: torch.Tensor, rows: int, cols: int, tiles_y: int) -> bool:
+    """True when every tile of x starts on 16 bytes and its rows do too, so
+    the kernel reads float4s: a 16-byte aligned pointer, tiles a multiple of
+    4 wide, and a row pitch that is a multiple of 4 (or a single row)."""
+    return x.data_ptr() % 16 == 0 and cols % 4 == 0 and (x.stride(0) % 4 == 0 or rows * tiles_y == 1)
+
+
+def plan(rows: int, cols: int, n_tiles: int, vec4: bool) -> tuple[int, int, int]:
+    """(blocks a tile, units a block, copies of a tile's counts) of the
+    kernel for n_tiles tiles of rows x cols (units: float4s on the vec4
+    walk, else floats): at least _ITEMS values a thread before a tile takes
+    another block, at most _MAX_BLOCKS blocks over all tiles (and at least
+    one a tile), no block empty; at most _SPREAD_BLOCKS blocks adding into
+    one copy of the counts, up to _MAX_SPREAD copies. It depends on the
+    shape and the walk alone."""
+    units = rows * (cols // 4 if vec4 else cols)
+    want = -(-rows * cols // (_THREADS * _ITEMS))
+    per_tile = max(1, min(want, _MAX_BLOCKS // n_tiles))
+    chunk = -(-units // per_tile)
+    per_tile = -(-units // chunk)
+    return per_tile, chunk, min(_MAX_SPREAD, -(-per_tile // _SPREAD_BLOCKS))
+
+
+def _inverse(rule: str, q: float) -> float:
+    """1 / q where the clamp rule's quotient by q equals the product by it
+    (q a power of two, its inverse a normal float32), else 0. The kernel
+    multiplies there, which is faster than its correctly rounded division."""
+    m, e = math.frexp(q)
+    return 2.0 ** (1 - e) if rule == "clamp" and m == 0.5 and -125 <= e <= 126 else 0.0
+
+
+_scratch: dict = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, n_tiles: int, bins: int):
+    """The tiles' tickets and int32 counts (`bins` a tile: the bins of all
+    its copies), zero between launches (a tile's last block sets them back),
+    made once per device and stream and grown when a call needs more;
+    launches on one stream run one after another."""
+    tickets, counts = _scratch.get((dev, stream), (None, None))
+    if tickets is None or tickets.numel() < n_tiles:
+        tickets = torch.zeros(max(n_tiles, 64), dtype=torch.int32, device=dev)
+    if counts is None or counts.numel() < n_tiles * bins:
+        counts = torch.zeros(max(n_tiles * bins, 64 * 256), dtype=torch.int32, device=dev)
+    _scratch[(dev, stream)] = (tickets, counts)
+    return tickets, counts
 
 
 def _tiles_of(x: torch.Tensor, tiles) -> torch.Tensor:
@@ -78,20 +139,12 @@ def grid_histogram_plain(x: torch.Tensor, bins: int, vmin: float, vmax: float, r
     return counts.reshape(t.shape[0], bins).to(torch.float32)
 
 
-def grid_histogram(x: torch.Tensor, bins: int, vmin: float, vmax: float, rule: str = "drop",
-                   tiles=None) -> torch.Tensor:
-    """Histogram(s) of x (H, W), float32, as `grid_histogram_plain`. A CUDA
-    tensor launches the grid_histogram kernel (one launch for all tiles); a
-    CPU tensor takes the plain version."""
-    if rule not in RULES:
-        raise ValueError(f"grid_histogram: rule must be one of {sorted(RULES)}, got {rule!r}")
-    if not vmax > vmin or bins < 1:
-        raise ValueError(f"grid_histogram: needs vmax > vmin and bins >= 1, got [{vmin}, {vmax}), {bins}")
-    if not use_kernel(x):
-        return grid_histogram_plain(x, bins, vmin, vmax, rule, tiles)
+def _check_kernel_input(x: torch.Tensor, bins: int, tiles) -> tuple[int, int, int, int]:
+    """(rows, cols, tiles_y, tiles_x) of the kernel's launch on x; raises on
+    what the kernel does not take."""
     if x.ndim != 2 or x.dtype != torch.float32 or x.stride(1) != 1:
         raise ValueError(f"grid_histogram: the kernel takes float32 (H, W) with unit column stride, got "
-                         f"{tuple(x.shape)} {x.dtype} strides {x.stride()}")
+                         f"{tuple(x.shape)} {x.dtype} strides {tuple(x.stride())}")
     if bins > _MAX_BINS:
         raise ValueError(f"grid_histogram: at most {_MAX_BINS} bins in shared memory, got {bins}")
     H, W = x.shape
@@ -99,19 +152,39 @@ def grid_histogram(x: torch.Tensor, bins: int, vmin: float, vmax: float, rule: s
     rows, cols = H // ty, W // tx
     if rows * cols == 0:
         raise ValueError(f"grid_histogram: {H}x{W} has no {ty}x{tx} tiles")
-    if H * W >= 2 ** 31:
-        raise ValueError(f"grid_histogram: {H}x{W} has 2**31 elements or more")
+    if (H - 1) * x.stride(0) + W >= 2 ** 31 - 2 ** 16:
+        raise ValueError(f"grid_histogram: {H}x{W} (row pitch {x.stride(0)}) spans 2**31 elements or more")
+    if ty * tx > _MAX_TILES:
+        raise ValueError(f"grid_histogram: at most {_MAX_TILES} tiles, got {ty}x{tx}")
+    return rows, cols, ty, tx
+
+
+def grid_histogram(x: torch.Tensor, bins: int, vmin: float, vmax: float, rule: str = "drop",
+                   tiles=None) -> torch.Tensor:
+    """Histogram(s) of x (H, W), float32, as `grid_histogram_plain`. A CUDA
+    tensor launches the grid_histogram kernel once, for all tiles; a CPU
+    tensor takes the plain version."""
+    if rule not in RULES:
+        raise ValueError(f"grid_histogram: rule must be one of {sorted(RULES)}, got {rule!r}")
+    if not vmax > vmin or bins < 1:
+        raise ValueError(f"grid_histogram: needs vmax > vmin and bins >= 1, got [{vmin}, {vmax}), {bins}")
+    if not use_kernel(x):
+        return grid_histogram_plain(x, bins, vmin, vmax, rule, tiles)
+    rows, cols, ty, tx = _check_kernel_input(x, bins, tiles)
     n_tiles = ty * tx
-    per_tile = max(1, min(-(-rows * cols // (_THREADS * _ITEMS)), _MAX_BLOCKS // n_tiles))
-    counts = torch.zeros((n_tiles, bins), dtype=torch.int32, device=x.device)
+    vec4 = vec4_walk(x, rows, cols, ty)
+    per_tile, chunk, spread = plan(rows, cols, n_tiles, vec4)
+    out = torch.empty((n_tiles, bins), dtype=torch.float32, device=x.device)
+    stream = _build.stream_of(x)
+    tickets, counts = _scratch_for(x.device, stream, n_tiles, spread * bins)
+    q = _q(rule, bins, vmin, vmax)
     lib = _build.lib("histogram")
     with _build.on_device(x.device):
-        _build.check(lib.grid_histogram_f32(x.data_ptr(), RULES[rule], x.stride(0), rows, cols, ty, tx, bins,
-                                            f32(vmin), f32(vmax),
-                                            _q(rule, bins, vmin, vmax), per_tile, counts.data_ptr(),
-                                            _build.stream_of(x)), "grid_histogram_f32")
+        _build.check(lib.grid_histogram_f32(x.data_ptr(), RULES[rule], int(vec4), x.stride(0), rows, cols, ty, tx,
+                                            bins, f32(vmin), f32(vmax), q, _inverse(rule, q),
+                                            per_tile, chunk, spread, tickets.data_ptr(), counts.data_ptr(),
+                                            out.data_ptr(), stream), "grid_histogram_f32")
     grid_histogram.launches += 1
-    out = counts.to(torch.float32)
     return out[0] if tiles is None else out
 
 

@@ -20,11 +20,14 @@ Kernel `csrc/reduce_vec.cu` replaces the Pallas `grid_reduce_vec`
 docstring names: assembling the point-to-plane ICP normal system of
 `rgbd/icp.py::build_system` (fast_icp.cpp GetAbInvoker). A CUDA kernel
 cannot take a Python `map_op`, so the kernel is a device-side template,
-`grid_reduce_vec_kernel<Map, OUT>`, and `icp_getab` launches its one
+`grid_reduce_vec_kernel<Map>`, and `icp_getab` launches its one
 instantiation, whose map is build_system's per-pixel body. It is bound by
-bytes (at most 50 B per pixel, fewer where a gate rejects the pixel early);
-per-block partial sums are folded by a second
-launch in a fixed order, so the result does not change from run to run.
+bytes (at most 50 B per pixel, fewer where a gate rejects the pixel early).
+One launch a call: `getab_plan` sizes the grid from the frame (sqrt(H W) / 2
+blocks, at most two an SM), and the block partials are
+folded by the block that draws the last ticket, in block order, in the same
+cached scratch as grid_reduce's, so the result does not change from run to
+run.
 
 Plain versions beside it: `grid_reduce_vec_plain` (the Pallas function's
 tile, pad and validity semantics, for any `map_op`) and `icp_getab_plain`
@@ -34,6 +37,7 @@ tile, pad and validity semantics, for any `map_op`) and `icp_getab_plain`
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -42,12 +46,13 @@ import torch.nn.functional as F
 from opencv_contrib_tpu_torch.ops.cuda import _build, use_kernel
 from opencv_contrib_tpu_torch.ops.cuda import transform as tf
 
-_THREADS = 256  # csrc/reduce_vec.cu THREADS
-_MAX_BLOCKS = 4 * 132  # grid_reduce_vec: four blocks per SM of an H100
+_GETAB_THREADS = 256  # csrc/reduce_vec.cu THREADS
+_GETAB_MAX_BLOCKS = 2 * 132  # csrc/reduce_vec.cu MAX_BLOCKS: two blocks per SM of an H100
 _SUM_BLOCKS = 1024  # csrc/reduce.cu MAX_BLOCKS
 _MAX_SUMS = 8  # grid_reduce_sums: outputs a launch
-# csrc/reduce.cu's scratch: the ticket (an unsigned int, 0 between launches),
-# then _MAX_SUMS partials per block from float 4 on
+# the scratch of csrc/reduce.cu and csrc/reduce_vec.cu: the ticket (an
+# unsigned int, 0 between launches), then _MAX_SUMS partials per block of
+# grid_reduce, or _OUT per block of getAb, from float 4 on
 _SCRATCH_FLOATS = 4 + _SUM_BLOCKS * _MAX_SUMS
 _OUT = 29  # the getAb map's outputs
 _RESULT = 44  # A (36), b (6), n_corr, mean_err
@@ -85,9 +90,10 @@ _scratch: dict = {}
 
 
 def _scratch_for(dev: torch.device, stream: int) -> torch.Tensor:
-    """grid_reduce's ticket and partials, made once per device and stream:
-    the kernel sets the ticket back to 0 at its end, and launches on one
-    stream run one after another, so no two reductions share it at once."""
+    """The ticket and partials of grid_reduce and getAb, made once per
+    device and stream: each kernel sets the ticket back to 0 at its end, and
+    launches on one stream run one after another, so no two reductions
+    share it at once."""
     buf = _scratch.get((dev, stream))
     if buf is None:
         buf = _scratch[(dev, stream)] = torch.zeros(_SCRATCH_FLOATS, dtype=torch.float32, device=dev)
@@ -254,9 +260,21 @@ def icp_getab_plain(T, src_points, src_normals, src_valid, dst_points, dst_norma
     return A, b, n_corr, mean_err
 
 
+def getab_plan(H: int, W: int) -> int:
+    """Blocks of the getAb kernel for an (H, W) source frame: sqrt(H W) / 2,
+    rounded up, at most _GETAB_MAX_BLOCKS and at most one a _GETAB_THREADS
+    pixels (no block without a pixel). A thread's pixels cost about
+    H W / blocks and the fold of the partials about blocks, so the time is
+    least near blocks ~ sqrt(H W); the factor 1/2 fits the best of the block
+    counts scripts/getab_histogram_geometry.py timed at the three ICP levels
+    of a VGA frame (264, 150 and 75 blocks). It depends on the shape alone,
+    so a rerun folds the same pixels in the same order and gives the same
+    bits."""
+    n = H * W
+    return max(1, min(-(-math.isqrt(n) // 2), -(-n // _GETAB_THREADS), _GETAB_MAX_BLOCKS))
+
+
 def _check(name: str, x: torch.Tensor, shape, dtype) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"icp_getab: {name} is on {x.device}, the kernel takes CUDA tensors")
     if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
         raise ValueError(f"icp_getab: {name} is {tuple(x.shape)} {x.dtype}, expected {tuple(shape)} {dtype}")
 
@@ -264,38 +282,40 @@ def _check(name: str, x: torch.Tensor, shape, dtype) -> None:
 def icp_getab(T, src_points, src_normals, src_valid, dst_points, dst_normals, dst_valid, intr,
               dist_thresh: float = 0.1, angle_thresh: float = 0.52):
     """The getAb step: (A (6, 6), b (6,), n_corr, mean_err), all on the
-    device of the inputs. A CUDA tensor launches the grid_reduce_vec kernel;
-    a CPU tensor takes `icp_getab_plain`."""
+    device of the inputs. A CUDA tensor launches the grid_reduce_vec kernel
+    once; a CPU tensor takes `icp_getab_plain`."""
     if not use_kernel(src_points):
         return icp_getab_plain(T, src_points, src_normals, src_valid, dst_points, dst_normals, dst_valid,
                                intr, dist_thresh, angle_thresh)
     H, W = src_valid.shape
     Hd, Wd = dst_valid.shape
     f32 = torch.float32
-    for name, x, shape, dtype in (("T", T, (4, 4), f32), ("src_points", src_points, (H, W, 3), f32),
-                                  ("src_normals", src_normals, (H, W, 3), f32),
-                                  ("src_valid", src_valid, (H, W), torch.bool),
-                                  ("dst_points", dst_points, (Hd, Wd, 3), f32),
-                                  ("dst_normals", dst_normals, (Hd, Wd, 3), f32),
-                                  ("dst_valid", dst_valid, (Hd, Wd), torch.bool)):
+    arrays = (("T", T, (4, 4), f32), ("src_points", src_points, (H, W, 3), f32),
+              ("src_normals", src_normals, (H, W, 3), f32), ("src_valid", src_valid, (H, W), torch.bool),
+              ("dst_points", dst_points, (Hd, Wd, 3), f32), ("dst_normals", dst_normals, (Hd, Wd, 3), f32),
+              ("dst_valid", dst_valid, (Hd, Wd), torch.bool))
+    for name, x, shape, dtype in arrays:
         _check(name, x, shape, dtype)
+    for name, x, _, _ in arrays:
+        if x.device != src_points.device or x.device.type != "cuda":
+            raise ValueError(f"icp_getab: {name} is on {x.device}, the kernel takes CUDA tensors on one device")
     if intr.device != src_points.device or intr.dtype != f32 or intr.numel() < 4:
         raise ValueError("icp_getab: intr must be a float32 (9,) on the inputs' device")
     if H * W == 0 or Hd * Wd == 0:
         raise ValueError("icp_getab: empty frame")
+    if H * W >= 2 ** 30 or Hd * Wd >= 2 ** 30:
+        raise ValueError(f"icp_getab: frames of 2**30 pixels or more ({H}x{W}, {Hd}x{Wd})")
     args = [x.contiguous() for x in (T, intr, src_points, src_normals, src_valid, dst_points, dst_normals,
                                      dst_valid)]
-    n = H * W
-    blocks = min(-(-n // _THREADS), _MAX_BLOCKS)
     dev = src_points.device
-    partials = torch.empty(blocks * _OUT, dtype=f32, device=dev)
     out = torch.empty(_RESULT, dtype=f32, device=dev)
+    stream = _build.stream_of(out)
     dist2 = float(np.float32(dist_thresh * dist_thresh))
     lib = _build.lib("reduce_vec")
     with _build.on_device(dev):
-        _build.check(lib.icp_getab_f32(*(a.data_ptr() for a in args), n, Hd, Wd, dist2,
-                                       _cos32(angle_thresh), blocks, partials.data_ptr(), out.data_ptr(),
-                                       _build.stream_of(src_points)), "icp_getab_f32")
+        _build.check(lib.icp_getab_f32(*(a.data_ptr() for a in args), H * W, Hd, Wd, dist2,
+                                       _cos32(angle_thresh), getab_plan(H, W), _scratch_for(dev, stream).data_ptr(),
+                                       out.data_ptr(), stream), "icp_getab_f32")
     icp_getab.launches += 1
     return out[:36].view(6, 6), out[36:42], out[42], out[43]
 

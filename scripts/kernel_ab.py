@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time two checkouts' knn2, integral_image, integral() and grid_scan in one
-run on one CUDA GPU, in turns: base, this, this, base.
+"""Time two checkouts' knn2, integral_image, integral(), grid_scan, the ICP
+getAb kernel and grid_histogram in one run on one CUDA GPU, in turns: base,
+this, this, base.
 
     python3 scripts/kernel_ab.py --base DIR [--out build/kernel_ab.json]
 
@@ -11,9 +12,13 @@ that checkout's kernels into its own build/kernels/) and times each kernel
 at the shapes of this checkout's chip_smoke.py phases b and c, with its
 Timer: device time per call from torch.profiler over 30 calls, L2-warm and
 L2-cold (a 128 MiB read before each call), and device launches per call.
-Inputs are made from one seed, so both checkouts see the same data. It
-prints one JSON line per turn, the card's name and power limit, and writes
-every turn to --out.
+getAb runs at the three ICP levels of phase g's orbit frames (frames 1
+against 0, at phase g's 1 cm / 0.01 rad offset pose); grid_histogram at
+CLAHE's 8x8 tiles x 256 bins of a uniform 1080x1920 frame and of the gray of
+`entry.photo_clip`'s first clean frame (smooth: a tile's values fall into a
+few bins), and on the uniform frame in both rules. Inputs are made from one
+seed, so both checkouts see the same data. It prints one JSON line per turn,
+the card's name and power limit, and writes every turn to --out.
 """
 
 from __future__ import annotations
@@ -34,8 +39,12 @@ def worker(root: Path) -> dict:
     import torch
 
     import opencv_contrib_tpu_torch as port
+    from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.core import se3
     from opencv_contrib_tpu_torch.ops import integral
-    from opencv_contrib_tpu_torch.ops.cuda import _build, matching, scan
+    from opencv_contrib_tpu_torch.ops.cuda import _build, histogram, matching, reduce, scan
+    from opencv_contrib_tpu_torch.rgbd import frame
+    from opencv_contrib_tpu_torch.utils import sdf_scene
 
     assert Path(port.__file__).resolve().is_relative_to(root.resolve()), port.__file__
     spec = importlib.util.spec_from_file_location("chip_smoke_timer", ROOT / "chip_smoke.py")
@@ -62,6 +71,25 @@ def worker(root: Path) -> dict:
     for H, W in smoke.GRID_SCAN_SHAPES:
         x = card(gen.uniform(0, 255, size=(H, W)))
         rows.append(row("grid_scan", (H, W), lambda: scan.grid_scan(x)))
+    poses = sdf_scene.orbit_poses(smoke.N_ORBIT, sweep=smoke.ORBIT_SWEEP)
+    intr = card(smoke.KINFU_INTR)
+    dst, src = (frame.make_frame(sdf_scene.render_depth(card(p), intr, shape=(480, 640)), intr) for p in poses[:2])
+    T = se3.exp_se3(card(smoke.ICP_OFFSET))
+    for lvl in range(3):
+        s, d = src[lvl], dst[lvl]
+        args = (T, s.points, s.normals, s.valid, d.points, d.normals, d.valid, frame.level_intrinsics(intr, lvl),
+                0.1 * (1 << lvl))
+        rows.append(row("icp_getab", s.valid.shape, lambda: reduce.icp_getab(*args)))
+    H, W = smoke.PHOTO_CLIP[1:]
+    uniform = torch.clamp(card(gen.uniform(0, 1, size=(H, W))) * 1.1 - 0.05, -1.0, 2.0)
+    clean = entry.photo_clip(1, H, W, seed=0)[0][0]
+    smooth = card(clean @ np.asarray([0.299, 0.587, 0.114], np.float32))
+    for label, x, rule, tiles in (("clahe_tiles uniform", uniform, "clamp", (8, 8)),
+                                  ("clahe_tiles smooth", smooth, "clamp", (8, 8)),
+                                  ("frame_clamp uniform", uniform, "clamp", None),
+                                  ("frame_drop uniform", uniform, "drop", None)):
+        rows.append({**row("grid_histogram", (H, W), lambda: histogram.grid_histogram(x, 256, 0.0, 1.0, rule, tiles)),
+                     "case": label})
     return {"root": str(root), "device": torch.cuda.get_device_name(0), "rows": rows}
 
 

@@ -830,3 +830,168 @@ def test_group_codes_match_the_header():
         calls = re.findall(r"o\[(\d)\] = (\w+(?:<\w+>)?\{\})\(v\);", body)
         assert [int(k) for k, _ in calls] == list(range(len(names[group])))
         assert [f for _, f in calls] == [functor[m] for m in names[group]]
+
+
+# ---- the launch plans of the getAb and grid_histogram kernels ----------------
+
+@pytest.mark.parametrize("H,W", [(480, 640), (240, 320), (120, 160), (1080, 1920), (481, 643), (37, 5), (1, 7),
+                                 (1, 100000)])
+def test_getab_plan_fits_the_scratch_and_the_card(H, W):
+    """The getAb grid: sqrt(H W) / 2 blocks rounded up, at most two an SM of
+    an H100 (csrc/reduce_vec.cu MAX_BLOCKS), no block without a pixel, and
+    their partials fit the scratch grid_reduce caches; it depends on (H, W)
+    alone."""
+    blocks = reduce.getab_plan(H, W)
+    assert 1 <= blocks <= reduce._GETAB_MAX_BLOCKS
+    assert blocks == min(reduce._GETAB_MAX_BLOCKS, max(1, int(np.ceil(np.floor(np.sqrt(H * W)) / 2))),
+                         -(-(H * W) // reduce._GETAB_THREADS))
+    assert (blocks - 1) * reduce._GETAB_THREADS < H * W
+    assert 4 + blocks * reduce._OUT <= 4 + reduce._GETAB_MAX_BLOCKS * reduce._OUT <= reduce._SCRATCH_FLOATS
+    assert blocks == reduce.getab_plan(H, W)
+    text = (_build.CSRC / "reduce_vec.cu").read_text()
+    assert f"constexpr int MAX_BLOCKS = {reduce._GETAB_MAX_BLOCKS // 132} * 132;" in text
+    assert f"constexpr int THREADS = {reduce._GETAB_THREADS};" in text
+    assert "static constexpr int OUT = 29;" in text and reduce._OUT == 29
+
+
+def test_getab_plan_at_the_icp_levels():
+    assert [reduce.getab_plan(480 >> lvl, 640 >> lvl) for lvl in range(3)] == [264, 139, 69]
+
+
+# (H, W, tiles, the float4 walk): CLAHE's tiles of a 1080p frame, the frame,
+# `ops.histogram.histogram`'s one row of it, ragged shapes (tiles of 257 or
+# 515 columns, a row of 7), CLAHE's crop of 8x16 tiles in a pitch of 130
+# (scalar) and of 128, tiles of several blocks, one-row images
+HIST_PLANS = [(1080, 1920, (8, 8), True), (1080, 1920, None, True), (1, 1080 * 1920, None, True),
+              (101, 257, None, False), (101, 257, (2, 1), False), (5, 3, None, False), (1, 7, None, False),
+              (100, 130, (8, 8), False), (100, 128, (8, 8), True), (130, 1030, (2, 2), False),
+              (257, 1024, (2, 4), True), (1, 100000, None, True), (1, 100003, None, False),
+              (1, 1000003, None, False)]
+
+
+@pytest.mark.parametrize("H,W,tiles,vec4", HIST_PLANS)
+def test_grid_histogram_plan_covers_each_tile(H, W, tiles, vec4):
+    """Which tiles take the float4 walk (a 16-byte aligned image, tiles a
+    multiple of 4 wide, a pitch that is a multiple of 4 or one row), and the
+    blocks a tile: no block empty, every unit of a tile counted, at least
+    _ITEMS values a thread before a tile takes another block, and at most
+    _MAX_BLOCKS blocks over all tiles unless each tile has one; at most 32
+    blocks add into one copy of a tile's counts, up to 16 copies, all within
+    the cached scratch."""
+    ty, tx = tiles or (1, 1)
+    rows, cols = H // ty, W // tx
+    x = torch.zeros(H, W)
+    assert thist.vec4_walk(x, rows, cols, ty) == vec4
+    per_tile, chunk, spread = thist.plan(rows, cols, ty * tx, vec4)
+    units = rows * (cols // 4 if vec4 else cols)
+    assert (per_tile - 1) * chunk < units <= per_tile * chunk
+    assert per_tile == 1 or rows * cols > (per_tile - 1) * thist._THREADS * thist._ITEMS
+    assert per_tile * ty * tx <= max(thist._MAX_BLOCKS, ty * tx)
+    assert 1 <= spread <= thist._MAX_SPREAD and (per_tile <= 32 * spread or spread == thist._MAX_SPREAD)
+    assert spread == 1 or per_tile > 32 * (spread - 1)
+    text = (_build.CSRC / "histogram.cu").read_text()
+    assert f"constexpr int MAX_SPREAD = {thist._MAX_SPREAD};" in text
+
+
+def test_grid_histogram_plan_at_the_path_shapes():
+    """CLAHE's 64 tiles of 135 x 240 take 8 blocks a tile, 512 in all, each
+    tile's counts in one copy; the 1080p frame 507 blocks over 16 copies; a
+    view that starts 4 bytes in takes the scalar walk."""
+    assert thist.plan(135, 240, 64, True) == (8, 1013, 1)
+    assert thist.plan(1080, 1920, 1, True) == (507, 1023, 16)
+    x = torch.zeros(1080, 1924)
+    assert thist.vec4_walk(x[:, :1920], 1080, 1920, 1) and not thist.vec4_walk(x[:, 1:1921], 1080, 1920, 1)
+
+
+def test_grid_histogram_shared_bins_fit_up_to_the_bin_limit():
+    """csrc/histogram.cu keeps one copy of the bins, a block's shared memory
+    of bins int32, within 48 KB, so the wrapper's limit of 12,288 bins fits,
+    and one bin more would not."""
+    text = (_build.CSRC / "histogram.cu").read_text()
+    assert "const size_t smem = (size_t)r.bins * sizeof(int);" in text
+    assert "(size_t)bins * sizeof(int) > SMEM" in text
+    assert f"constexpr int SMEM = {thist._SMEM // 1024} * 1024;" in text
+    assert f"constexpr int THREADS = {thist._THREADS};" in text
+    assert thist._MAX_BINS == 12288 and thist._MAX_BINS * 4 <= thist._SMEM < (thist._MAX_BINS + 1) * 4
+
+
+def test_grid_histogram_scratch_grows_and_keeps_what_it_has(monkeypatch):
+    """The tickets and counts cached per device and stream hold the largest
+    call so far: CLAHE's 64 x 256 from the start, 12,288 bins of one tile
+    after such a call."""
+    monkeypatch.setattr(thist, "_scratch", {})
+    dev = torch.device("cpu")
+    tickets, counts = thist._scratch_for(dev, 0, 64, 256)
+    assert tickets.numel() >= 64 and counts.numel() >= 64 * 256 and not counts.any() and not tickets.any()
+    assert thist._scratch_for(dev, 0, 1, 256)[1] is counts
+    _, big = thist._scratch_for(dev, 0, 1, 12288)
+    assert big.numel() >= 64 * 256 and big.numel() >= 12288
+    assert thist._scratch_for(dev, 0, 64, 256)[1] is big
+    assert thist._scratch_for(dev, 1, 64, 256)[1] is not big
+
+
+def test_grid_histogram_quotient_by_a_power_of_two_is_a_product():
+    """_inverse gives the clamp rule's exact reciprocal where q is a power
+    of two (the kernel multiplies there; the quotient has the same bits),
+    and 0 elsewhere and for the drop rule."""
+    assert [thist._inverse("clamp", q) for q in (1.0, 2.0, 0.25, 1.5, 3.0)] == [1.0, 0.5, 4.0, 0.0, 0.0]
+    assert thist._inverse("drop", 1.0) == 0.0
+    d = np.random.default_rng(0).uniform(-4, 4, 10000).astype(np.float32)
+    for q in (np.float32(1.0), np.float32(0.25), np.float32(2.0 ** -20)):
+        inv = np.float32(thist._inverse("clamp", float(q)))
+        np.testing.assert_array_equal((d / q).view(np.int32), (d * inv).view(np.int32))
+
+
+@pytest.mark.parametrize("bins,vmin,vmax", [(256, -0.25, 1.25), (1000, -0.3, 0.7), (37, 0.1, 1.3)])
+def test_histogram_clamp_rule_matches_jax_at_any_range(rng, bins, vmin, vmax):
+    """`ops.histogram.histogram` (the clamp rule) against the JAX twin at
+    ranges whose quotient is not a product, NaN included; the plain version
+    divides by a tensor on the input's device, so it keeps the quotient on
+    the card too."""
+    from opencv_contrib_tpu.ops import histogram as jhist
+    from opencv_contrib_tpu_torch.ops import histogram as thistogram
+
+    x = rng.uniform(-0.5, 1.5, (150, 210)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.03] = np.nan
+    out = N(thistogram.histogram(T(x), bins, vmin, vmax))
+    np.testing.assert_array_equal(out, np.asarray(jhist.histogram(jnp.asarray(x), bins, vmin, vmax)))
+
+
+def _no_launch(*args, **kwargs):
+    raise AssertionError("the wrapper reached the kernel")
+
+
+def test_grid_histogram_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """The wrapper's checks on the CUDA path (use_kernel forced to True, the
+    library never reached): float32 (H, W) with unit column stride, at most
+    12,288 bins, at least one tile, fewer than 2**31 elements spanned, at
+    most 65,535 tiles."""
+    monkeypatch.setattr(thist, "use_kernel", lambda x: True)
+    monkeypatch.setattr(_build, "lib", _no_launch)
+    x = torch.zeros(8, 12)
+    for bad, match in ((x.double(), "float32"), (x[None], "float32"), (x.t(), "unit column stride")):
+        with pytest.raises(ValueError, match=match):
+            thist.grid_histogram(bad, 16, 0.0, 1.0)
+    with pytest.raises(ValueError, match="at most 12288 bins"):
+        thist.grid_histogram(x, 12289, 0.0, 1.0)
+    with pytest.raises(ValueError, match="has no 9x1 tiles"):
+        thist.grid_histogram(x, 16, 0.0, 1.0, tiles=(9, 1))
+    with pytest.raises(ValueError, match="at most 65535 tiles"):
+        thist.grid_histogram(torch.zeros(256, 512), 16, 0.0, 1.0, tiles=(256, 256))
+    wide = torch.empty_strided((2, 4), (2 ** 31, 1), device="meta")
+    with pytest.raises(ValueError, match="spans 2"):
+        thist.grid_histogram(wide, 16, 0.0, 1.0)
+
+
+def test_icp_getab_refuses_what_the_kernel_does_not_take(monkeypatch, rng):
+    """The wrapper's checks on the CUDA path (use_kernel forced to True, the
+    library never reached): each array's shape and dtype, then its device."""
+    monkeypatch.setattr(reduce, "use_kernel", lambda x: True)
+    monkeypatch.setattr(_build, "lib", _no_launch)
+    (sp, sn, sv, dp, dn, dv), intr = _getab_frames(rng)
+    args = [torch.eye(4), T(sp), T(sn), T(sv), T(dp), T(dn), T(dv), T(intr)]
+    for k, bad in ((0, torch.eye(4)[:3]), (1, T(sp)[..., :2]), (3, T(sv).float()), (5, T(dn).double())):
+        with pytest.raises(ValueError, match="expected"):
+            reduce.icp_getab(*args[:k], bad, *args[k + 1:])
+    with pytest.raises(ValueError, match="the kernel takes CUDA tensors"):
+        reduce.icp_getab(*args)
