@@ -19,9 +19,11 @@ Phases, one JSON line each:
       different spans; timed L2-warm and L2-cold;
   (c) grid_scan at 64x256 (CLAHE's CDFs) and 480x640, integral_image at
       480x640, 2048x2048 and 4000x8000, against their plain versions, and
-      integral_image at ragged shapes; `ops.integral.integral` (the
-      padded table) one device launch a call, its zero row and column, and
-      its interior equal to integral_image bit for bit; a rerun equal;
+      both at ragged shapes (grid_scan: W % 4 != 0, W = 1, W > 1,024, one
+      row, a view 4 bytes off); `ops.integral.integral` (the padded table)
+      one device launch a call, its zero row and column, and its interior
+      equal to integral_image bit for bit; a rerun equal; the launch floor
+      (the device time of `add_(1)` on one element) beside grid_scan's rows;
   (d) the two-frame frontend at VGA with K=512 (ratio_test_match and
       ratio_test_match_fused), with the launch counters set to 0 before it
       and read after it, and the kernel path against the plain path on the
@@ -44,8 +46,10 @@ Phases, one JSON line each:
       torch.profiler, stage by stage through KinFu.update's
       record_function ranges;
   (i) the pyrdown kernel in both borders at 436x1024, 218x512, 109x256 (odd
-      output) and 480x640, and the remap kernel in both contracts (max_disp
-      4 and None) with C = 1 and 3 at 436x1024 and 55x128, each against its
+      output) and 480x640, one device launch a call, a rerun equal, timed
+      beside the launch floor, and at sides of 1 to 3, an odd level and a
+      view 4 bytes off; and the remap kernel in both contracts (max_disp 4
+      and None) with C = 1 and 3 at 436x1024 and 55x128; each against its
       plain version and timed beside the nearest PyTorch call;
   (j) dense flow: `entry.dense_flow` with DIS and TV-L1 on `entry.flow_pair()`
       (MPI-Sintel's 436x1024) with the counters read around it, the interior
@@ -140,6 +144,10 @@ N_MARKERS = 8
 WINDOW_PAD_S = 0.01
 N_WINDOWS = 5
 PYRDOWN_SHAPES = [(436, 1024), (218, 512), (109, 256), (480, 640)]  # the Sintel pyramid's levels 0-2, and VGA
+# sides of 1 to 3 (the taps reach past the image: the reflect border folds
+# again), an odd level (odd in and out), and (436, 1024) as a view 4 bytes
+# off (the staging's element-by-element loads)
+PYRDOWN_RAGGED = [(1, 1), (1, 6), (2, 6), (3, 4), (2, 2), (3, 3), (6, 1), (37, 21)]
 REMAP_SHAPES = [(436, 1024), (55, 128)]  # the Sintel pyramid's finest and coarsest levels
 REMAP_FIELD_PX = 12.0  # smooth random displacements up to +-12 px leave the image at the borders
 FLOW_METHODS = ("dis", "tvl1")
@@ -180,6 +188,10 @@ N_KNN2_TURNS = 12  # split and unsplit calls in turns, each against the first bi
 # tile CDFs of 256 bins (its main path) and a VGA frame
 SCAN_SHAPES = [(480, 640), (2048, 2048), (4000, 8000)]
 GRID_SCAN_SHAPES = [(64, 256), (480, 640)]
+# W % 4 != 0 (a float a lane's loads), W = 1, W > 1,024 (passes of 1,024
+# with a carry, float4 and float loads), one row; and CLAHE's 64x256 as a
+# view 4 bytes off
+GRID_SCAN_RAGGED = [(64, 255), (37, 1), (5, 1025), (100, 2048), (1, 3001), (1, 640)]
 # W % 4 != 0 (the scalar path), one row, fewer rows than a band, short and
 # wide (bands of 8 rows, 8 slabs across), 48 bands of 105 rows (47 earlier
 # bands' totals in three groups), and three slabs across with W % 4 != 0
@@ -392,6 +404,13 @@ class Timer:
                 out[k] = n / iters
         return out
 
+    def launch_floor_ms(self) -> float:
+        """The device time of the smallest launch PyTorch makes, `add_(1)` on
+        a one-element tensor, over 30 calls: a kernel's call within about
+        0.3 us of it is at the floor that no design moves."""
+        one = self.torch.zeros(1, device=self.dev)
+        return self.device_ms(lambda: one.add_(1), iters=30)
+
     def wall_ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         """Mean time of one call, from CUDA events around `iters` calls: the
         host's call rate where it cannot keep the device busy."""
@@ -577,6 +596,7 @@ class Smoke(Timer):
 
         torch = self.torch
         rows = []
+        floor = self.launch_floor_ms()
 
         def held(kname, fn, plain, library, dev_name, H, W):
             x = self.card(self.gen.uniform(0, 255, size=(H, W)))
@@ -593,11 +613,27 @@ class Smoke(Timer):
             rows.append(row)
             return x, row
 
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
         for H, W in GRID_SCAN_SHAPES:
             _, row = held("grid_scan", scan.grid_scan, scan.grid_scan_plain, lambda a: torch.cumsum(a, 1),
                           "scan_rows_kernel", H, W)
+            row.update(plan=scan.scan_plan(H, W, sms), launch_floor_ms=floor)
             if (H, W) == GRID_SCAN_SHAPES[0]:
                 self.kernels["grid_scan"] = row
+        scan_ragged = []
+        views = [(shape, False) for shape in GRID_SCAN_RAGGED] + [(GRID_SCAN_SHAPES[0], True)]
+        gen = np.random.default_rng(1)  # the later phases keep self.gen's draws
+        for (H, W), off in views:
+            x = self.card(gen.uniform(0, 255, size=H * W + off))[int(off):].view(H, W)
+            out, ref = scan.grid_scan(x), scan.grid_scan_plain(x)
+            torch.cuda.synchronize()
+            err, top = float((out - ref).abs().max()), float(ref.abs().max())
+            check(err <= 2e-6 * top and torch.equal(scan.grid_scan(x), out),
+                  f"grid_scan ragged {H}x{W} (4 bytes off: {off}): max err {err}, a rerun equal")
+            n = self.one_launch(lambda: scan.grid_scan(x), f"grid_scan ragged {H}x{W}", "scan_rows_kernel")
+            scan_ragged.append({"shape": [H, W], "four_bytes_off": off, "plan": scan.scan_plan(H, W, sms),
+                                "max_abs_err": err, "max_abs": top, "launches_per_call": n,
+                                "ms": self.device_ms(lambda: scan.grid_scan(x), iters=30)})
         for H, W in SCAN_SHAPES:
             x, row = held("integral_image", scan.integral_image, scan.integral_image_plain,
                           lambda a: torch.cumsum(torch.cumsum(a, 0), 1), "integral_kernel", H, W)
@@ -630,7 +666,8 @@ class Smoke(Timer):
                                                "table's interior equal to integral_image",
               "timing": "ms: device time per call (torch.profiler); cold_ms: the same with a 128 MiB read before "
                         "each call (its kernels left out); wall_ms: CUDA events per call",
-              "library_call": "torch.cumsum (twice for integral_image)", "runs": rows, "ragged": ragged, "ok": True})
+              "library_call": "torch.cumsum (twice for integral_image)", "launch_floor_ms": floor, "runs": rows,
+              "ragged": ragged, "grid_scan_ragged": scan_ragged, "ok": True})
 
     # ---- (d) -----------------------------------------------------------------
     def stages(self, frames, device, threshold):
@@ -1016,23 +1053,35 @@ class Smoke(Timer):
         torch = self.torch
         k = pyramid.pyr_kernel(self.dev)
         w2d = torch.outer(k, k)[None, None]
-        pyr_rows, remap_rows = [], []
+        floor = self.launch_floor_ms()
+        pyr_rows, pyr_ragged, remap_rows = [], [], []
+
+        def pyr_held(x, border, what):
+            """The kernel against its plain version (<= 1e-6), a rerun equal,
+            one device launch a call."""
+            Ho, Wo = (x.shape[0] + 1) // 2, (x.shape[1] + 1) // 2
+            out, ref = pyramid.pyrdown(x, border), pyramid.pyrdown_plain(x, border)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            check(tuple(out.shape) == (Ho, Wo) and err <= 1e-6 and torch.equal(pyramid.pyrdown(x, border), out),
+                  f"pyrdown {border} {what}: max err {err}, a rerun equal")
+            n = self.one_launch(lambda: pyramid.pyrdown(x, border), f"pyrdown {border} {what}", "pyrdown_kernel")
+            return out, ref, err, n
+
         with f32_matmul_precision():  # cuDNN's convolution in full f32 too
             for H, W in PYRDOWN_SHAPES:
                 x = self.card(self.gen.uniform(0, 4, size=(H, W)))
                 Ho, Wo = (H + 1) // 2, (W + 1) // 2
                 for border in pyramid.BORDERS:
-                    out, ref = pyramid.pyrdown(x, border), pyramid.pyrdown_plain(x, border)
+                    out, ref, err, n = pyr_held(x, border, f"{H}x{W}")
                     xp = F.pad(x[None, None], (2, 2, 2, 2), mode="reflect" if border == "reflect101" else "replicate")
                     lib_out = F.conv2d(xp, w2d, stride=2)[0, 0]
-                    torch.cuda.synchronize()
-                    err = float((out - ref).abs().max())
-                    check(tuple(out.shape) == (Ho, Wo) and err <= 1e-6, f"pyrdown {border} {H}x{W}: max err {err}")
                     # bytes: the input read once, the output written once; operations:
                     # 9 for each of the 5 vertical sums and 9 for the horizontal one
                     nbytes, ops = 4 * (H * W + Ho * Wo), 54 * Ho * Wo
-                    row = {"border": border, "shape": [H, W], "out_shape": [Ho, Wo], "max_abs_err": err,
-                           "library_max_abs_diff": float((lib_out - ref).abs().max()),
+                    row = {"border": border, "shape": [H, W], "out_shape": [Ho, Wo],
+                           "max_abs_err": err, "launches_per_call": n,
+                           "launch_floor_ms": floor, "library_max_abs_diff": float((lib_out - ref).abs().max()),
                            **self.times({"": lambda: pyramid.pyrdown(x, border),
                                          "plain_": lambda: pyramid.pyrdown_plain(x, border),
                                          "library_": lambda: F.conv2d(xp, w2d, stride=2)}),
@@ -1041,6 +1090,14 @@ class Smoke(Timer):
                     pyr_rows.append(row)
                     if (H, W) == PYRDOWN_SHAPES[0] and border == "reflect101":
                         self.kernels["pyrdown"] = row
+            views = [(shape, False) for shape in PYRDOWN_RAGGED] + [(PYRDOWN_SHAPES[0], True)]
+            gen = np.random.default_rng(1)  # the later phases keep self.gen's draws
+            for (H, W), off in views:
+                x = self.card(gen.uniform(0, 4, size=H * W + off))[int(off):].view(H, W)
+                for border in pyramid.BORDERS:
+                    _, _, err, n = pyr_held(x, border, f"{H}x{W} (4 bytes off: {off})")
+                    pyr_ragged.append({"border": border, "shape": [H, W], "four_bytes_off": off,
+                                       "max_abs_err": err, "launches_per_call": n})
             for H, W in REMAP_SHAPES:
                 dy, dx = self.smooth_field(H, W, REMAP_FIELD_PX), self.smooth_field(H, W, REMAP_FIELD_PX)
                 y = torch.arange(H, dtype=torch.float32, device=self.dev)[:, None]
@@ -1081,13 +1138,14 @@ class Smoke(Timer):
                             self.kernels["remap"] = row
         emit({"phase": "i_pyrdown_remap",
               "tolerance": "pyrdown: max abs err <= 1e-6 on inputs in [0, 4) (the kernel rounds as the plain "
-                           "version: 0 expected); remap: <= 1e-5 on maps in [0, 4)",
+                           "version: 0 expected), equal bits on a rerun; remap: <= 1e-5 on maps in [0, 4)",
               "timing": "ms: device time per call (torch.profiler); wall_ms: CUDA events per call",
               "library_call": {"pyrdown": "F.conv2d(reflect- or edge-padded input, 5x5 binomial, stride=2), "
                                           "the pad outside the timed call",
                                "remap": "F.grid_sample(bilinear, padding_mode=border, align_corners=True), the "
                                         "grid and the bounded contract's clip outside the timed call"},
-              "pyrdown": pyr_rows, "remap": remap_rows, "ok": True})
+              "launch_floor_ms": floor, "pyrdown": pyr_rows, "pyrdown_ragged": pyr_ragged, "remap": remap_rows,
+              "ok": True})
 
     # ---- (j) -----------------------------------------------------------------
     def dense_flow(self):

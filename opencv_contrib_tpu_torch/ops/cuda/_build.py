@@ -35,8 +35,8 @@ _F = ctypes.c_float
 # argtypes of every C entry point, by library (source stem)
 SIGNATURES = {
     "scan": {
-        # x, y, H, W, stream
-        "scan_rows_f32": [_P, _P, _I, _I, _P],
+        # x, y, H, W, warps a block, run, stream
+        "scan_rows_f32": [_P, _P, _I, _I, _I, _I, _P],
         # x, out, H, W, pitch, pad, slab rows, slab columns, ctrl, base, epoch,
         # column totals, row totals, stream
         "integral_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P],
@@ -146,6 +146,20 @@ def lib(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+_sms: dict = {}
+
+
+def sm_count(dev) -> int:
+    """The SM count of a CUDA device, read once: the launch plans size
+    their grids from it."""
+    n = _sms.get(dev)
+    if n is None:
+        import torch
+
+        n = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def stream_of(tensor) -> int:

@@ -10,7 +10,23 @@
 // row total in scratch memory from one grid step to the next. Blocks on
 // Hopper run in no order, so the carry lives in registers instead.
 //
-// scan_row (both kernels): one warp scans one row. Each lane takes 4
+// grid_scan: scan_rows_kernel, one warp a row, a grid that covers the card
+// (ops/cuda/scan.py::scan_plan: as many SMs as the rows allow; CLAHE's 64
+// rows of 256 bins are 64 blocks of one warp). Each lane holds a run of RUN
+// consecutive elements of the row in registers (RUN = 4, 8, 16 or 32, the
+// shortest that covers the row in one pass of 32 RUN; past 1,024 columns,
+// passes of 1,024 with the row total carried in a register). The warp loads
+// a pass coalesced, float4s where the row is 16-byte aligned and W % 4 == 0,
+// else one float a lane, every load in flight, into a staging row in shared
+// memory; each lane takes its run from there, scans it serially, the warp
+// joins the 32 run totals in one 5-step shuffle scan, each lane adds its
+// exclusive prefix and puts the run back, and the warp stores the pass
+// coalesced. (Runs loaded and stored straight from device memory, 16 bytes
+// at a time at a stride of the run, took 2.93 us at 480x640 against the
+// chunked scan_row's 2.27.) The order of every sum is fixed by W, through
+// RUN: a rerun gives the same bits.
+//
+// scan_row (integral_kernel): one warp scans one row. Each lane takes 4
 // consecutive elements of each chunk of 128 (one 16-byte load when the row
 // allows it) and scans them serially, the warp scans the 32 lane totals with
 // shuffles, and the running row total is carried in a register from chunk to
@@ -18,8 +34,6 @@
 // row is not 16-byte aligned (the padded table's pitch W + 1), the lanes
 // trade values by shuffles so that each store of the warp is one run of 32
 // consecutive floats.
-//
-// grid_scan: scan_rows_kernel, one warp a row.
 //
 // integral_image: integral_kernel, one launch. The table is cut into slabs
 // of R rows by Cw <= 1024 columns (one slab across at VGA), nb bands of nc
@@ -64,6 +78,7 @@ constexpr int GROUPS = 4;              // groups of BATCH earlier bands summed a
 constexpr int MAX_COLS = 1024;         // columns a slab: ops/cuda/scan.py _COLS
 constexpr int MAX_DEVICES = 64;
 constexpr int MAX_SMEM = 200 * 1024;  // ops/cuda/scan.py _SMEM_MAX
+constexpr int SCAN_WARPS = 8;         // grid_scan: at most this many warps (rows) a block, ops/cuda/scan.py _SCAN_WARPS
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -167,11 +182,100 @@ __device__ __forceinline__ float scan_row(const Load& load, float* y, int W, boo
   return carry;
 }
 
-__global__ void __launch_bounds__(256) scan_rows_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int H, int W, bool vec) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// grid_scan's staging rows: float4 p of a warp's row sits in slot p ^ (p / 8
+// % 8), so that neither 8 lanes' consecutive float4s (a coalesced load or
+// store) nor 8 lanes' runs of 1, 2, 4 or 8 float4s, nor 32 lanes' consecutive
+// floats, meet in a bank
+__device__ __forceinline__ int swz(int p) { return p ^ ((p >> 3) & 7); }
+
+// grid_scan: row blockIdx.x * warps + warp of x (H, W) into y, through the
+// warp's staging row of 32 RUN floats. VEC: W % 4 == 0 and both rows 16-byte
+// aligned.
+template <int RUN, bool VEC>
+__global__ void __launch_bounds__(SCAN_WARPS * 32) scan_rows_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int H, int W) {
+  constexpr int SPAN = 32 * RUN, R4 = RUN / 4;
+  extern __shared__ float4 stage4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= H) return;  // whole warp leaves together
-  scan_row(GlobalRow{x + (size_t)row * W, W, vec}, y + (size_t)row * W, W, vec, threadIdx.x & 31);
+  const float* xr = x + (size_t)row * W;
+  float* yr = y + (size_t)row * W;
+  float4* st = stage4 + warp * (SPAN / 4);
+  float* stf = reinterpret_cast<float*>(st);
+  float carry = 0.f;
+  for (int base = 0; base < W; base += SPAN) {
+    // the pass, loaded coalesced (every load in flight) into the staging row
+    if (VEC) {
+      float4 a[R4];
+#pragma unroll
+      for (int k = 0; k < R4; ++k) {
+        const int i = base + 4 * (32 * k + lane);
+        a[k] = i < W ? __ldg(reinterpret_cast<const float4*>(xr + i)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < R4; ++k) st[swz(32 * k + lane)] = a[k];
+    } else {
+      float a[RUN];
+#pragma unroll
+      for (int k = 0; k < RUN; ++k) a[k] = base + 32 * k + lane < W ? __ldg(xr + base + 32 * k + lane) : 0.f;
+#pragma unroll
+      for (int k = 0; k < RUN; ++k) {
+        const int e = 32 * k + lane;
+        stf[4 * swz(e >> 2) + (e & 3)] = a[k];
+      }
+    }
+    __syncwarp();
+    // the lane's run: a serial scan, then one warp scan of the run totals
+    float v[RUN];
+#pragma unroll
+    for (int j = 0; j < R4; ++j) {
+      const float4 b = st[swz(lane * R4 + j)];
+      v[4 * j] = b.x; v[4 * j + 1] = b.y; v[4 * j + 2] = b.z; v[4 * j + 3] = b.w;
+    }
+#pragma unroll
+    for (int k = 1; k < RUN; ++k) v[k] += v[k - 1];
+    float s = v[RUN - 1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {  // inclusive warp scan of the run totals
+      const float n = __shfl_up_sync(FULL, s, o);
+      if (lane >= o) s += n;
+    }
+    float excl = __shfl_up_sync(FULL, s, 1);
+    if (lane == 0) excl = 0.f;
+    excl += carry;
+    carry += __shfl_sync(FULL, s, 31);
+#pragma unroll
+    for (int j = 0; j < R4; ++j)  // back into the lane's own slots
+      st[swz(lane * R4 + j)] = make_float4(v[4 * j] + excl, v[4 * j + 1] + excl, v[4 * j + 2] + excl,
+                                           v[4 * j + 3] + excl);
+    __syncwarp();
+    // the pass stored coalesced
+    if (VEC) {
+#pragma unroll
+      for (int k = 0; k < R4; ++k) {
+        const int i = base + 4 * (32 * k + lane);
+        if (i < W) *reinterpret_cast<float4*>(yr + i) = st[swz(32 * k + lane)];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < RUN; ++k) {
+        const int e = 32 * k + lane;
+        if (base + e < W) yr[base + e] = stf[4 * swz(e >> 2) + (e & 3)];
+      }
+    }
+    __syncwarp();  // before the next pass stages its loads
+  }
+}
+
+template <int RUN>
+void launch_scan_rows(const float* x, float* y, int H, int W, int warps, bool vec, cudaStream_t stream) {
+  const int blocks = (H + warps - 1) / warps;
+  const size_t smem = (size_t)warps * 32 * RUN * sizeof(float);
+  if (vec)
+    scan_rows_kernel<RUN, true><<<blocks, warps * 32, smem, stream>>>(x, y, H, W);
+  else
+    scan_rows_kernel<RUN, false><<<blocks, warps * 32, smem, stream>>>(x, y, H, W);
 }
 
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
@@ -330,11 +434,18 @@ __global__ void __launch_bounds__(INTEGRAL_THREADS) integral_kernel(
 
 }  // namespace
 
-extern "C" int scan_rows_f32(const float* x, float* y, int H, int W, cudaStream_t stream) {
+// x, y (H, W) contiguous; `warps` rows a block (at most SCAN_WARPS), runs
+// of `run` floats a lane (4, 8, 16 or 32): ops/cuda/scan.py::scan_plan
+extern "C" int scan_rows_f32(const float* x, float* y, int H, int W, int warps, int run, cudaStream_t stream) {
+  if (H <= 0 || W <= 0 || warps < 1 || warps > SCAN_WARPS) return (int)cudaErrorInvalidValue;
   const bool vec = (W % 4 == 0) && ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y)) % 16 == 0);
-  const int warps_per_block = 8;
-  const int blocks = (H + warps_per_block - 1) / warps_per_block;
-  scan_rows_kernel<<<blocks, warps_per_block * 32, 0, stream>>>(x, y, H, W, vec);
+  switch (run) {
+    case 4: launch_scan_rows<4>(x, y, H, W, warps, vec, stream); break;
+    case 8: launch_scan_rows<8>(x, y, H, W, warps, vec, stream); break;
+    case 16: launch_scan_rows<16>(x, y, H, W, warps, vec, stream); break;
+    case 32: launch_scan_rows<32>(x, y, H, W, warps, vec, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -56,15 +56,7 @@ def plan(Q: int, T: int, sms: int, tile_t: int | None = None):
     return large, span, -(-T // span)
 
 
-_sms: dict = {}
 _scratch: dict = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    n = _sms.get(dev)
-    if n is None:
-        n = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return n
 
 
 def _scratch_for(dev: torch.device, stream: int, q_tiles: int, n_part: int):
@@ -104,7 +96,7 @@ def knn2(q: torch.Tensor, t: torch.Tensor, tile_q: int = 512, tile_t: int | None
         raise ValueError(f"knn2: unsupported shape Q={Q} T={T} D={D}")
     q, t = q.contiguous(), t.contiguous()
     dev = q.device
-    large, span, n_split = plan(Q, T, _sm_count(dev), tile_t)
+    large, span, n_split = plan(Q, T, _build.sm_count(dev), tile_t)
     q_tiles = -(-Q // (_LARGE if large else _SMALL)[0])
     dist = torch.empty((Q, 2), dtype=torch.float32, device=dev)
     idx = torch.empty(Q, dtype=torch.int32, device=dev)

@@ -11,11 +11,14 @@ pyramids. One kernel with two borders:
 - "replicate": the Pallas kernel's border (which needs even H and W; the
   kernel takes any size).
 
-It is bound by bytes; one thread computes one output at its even position
-(see the source). Plain versions beside it: `pyr_down_plain`, the
-`sep_filter2d` form the CPU runs, and `grid_pyrdown_plain`, the same sum on
-a replicate-padded image. The kernel rounds each product and sum as these do,
-so on the card it gives their bits.
+It is bound by bytes. A block stages a tile's input footprint in shared
+memory once, and each thread makes one output of the tile's 4 x 32 from it
+(see the source). Any H, W >= 1 is taken: the
+reflect border folds at any size, as `jnp.pad(mode="reflect")` does. Plain
+versions beside it: `pyr_down_plain`, the `sep_filter2d` form the CPU runs,
+and `grid_pyrdown_plain`, the same sum on a replicate-padded image. The
+kernel rounds each product and sum as these do, so on the card it gives
+their bits.
 """
 
 from __future__ import annotations
@@ -63,14 +66,14 @@ def pyrdown(x: torch.Tensor, border: str = "reflect101") -> torch.Tensor:
     if x.ndim != 2 or x.dtype != torch.float32:
         raise ValueError(f"pyrdown: the kernel takes a float32 (H, W), got {tuple(x.shape)} {x.dtype}")
     H, W = x.shape
-    if min(H, W) < 3:
-        raise ValueError(f"pyrdown: the 5-tap blur needs H, W >= 3, got {H}x{W}")
+    if min(H, W) < 1:
+        raise ValueError(f"pyrdown: expected a non-empty image, got {H}x{W}")
     x = x.contiguous()
     out = torch.empty(((H + 1) // 2, (W + 1) // 2), dtype=torch.float32, device=x.device)
     lib = _build.lib("pyrdown")
     with _build.on_device(x.device):
-        _build.check(lib.pyrdown_f32(x.data_ptr(), out.data_ptr(), H, W, BORDERS[border],
-                                     _build.stream_of(x)), "pyrdown_f32")
+        _build.check(lib.pyrdown_f32(x.data_ptr(), out.data_ptr(), H, W, BORDERS[border], _build.stream_of(x)),
+                     "pyrdown_f32")
     pyrdown.launches += 1
     return out
 

@@ -8,7 +8,10 @@ Kernel: `csrc/scan.cu`. It replaces the Pallas `integral_image`
 and `grid_scan` (ops/pallas/pipeline.py:35). It is bound by bytes (one add
 per element against 8 bytes moved); the TPU kernels' carried scratch prefix
 becomes a warp-per-row scan with the carry in a register. `grid_scan` is
-that row scan alone; the 2D scan is one launch of slabs of rows and
+a row scan of its own: the warp stages a pass of the row in shared memory,
+a lane scans a run of it in registers and the warp joins the 32 run totals
+in one shuffle scan a pass, in a grid that `scan_plan` sizes to the card;
+the 2D scan is one launch of slabs of rows and
 columns, each adding the column totals of the slabs above it and the row
 totals of those to its left in a fixed order (see the source); it takes any
 width, and it writes the padded table itself, so `integral` is one launch a
@@ -63,6 +66,20 @@ def _check(x: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name}: the CUDA kernel takes float32, got {x.dtype}")
 
 
+_SCAN_WARPS = 8  # csrc/scan.cu SCAN_WARPS: rows a block at most
+_RUNS = (4, 8, 16, 32)  # floats a lane holds: a pass covers 32 of them
+
+
+def scan_plan(H: int, W: int, sms: int) -> tuple[int, int]:
+    """(warps, run) of a grid_scan launch: one warp a row, `warps` rows a
+    block, as many as still give a block to each of `sms` SMs (1 where the
+    rows are fewer than the SMs: a block a row); `run` floats a lane, the
+    fewest whose pass of 32 covers the row, else 32 (passes of 1,024
+    columns). The sums' order depends on W alone, through `run`."""
+    warps = next((w for w in (_SCAN_WARPS, 4, 2) if -(-H // w) >= sms), 1)
+    return warps, next((r for r in _RUNS if 32 * r >= W), _RUNS[-1])
+
+
 def grid_scan(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum along the last axis of (H, W)."""
     if not use_kernel(x):
@@ -71,9 +88,10 @@ def grid_scan(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     H, W = x.shape
     out = torch.empty_like(x)
+    warps, run = scan_plan(H, W, _build.sm_count(x.device))
     lib = _build.lib("scan")
     with _build.on_device(x.device):
-        _build.check(lib.scan_rows_f32(x.data_ptr(), out.data_ptr(), H, W,
+        _build.check(lib.scan_rows_f32(x.data_ptr(), out.data_ptr(), H, W, warps, run,
                                        _build.stream_of(x)), "scan_rows_f32")
     grid_scan.launches += 1
     return out

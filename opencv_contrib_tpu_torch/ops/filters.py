@@ -12,8 +12,32 @@ import torch
 import torch.nn.functional as F
 
 
-def _reflect_pad(img: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
-    return F.pad(img[None, None], (left, right, top, bottom), mode="reflect")[0, 0]
+def reflect_index(n: int, before: int, after: int, device=None) -> torch.Tensor:
+    """The source index of each position -before .. n + after - 1 of a side
+    of n >= 1 padded by BORDER_REFLECT_101 (`jnp.pad(mode="reflect")`) at
+    any pad: the index folded with period 2 (n - 1); a side of 1 repeats
+    its value."""
+    i = torch.arange(-before, n + after, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    p = 2 * (n - 1)
+    i = torch.remainder(i, p)
+    return torch.where(i >= n, p - i, i)
+
+
+def reflect_pad(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
+    """x (H, W), (C, H, W) or (N, C, H, W) padded along its last two axes by
+    BORDER_REFLECT_101 at any pad, as `jnp.pad(mode="reflect")` pads:
+    `F.pad` where every pad is smaller than its side (it refuses the rest),
+    else a gather of the folded indices. Both copy values, so both give the
+    same bits."""
+    H, W = x.shape[-2:]
+    if max(top, bottom) < H and max(left, right) < W:
+        pads = (left, right, top, bottom)
+        return F.pad(x[None, None], pads, mode="reflect")[0, 0] if x.ndim == 2 else F.pad(x, pads, mode="reflect")
+    rows = reflect_index(H, top, bottom, x.device)
+    cols = reflect_index(W, left, right, x.device)
+    return x.index_select(-2, rows).index_select(-1, cols)
 
 
 _PAD_MODES = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}
@@ -32,14 +56,19 @@ def conv2d(img: torch.Tensor, kernel, border: str = "reflect") -> torch.Tensor:
     x = img.to(torch.float32)
     x = x[None, None] if x.ndim == 2 else torch.movedim(x, -1, 0)[None]
     C = x.shape[1]
-    x = F.pad(x, ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2), mode=_PAD_MODES[border])
+    pads = ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2)
+    if border == "reflect":
+        x = reflect_pad(x, pads[2], pads[3], pads[0], pads[1])
+    else:
+        x = F.pad(x, pads, mode=_PAD_MODES[border])
     y = F.conv2d(x, k.expand(C, 1, kh, kw), groups=C)[0]
     return y[0] if img.ndim == 2 else torch.movedim(y, 0, -1)
 
 
 def sep_filter2d(img: torch.Tensor, kr: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
     """Separable filter: row kernel kr (vertical), column kernel kc
-    (horizontal); correlation orientation, reflect border. img (H, W[, C])."""
+    (horizontal); correlation orientation, reflect border at any size (a
+    kernel may reach past a small image's side). img (H, W[, C])."""
     if img.ndim == 3:  # (H, W, C): per channel
         return torch.stack([sep_filter2d(img[..., c], kr, kc) for c in range(img.shape[-1])], dim=-1)
     H, W = img.shape
@@ -48,7 +77,7 @@ def sep_filter2d(img: torch.Tensor, kr: torch.Tensor, kc: torch.Tensor) -> torch
     rc = (nc - 1) // 2
     out = img
     if nr > 1:
-        p = _reflect_pad(out, rr, nr - 1 - rr, 0, 0)
+        p = reflect_pad(out, rr, nr - 1 - rr, 0, 0)
         acc = kr[0] * p[0:H, :]
         for i in range(1, nr):
             acc = acc + kr[i] * p[i:i + H, :]
@@ -56,7 +85,7 @@ def sep_filter2d(img: torch.Tensor, kr: torch.Tensor, kc: torch.Tensor) -> torch
     else:
         out = out * kr[0]
     if nc > 1:
-        p = _reflect_pad(out, 0, 0, rc, nc - 1 - rc)
+        p = reflect_pad(out, 0, 0, rc, nc - 1 - rc)
         acc = kc[0] * p[:, 0:W]
         for i in range(1, nc):
             acc = acc + kc[i] * p[:, i:i + W]

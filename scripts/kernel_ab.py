@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time two checkouts' knn2, integral_image, integral(), grid_scan, the ICP
-getAb kernel and grid_histogram in one run on one CUDA GPU, in turns: base,
-this, this, base.
+getAb kernel, grid_histogram and pyrdown in one run on one CUDA GPU, in
+turns: base, this, this, base.
 
     python3 scripts/kernel_ab.py --base DIR [--out build/kernel_ab.json]
 
@@ -16,9 +16,19 @@ getAb runs at the three ICP levels of phase g's orbit frames (frames 1
 against 0, at phase g's 1 cm / 0.01 rad offset pose); grid_histogram at
 CLAHE's 8x8 tiles x 256 bins of a uniform 1080x1920 frame and of the gray of
 `entry.photo_clip`'s first clean frame (smooth: a tile's values fall into a
-few bins), and on the uniform frame in both rules. Inputs are made from one
-seed, so both checkouts see the same data. It prints one JSON line per turn,
-the card's name and power limit, and writes every turn to --out.
+few bins), and on the uniform frame in both rules; pyrdown in the reflect
+border at the Sintel pyramid's levels 0-2 (436x1024, 218x512, 109x256).
+Each turn also times the launch floor: `add_(1)` on a one-element tensor,
+the smallest launch PyTorch makes; and, on the host's clock, the blurs of
+the photometric path (`filters.gaussian_blur` at sigma 1.5, SSIM's 11
+taps, on a 1080x1920 frame; `filters.conv2d` with a 3x3 kernel and the
+reflect border, GMSD's, on 540x960: ms per call over 20 calls, synchronised
+at the end, the median of 7) and a photometric frame (`entry.photometric`
+on `entry.photo_clip()`'s 8-frame clip: ms per frame of a synchronised
+clip, the median of 5 warm runs), where host code such as the reflect pad
+shows. Inputs are made from one seed, so both checkouts see the same data.
+It prints one JSON line per turn, the card's name and power limit, and
+writes every turn to --out.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -41,8 +52,8 @@ def worker(root: Path) -> dict:
     import opencv_contrib_tpu_torch as port
     from opencv_contrib_tpu_torch import entry
     from opencv_contrib_tpu_torch.core import se3
-    from opencv_contrib_tpu_torch.ops import integral
-    from opencv_contrib_tpu_torch.ops.cuda import _build, histogram, matching, reduce, scan
+    from opencv_contrib_tpu_torch.ops import filters, integral
+    from opencv_contrib_tpu_torch.ops.cuda import _build, histogram, matching, pyramid, reduce, scan
     from opencv_contrib_tpu_torch.rgbd import frame
     from opencv_contrib_tpu_torch.utils import sdf_scene
 
@@ -90,7 +101,42 @@ def worker(root: Path) -> dict:
                                   ("frame_drop uniform", uniform, "drop", None)):
         rows.append({**row("grid_histogram", (H, W), lambda: histogram.grid_histogram(x, 256, 0.0, 1.0, rule, tiles)),
                      "case": label})
-    return {"root": str(root), "device": torch.cuda.get_device_name(0), "rows": rows}
+    for H, W in smoke.PYRDOWN_SHAPES[:3]:
+        x = card(gen.uniform(0, 4, size=(H, W)))
+        rows.append(row("pyrdown", (H, W), lambda: pyramid.pyrdown(x)))
+
+    def wall_ms(fn, calls, repeats):
+        """Host ms per call of `calls` calls synchronised at the end: the
+        median of `repeats`, after one warm call."""
+        fn()
+        ms = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / calls)
+        return float(np.median(ms)), ms
+
+    n_frames, H, W = smoke.PHOTO_CLIP
+    frame = card(gen.uniform(0, 1, size=(H, W)))
+    half = card(gen.uniform(0, 1, size=(H // 2, W // 2)))
+    k3 = card(np.array([[1, 0, -1]] * 3, np.float32) / 3)
+    clean, degraded = entry.photo_clip(n_frames, H, W, seed=0)
+    cln, deg = card(clean), card(degraded)
+    del clean, degraded
+    entry.photometric(deg[:1], cln[:1])  # warm-up: cuDNN, the BRISQUE tables, allocator
+    host = {}
+    for label, fn, calls, repeats in (
+            ("gaussian_blur 1080x1920 sigma 1.5", lambda: filters.gaussian_blur(frame, 1.5), 20, 7),
+            ("conv2d reflect 540x960 3x3", lambda: filters.conv2d(half, k3), 20, 7),
+            ("photometric clip", lambda: entry.photometric(deg, cln), 1, 5)):
+        med, ms = wall_ms(fn, calls, repeats)
+        host[label] = {"ms_median": med, "ms": ms}
+    host["photometric frame ms_median"] = host["photometric clip"]["ms_median"] / n_frames
+    return {"root": str(root), "device": torch.cuda.get_device_name(0), "launch_floor_ms": timer.launch_floor_ms(),
+            "rows": rows, "host_wall": host}
 
 
 def main() -> int:

@@ -97,10 +97,15 @@ def port_flows(textured, pairs):
 
 # ---- pyramid --------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(96, 128), (109, 256), (37, 21)])
+# sides of 1 to 4: the 5-tap blur reaches past a side of 1 or 2, where the
+# reflect border folds again (`jnp.pad(mode="reflect")`)
+SMALL_SIDES = [(1, 6), (2, 6), (3, 4), (4, 4), (1, 1), (2, 1)]
+
+
+@pytest.mark.parametrize("shape", [(96, 128), (109, 256), (37, 21), *SMALL_SIDES])
 def test_pyr_down_matches_jax(rng, shape):
-    """Reflect-101 5-tap blur + decimation, odd sizes included: one pass,
-    atol 1e-6 on values in [0, 4)."""
+    """Reflect-101 5-tap blur + decimation, odd sizes and sides of 1 to 4
+    included: one pass, atol 1e-6 on values in [0, 4)."""
     x = rng.uniform(0, 4, shape).astype(np.float32)
     out = N(tpyr.pyr_down(T(x)))
     ref = np.asarray(jpyr.pyr_down(J(x)))
@@ -108,14 +113,52 @@ def test_pyr_down_matches_jax(rng, shape):
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
 
 
-def test_build_pyramid_matches_jax(rng):
-    """An odd pyramid, 109x256 -> 55x128 -> 28x64 (Sintel's levels 2-4, and one more)."""
-    x = rng.uniform(0, 4, (109, 256)).astype(np.float32)
-    out = tpyr.build_pyramid(T(x), 3)
-    ref = jpyr.build_pyramid(J(x), 3)
-    assert [tuple(o.shape) for o in out] == [r.shape for r in ref] == [(109, 256), (55, 128), (28, 64)]
+@pytest.mark.parametrize("shapes", [[(109, 256), (55, 128), (28, 64)], [(13, 6), (7, 3), (4, 2), (2, 1), (1, 1)]],
+                         ids=["sintel", "to_1x1"])
+def test_build_pyramid_matches_jax(rng, shapes):
+    """An odd pyramid, 109x256 -> 55x128 -> 28x64 (Sintel's levels 2-4, and
+    one more), and one down to a 1x1 level through levels of 1 and 2 rows
+    or columns."""
+    x = rng.uniform(0, 4, shapes[0]).astype(np.float32)
+    out = tpyr.build_pyramid(T(x), len(shapes))
+    ref = jpyr.build_pyramid(J(x), len(shapes))
+    assert [tuple(o.shape) for o in out] == [r.shape for r in ref] == shapes
     for o, r in zip(out, ref):
         np.testing.assert_allclose(N(o), np.asarray(r), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7])
+def test_reflect_index_folds_as_jnp_pad(n):
+    """The port's reflect-101 index at pads up to three times the side, as
+    `jnp.pad(mode="reflect")` pads: [1, 2] by 2 is [1, 2, 1, 2, 1, 2], [1]
+    repeats."""
+    a = np.arange(1, n + 1, dtype=np.float32)
+    for pad in sorted({0, n - 1, n, 2 * n + 1, 3 * n}):
+        idx = N(tfilt.reflect_index(n, pad, pad + 1))
+        np.testing.assert_array_equal(a[idx], np.asarray(jnp.pad(J(a), (pad, pad + 1), mode="reflect")))
+    assert N(tfilt.reflect_pad(T([[1.0, 2.0]]), 0, 0, 2, 2)).tolist() == [[1, 2, 1, 2, 1, 2]]
+    assert N(tfilt.reflect_pad(T([[1.0]]), 2, 2, 0, 0)).ravel().tolist() == [1] * 5
+
+
+@pytest.mark.parametrize("shape", SMALL_SIDES)
+def test_sep_filter2d_and_conv2d_reflect_at_any_side(rng, shape):
+    """A 7-tap separable blur and a 5x3 depthwise correlation in the reflect
+    border on sides of 1 to 4, where the pad reaches past the side: the
+    JAX package's values, atol 1e-6 on values in [0, 4) (blur kernels with
+    positive taps summing to 1, so the outputs stay in [0, 4); F.conv2d sums
+    its taps in its own order)."""
+    x = rng.uniform(0, 4, shape).astype(np.float32)
+    kr, kc = (k / k.sum() for k in rng.uniform(0.1, 1, (2, 7)).astype(np.float32))
+    out = N(tfilt.sep_filter2d(T(x), T(kr), T(kc)))
+    ref = np.asarray(jfilt.sep_filter2d(J(x), J(kr), J(kc)))
+    assert out.shape == ref.shape == shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    k2 = rng.uniform(0.1, 1, (5, 3)).astype(np.float32)
+    k2 /= k2.sum()
+    out = N(tfilt.conv2d(T(x), T(k2), border="reflect"))
+    ref = np.asarray(jfilt.conv2d(J(x), J(k2), border="reflect"))
+    assert out.shape == ref.shape == shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
 
 
 def test_sintel_pyramid_shapes():

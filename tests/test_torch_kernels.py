@@ -113,9 +113,12 @@ def test_integral_image_matches_cumsum(rng, shape):
     np.testing.assert_allclose(out, pal, rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("shape,rtol,atol", [((64, 1000), 1e-4, 1e-3), ((16, 128), 1e-5, 1e-4)])
+@pytest.mark.parametrize("shape,rtol,atol", [((64, 1000), 1e-4, 1e-3), ((16, 128), 1e-5, 1e-4),
+                                             ((7, 1), 1e-5, 1e-4), ((3, 1025), 1e-4, 1e-3), ((5, 301), 1e-4, 1e-3)])
 def test_grid_scan_matches_cumsum(rng, shape, rtol, atol):
-    """Twins of tests/test_pallas_pipeline.py's grid_scan cases."""
+    """Twins of tests/test_pallas_pipeline.py's grid_scan cases, and rows of
+    one column, of one past 1,024 (a second pass of the kernel's runs) and
+    of an odd width."""
     x = rng.normal(size=shape).astype(np.float32)
     out = N(scan.grid_scan(T(x)))
     np.testing.assert_allclose(out, np.asarray(jnp.cumsum(jnp.asarray(x), axis=1)), rtol=rtol, atol=atol)
@@ -273,6 +276,19 @@ def test_pyrdown_borders_on_odd_levels(rng, shape):
     np.testing.assert_array_equal(N(pyramid.pyr_down_plain(T(x))), refl)
     np.testing.assert_array_equal(refl[1:-1, 1:-1], repl[1:-1, 1:-1])
     assert np.abs(refl[0] - repl[0]).max() > 0 and np.abs(refl[-1] - repl[-1]).max() > 0
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 6), (2, 6), (3, 4), (2, 2), (3, 3), (6, 1)])
+def test_pyrdown_both_borders_at_small_sides(rng, shape):
+    """Sides of 1 to 3, where the taps reach past the image: the reflect
+    border folds again (numpy's and jnp.pad's "reflect"), the replicate
+    border repeats the edge; each against the float64 reference, atol 2e-6
+    on values in [0, 4)."""
+    x = rng.uniform(0, 4, shape).astype(np.float32)
+    for border, mode in (("reflect101", "reflect"), ("replicate", "edge")):
+        out = N(pyramid.pyrdown(T(x), border))
+        assert out.shape == ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
+        np.testing.assert_allclose(out, _pyrdown_reference(x, mode), rtol=0, atol=2e-6)
 
 
 def test_pyrdown_rejects_unknown_border():
@@ -830,6 +846,74 @@ def test_group_codes_match_the_header():
         calls = re.findall(r"o\[(\d)\] = (\w+(?:<\w+>)?\{\})\(v\);", body)
         assert [int(k) for k, _ in calls] == list(range(len(names[group])))
         assert [f for _, f in calls] == [functor[m] for m in names[group]]
+
+
+# ---- the launch plans of grid_scan and pyrdown -------------------------------
+
+@pytest.mark.parametrize("H,W", [(64, 256), (480, 640), (1, 1), (37, 5), (5, 1025), (1, 3001), (1080, 1920),
+                                 (131, 7), (132, 8), (100000, 4), (3, 100000)])
+def test_scan_plan_covers_every_row_and_fills_the_card(H, W):
+    """grid_scan's grid: one warp a row, every row in one block and no
+    block without a row; the runs cover the row in passes of 32 runs, the
+    fewest floats a lane that do it in one pass up to 1,024 columns; a block
+    for each of an H100's 132 SMs as far as the rows allow; the staging rows
+    (32 runs a warp) within the default 48 KB of dynamic shared memory (a
+    block may have 227 KB); and the plan depends on (H, W) and the SM count
+    alone. The block's warps and the runs are those csrc/scan.cu takes."""
+    warps, run = scan.scan_plan(H, W, 132)
+    blocks = -(-H // warps)
+    assert 1 <= warps <= scan._SCAN_WARPS and run in scan._RUNS
+    assert (blocks - 1) * warps < H <= blocks * warps
+    assert blocks >= min(H, 132)
+    passes = -(-W // (32 * run))
+    assert (passes - 1) * 32 * run < W <= passes * 32 * run
+    assert passes == 1 or run == 32
+    assert run == 4 or 16 * run < W
+    assert 4 * warps * 32 * run <= 48 * 1024 <= 227 * 1024
+    assert scan.scan_plan(H, W, 132) == (warps, run)
+    assert scan.scan_plan(H, W, 8)[1] == run and scan.scan_plan(H, W, 8)[0] >= warps
+    text = (_build.CSRC / "scan.cu").read_text()
+    assert int(re.search(r"constexpr int SCAN_WARPS\s*=\s*(\d+)", text).group(1)) == scan._SCAN_WARPS
+    assert sorted(int(r) for r in re.findall(r"launch_scan_rows<(\d+)>\(", text)) == sorted(scan._RUNS)
+
+
+def test_scan_plan_at_the_path_shapes():
+    """CLAHE's 64 tile CDFs of 256 bins: 64 blocks of one warp, runs of 8;
+    a VGA frame: 240 blocks of two."""
+    assert scan.scan_plan(64, 256, 132) == (1, 8)
+    assert scan.scan_plan(480, 640, 132) == (2, 32)
+
+
+def _pyrdown_tile() -> tuple[int, int]:
+    """csrc/pyrdown.cu's tile (TY, TX): the outputs a block makes."""
+    m = re.search(r"constexpr int TY\s*=\s*(\d+),\s*TX\s*=\s*(\d+)", (_build.CSRC / "pyrdown.cu").read_text())
+    return int(m.group(1)), int(m.group(2))
+
+
+@pytest.mark.parametrize("Ho,Wo", [(218, 512), (109, 256), (55, 128), (28, 64), (240, 320), (540, 960), (1, 1),
+                                   (1, 3), (3, 1), (1080, 1920), (2000, 4000), (33, 1000)])
+def test_pyrdown_tile_covers_every_output(Ho, Wo):
+    """pyrdown's one tile: its blocks cover every output once, a thread an
+    output in whole warps (at most 256); the staged footprint, 2 TY + 3 rows
+    of 2 TX + 8 columns from column 2 ox0 - 4 (a float4 boundary), holds
+    every tap of the tile's outputs (rows 2 r .. 2 r + 4, columns 2 j + 2 ..
+    2 j + 6 of it) and fits the 48 KB of static shared memory a block may
+    have."""
+    TY, TX = _pyrdown_tile()
+    gy, gx = -(-Ho // TY), -(-Wo // TX)
+    assert (gy - 1) * TY < Ho <= gy * TY and (gx - 1) * TX < Wo <= gx * TX
+    assert TY * TX % 32 == 0 and TY * TX <= 256
+    SR, SC = 2 * TY + 3, 2 * TX + 8
+    assert SC % 4 == 0 and 2 * (TY - 1) + 4 < SR and 2 * (TX - 1) + 6 < SC
+    assert 4 * SR * SC <= 48 * 1024 <= 227 * 1024
+
+
+def test_pyrdown_tile_at_the_flow_levels():
+    """The Sintel pyramid's levels 0-2 (outputs 218x512, 109x256, 55x128)
+    in tiles of 4x32: 880, 224 and 56 blocks."""
+    TY, TX = _pyrdown_tile()
+    assert (TY, TX) == (4, 32)
+    assert [-(-Ho // TY) * -(-Wo // TX) for Ho, Wo in ((218, 512), (109, 256), (55, 128))] == [880, 224, 56]
 
 
 # ---- the launch plans of the getAb and grid_histogram kernels ----------------
