@@ -72,7 +72,15 @@ Phases, one JSON line each:
       the counts its loops give, the restoration gate (the balanced clip
       nearer the clean one than the degraded clip is), the plain path on
       the card, a 2 x 100 x 130 clip on the card against the CPU, ms per
-      frame, peak memory and one profiled frame.
+      frame, peak memory and one profiled frame;
+  (m) incremental SfM: `sfm.pipeline.reconstruct_incremental` with
+      intrinsics refinement on `entry.sfm_scene()` (100 views x 900 tracks,
+      noise 0.5 px, lens distortion) with the counters read around it (no
+      kernel of ours lies on this path: every count stays 0), held to the
+      backyard gate form (>= 90 views, >= 0.9 of the tracks, mean
+      reprojection <= 1.4 px); a 16 x 256 scene on the card against the CPU
+      with the same RANSAC draws; s a reconstruction, host ms a span,
+      host syncs, peak memory and one profiled run.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -119,7 +127,8 @@ SOURCES = {  # kernel -> (CUDA source, the Pallas function it replaces)
 PATH_KERNELS = {"frontend": ("knn2", "integral_image"),
                 "keyframe_tick": ("knn2", "integral_image"), "kinfu_tick": ("grid_reduce_vec",),
                 "dense_flow": ("pyrdown", "remap"),
-                "photometric": ("grid_transform", "streamed_transform", "grid_reduce", "grid_histogram", "grid_scan")}
+                "photometric": ("grid_transform", "streamed_transform", "grid_reduce", "grid_histogram", "grid_scan"),
+                "sfm": ()}
 LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
 DEVICE_KERNELS = ("knn2_kernel", "scan_rows_kernel", "integral_kernel", "grid_reduce_vec_kernel", "pyrdown_kernel",
                   "remap_kernel", "grid_transform_vec4_kernel", "grid_transform_strided_kernel",
@@ -221,6 +230,26 @@ HIST_RAGGED_SHAPES = [((101, 257), None), ((101, 257), (2, 1)), ((5, 3), None), 
                       ((1, 1000003), None), ((64, 256), (8, 8))]
 HIST_RAGGED_BINS = [(10, 0.0, 1.0), (256, 0.0, 2.0), (1000, -0.25, 1.25), (12288, 0.0, 1.0)]
 STAGE_PREFIX = "kinfu."  # KinFu.update's record_function ranges
+SFM_PREFIX = "sfm."  # the SfM driver's spans (utils/tracing.trace_span)
+SFM_SPANS = {"init_two_view", "intersect", "bundle", "resect", "final_bundle"}
+# phase m: entry.sfm_scene()'s 100 views x 900 tracks (89,999 markers, under
+# the sparse-BA threshold), with intrinsics refinement, held to the gate form
+# of the reference's backyard pipeline test (tests/test_sfm_reference_data.py:
+# at least 90 of 100 views, a mean reprojection of at most 1.4 px) and at
+# least 0.9 of the tracks reconstructed
+SFM_MIN_VIEWS, SFM_MIN_POINT_SHARE, SFM_MEAN_PX_GATE = 90, 0.9, 1.4
+SFM_SMALL = (16, 256)  # views x tracks of the card-against-CPU scene
+N_SFM_TIMED = 2
+# card against CPU on SFM_SMALL with the same draws: the registered views
+# equal, the reconstructed tracks within max(2, 1%), rms and mean px within
+# 1e-3 px, the points within 1e-3 (a scene about 2 units across) RMS after a
+# similarity alignment, the focal length within rtol 1e-3, k1 and k2 within
+# 2e-3 and the principal point within 1 px (it lies in a valley of the cost
+# that a half ring of cameras at one height leaves flat; tests/
+# test_torch_sfm.py::test_reconstruct_incremental_replayed holds the port to
+# the JAX package by the same rule)
+SFM_CPU_TOL = {"points": 0.01, "rms_px": 1e-3, "aligned_points": 1e-3, "focal_rtol": 1e-3, "pp_px": 1.0,
+               "k12": 2e-3}
 
 
 def emit(obj) -> None:
@@ -269,6 +298,17 @@ def getab_work(T, src, dst, intr, dist_thresh: float) -> dict:
 def exact_frames(frames: np.ndarray, levels: int) -> np.ndarray:
     """Frames on 0..255 requantized to integers 0..levels."""
     return np.round(frames / 255.0 * levels).astype(np.float32)
+
+
+def similarity_rms(A: np.ndarray, B: np.ndarray) -> float:
+    """Residual RMS of the best similarity transform A -> B (Umeyama)."""
+    muA, muB = A.mean(0), B.mean(0)
+    Ac, Bc = A - muA, B - muB
+    U, S, Vt = np.linalg.svd(Ac.T @ Bc / len(A))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / ((Ac ** 2).sum() / len(A))
+    return float(np.sqrt((((A - muA) * s @ R + muB - B) ** 2).sum(axis=1).mean()))
 
 
 @contextlib.contextmanager
@@ -1621,6 +1661,177 @@ class Smoke(Timer):
                 "top_device": [{"name": e.key[:80], "count": e.count, "us": e.self_device_time_total} for e in top],
                 "our_kernels": {k: {**v, "us_per_launch": v["us"] / v["count"]} for k, v in ours.items()}}
 
+    # ---- (m) -----------------------------------------------------------------
+    def sfm(self):
+        from opencv_contrib_tpu_torch.sfm import pipeline
+        from opencv_contrib_tpu_torch.utils import tracing
+
+        torch, entry = self.torch, self.entry
+        tracks, intr = entry.sfm_scene()
+        n_obs = int(tracks.mask.sum())
+        check(n_obs < pipeline.SPARSE_BA_OBS_THRESHOLD, f"{n_obs} markers: above the dense driver's threshold")
+
+        def run():
+            return pipeline.reconstruct_incremental(tracks, intr, refine_intrinsics=True)
+
+        rec, s_first = self.counted("sfm", run)  # also the warm-up (cuSOLVER handles, the allocator)
+        check(all(v == 0 for v in self.launches["sfm"].values()), f"sfm launched a kernel: {self.launches['sfm']}")
+        n_reg, n_pts = int(rec.registered.sum()), int(rec.has_point.sum())
+        mean_px, rms_px = rec.reprojection_mean(tracks), rec.reprojection_rms(tracks)
+        check(n_reg >= SFM_MIN_VIEWS and n_pts >= SFM_MIN_POINT_SHARE * tracks.n_tracks
+              and mean_px <= SFM_MEAN_PX_GATE, f"sfm gates: {n_reg} views, {n_pts} points, mean {mean_px} px")
+        check(bool(np.isfinite(rec.points[rec.has_point]).all()) and bool(np.isfinite(rec.intr).all()),
+              "sfm output not finite")
+
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tracing.reset_spans()
+        wall = [self.wall_s(run)[1] for _ in range(N_SFM_TIMED)]
+        spans = {k[len(SFM_PREFIX):]: {**v, "mean_ms_per_run": 1e3 * v["total_s"] / N_SFM_TIMED}
+                 for k, v in tracing.span_stats().items()}
+        peak = torch.cuda.max_memory_allocated()
+        check(set(spans) == SFM_SPANS, f"sfm spans {sorted(spans)}")
+
+        parts = {"first_run": s_first, "timed_runs": float(sum(wall))}
+        t0 = time.perf_counter()
+        syncs = self.count_syncs(run)
+        parts["sync_count_run"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        profiled = self.profile_sfm(run)
+        parts["profiled_run_and_parse"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small = self.sfm_card_vs_cpu()
+        parts["small_card_and_cpu"] = time.perf_counter() - t0
+        emit({"phase": "m_sfm", "scene": "entry.sfm_scene(): generate_scene(100, 900, seed=4, noise_px=0.5, "
+                                         "distortion=True)", "views": tracks.n_views, "tracks": tracks.n_tracks,
+              "markers": n_obs, "sparse_threshold": pipeline.SPARSE_BA_OBS_THRESHOLD,
+              "launches": self.launches["sfm"], "registered": n_reg, "points": n_pts,
+              "reprojection_mean_px": mean_px, "reprojection_rms_px": rms_px,
+              "intr_refined": rec.intr.tolist(), "intr_true": np.asarray(intr).tolist(),
+              "log_head": [list(r) for r in rec.log[:3]], "rounds": sum(r[0] == "round" for r in rec.log),
+              "s_first_run": s_first, "s_per_reconstruction_median": float(np.median(wall)), "s_warm": wall,
+              "host_span_ms": spans, "host_syncs_per_run": syncs,
+              "peak_mem_allocated_gb": peak / 2 ** 30, "peak_mem_of_a_run_gb": (peak - held) / 2 ** 30,
+              "profile_one_run": profiled, "small_card_vs_cpu": small, "phase_parts_s": parts,
+              "tolerance": f"gates: registered >= {SFM_MIN_VIEWS}, points >= {SFM_MIN_POINT_SHARE} x tracks, mean "
+                           f"reprojection <= {SFM_MEAN_PX_GATE} px; small scene card vs CPU with the same draws: "
+                           "registered equal, points within max(2, 1%) of the tracks, rms and mean px within "
+                           f"{SFM_CPU_TOL['rms_px']}, aligned points within {SFM_CPU_TOL['aligned_points']} RMS, "
+                           f"focal rtol {SFM_CPU_TOL['focal_rtol']}, principal point {SFM_CPU_TOL['pp_px']} px, "
+                           f"k1 and k2 {SFM_CPU_TOL['k12']}",
+              "timing": f"s_per_reconstruction: host clock around one synchronised reconstruction, the median of "
+                        f"{N_SFM_TIMED} warm runs after the counted first run; host_span_ms over those runs",
+              "ok": True})
+
+    def count_syncs(self, fn) -> dict:
+        """Host syncs of one call of fn: the warnings of
+        torch.cuda.set_sync_debug_mode("warn"), in total and by the line of
+        the port that made them."""
+        import warnings
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in got if "synchroniz" in str(w.message)]
+        sites = {}
+        for w in syncs:
+            site = f"{w.filename.rsplit('opencv_contrib_tpu_torch/', 1)[-1]}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+        top = sorted(sites.items(), key=lambda kv: -kv[1])[:12]
+        return {"total": len(syncs), "top_sites": dict(top)}
+
+    def profile_sfm(self, run) -> dict:
+        """One reconstruction under torch.profiler, read from the raw kineto
+        events: building the profiler's event tree for a run's ~0.5 M events
+        took 98 s. Device busy time and launches, the top device operations,
+        and per span the host ms and the device ms and launches of the
+        kernels whose launching op started inside it (op and kernel joined
+        by correlation id, as the profiler's own tree joins them)."""
+        import bisect
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = self.wall_s(run)
+        spans, op_start, kernels = [], {}, []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() == DeviceType.CUDA:
+                if not name.startswith(SFM_PREFIX):  # a span's device-side copy
+                    kernels.append((e.linked_correlation_id(), name, e.duration_ns()))
+            elif name.startswith(SFM_PREFIX):
+                spans.append((e.start_ns(), e.end_ns(), name[len(SFM_PREFIX):]))
+            elif e.linked_correlation_id() == 0 and not e.is_async():  # an op, not a runtime call
+                op_start[e.correlation_id()] = e.start_ns()
+        spans.sort()
+        starts = [sp[0] for sp in spans]
+        outside = "(outside the spans)"
+        rows = {n: {"host_ms": 0.0, "device_ms": 0.0, "launches": 0} for n in sorted(SFM_SPANS) + [outside]}
+        for t0, t1, n in spans:
+            rows[n]["host_ms"] += (t1 - t0) / 1e6
+        by_name = {}
+        for corr, name, dur in kernels:
+            t = op_start.get(corr)
+            k = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            row = rows[spans[k][2] if k >= 0 and t <= spans[k][1] else outside]
+            row["device_ms"] += dur / 1e6
+            row["launches"] += 1
+            agg = by_name.setdefault(name, [0, 0])
+            agg[0] += 1
+            agg[1] += dur
+        check({n for _, _, n in spans} == SFM_SPANS, f"sfm spans in the trace: {sorted({n for _, _, n in spans})}")
+        busy_s = sum(d for _, _, d in kernels) / 1e9
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        return {"wall_s_under_profiler": wall, "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
+                "device_launches": len(kernels), "spans": rows,
+                "top_device": [{"name": k[:80], "count": c, "us": d / 1e3} for k, (c, d) in top]}
+
+    def sfm_card_vs_cpu(self) -> dict:
+        """A small scene on the card and on the CPU, both drawing their RANSAC
+        samples from a CPU generator of one seed (the same draws wherever the
+        two runs hold the same state), compared by the rules of
+        SFM_CPU_TOL."""
+        from opencv_contrib_tpu_torch.mvg import robust
+        from opencv_contrib_tpu_torch.sfm import pipeline
+
+        tracks, intr = self.entry.sfm_scene(*SFM_SMALL)
+        draw = robust.sample_indices
+        recs = {}
+        for dev in ("cuda", "cpu"):
+            gen = self.torch.Generator().manual_seed(0)
+
+            def same_draws(generator, n_points, mask, n_hypotheses, sample_size, gen=gen):
+                return draw(gen, n_points, mask.cpu(), n_hypotheses, sample_size).to(mask.device)
+
+            with mock.patch.object(robust, "sample_indices", same_draws):
+                recs[dev] = pipeline.reconstruct_incremental(tracks, intr, refine_intrinsics=True, device=dev)
+        card, cpu = recs["cuda"], recs["cpu"]
+        both = card.has_point & cpu.has_point
+        out = {"views_tracks": list(SFM_SMALL), "registered": [int(card.registered.sum()), int(cpu.registered.sum())],
+               "points": [int(card.has_point.sum()), int(cpu.has_point.sum())],
+               "rms_px": [card.reprojection_rms(tracks), cpu.reprojection_rms(tracks, device="cpu")],
+               "mean_px": [card.reprojection_mean(tracks), cpu.reprojection_mean(tracks, device="cpu")],
+               "aligned_points_rms": similarity_rms(card.points[both], cpu.points[both]),
+               "intr": [card.intr.tolist(), cpu.intr.tolist()], "same_log": card.log == cpu.log}
+        tol = SFM_CPU_TOL
+        check(bool((card.registered == cpu.registered).all())
+              and abs(out["points"][0] - out["points"][1]) <= max(2, tol["points"] * tracks.n_tracks)
+              and abs(out["rms_px"][0] - out["rms_px"][1]) <= tol["rms_px"]
+              and abs(out["mean_px"][0] - out["mean_px"][1]) <= tol["rms_px"]
+              and out["aligned_points_rms"] <= tol["aligned_points"]
+              and np.allclose(card.intr[:2], cpu.intr[:2], rtol=tol["focal_rtol"], atol=0)
+              and np.abs(card.intr[2:4] - cpu.intr[2:4]).max() <= tol["pp_px"]
+              and np.abs(card.intr[4:6] - cpu.intr[4:6]).max() <= tol["k12"], f"sfm small scene, card vs CPU: {out}")
+        return out
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -1646,7 +1857,7 @@ def main() -> int:
     smoke = Smoke()
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
                   smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
-                  smoke.grid_kernels, smoke.photometric):
+                  smoke.grid_kernels, smoke.photometric, smoke.sfm):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

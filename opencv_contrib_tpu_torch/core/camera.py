@@ -1,6 +1,6 @@
 """Pinhole camera with polynomial distortion — the port of the parts of
-opencv_contrib_tpu/core/camera.py the keyframe tick uses. Intrinsics are a
-flat (..., 9) vector [fx, fy, cx, cy, k1, k2, k3, p1, p2]."""
+opencv_contrib_tpu/core/camera.py the keyframe tick and the SfM driver use.
+Intrinsics are a flat (..., 9) vector [fx, fy, cx, cy, k1, k2, k3, p1, p2]."""
 
 from __future__ import annotations
 
@@ -17,6 +17,27 @@ def make_intrinsics(fx, fy=None, cx=0.0, cy=0.0, k1=0.0, k2=0.0, k3=0.0, p1=0.0,
     if fy is None:
         fy = fx
     return torch.tensor([fx, fy, cx, cy, k1, k2, k3, p1, p2], dtype=dtype, device=device)
+
+
+def intrinsics_to_K(intr: torch.Tensor) -> torch.Tensor:
+    """(..., 9) -> (..., 3, 3) calibration matrix."""
+    fx, fy, cx, cy = intr[..., FX], intr[..., FY], intr[..., CX], intr[..., CY]
+    zeros = torch.zeros_like(fx)
+    ones = torch.ones_like(fx)
+    return torch.stack(
+        [
+            torch.stack([fx, zeros, cx], dim=-1),
+            torch.stack([zeros, fy, cy], dim=-1),
+            torch.stack([zeros, zeros, ones], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def K_to_intrinsics(K: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) calibration matrix -> (..., 9), no distortion."""
+    zeros = torch.zeros(K.shape[:-2] + (5,), dtype=K.dtype, device=K.device)
+    return torch.cat([K[..., 0, 0, None], K[..., 1, 1, None], K[..., 0, 2, None], K[..., 1, 2, None], zeros], dim=-1)
 
 
 def distort(intr: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,8 @@
   an RGB clip (gamma, grayworld white balance, gray, CLAHE, then PSNR,
   SSIM, GMSD, BRISQUE features and the no-reference score against the
   clean clip); `photo_clip()` makes a full-HD clip and its degraded copy.
+- `sfm.pipeline.reconstruct_incremental(tracks, intr)`: the incremental SfM
+  driver; `sfm_scene()` makes its 100-view x 900-track synthetic scene.
 
 They run on the card unless the caller passes `device="cpu"`; with no card
 they raise. Matrix products run in full f32 inside them.
@@ -42,6 +44,7 @@ from opencv_contrib_tpu_torch.ops.histogram import clahe
 from opencv_contrib_tpu_torch.ops.image import warp_affine
 from opencv_contrib_tpu_torch.rgbd import kinfu
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
+from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
 from opencv_contrib_tpu_torch.utils.device import resolve
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
 from opencv_contrib_tpu_torch.utils.synthetic import generate_scene
@@ -269,3 +272,14 @@ def photometric(degraded, clean, device="cuda") -> Photometric:
         feats.append(quality.brisque_features(out))
     return Photometric(torch.stack(bal), torch.stack(eq), ps, torch.stack(ss), torch.stack(gm), torch.stack(nr),
                        torch.stack(feats))
+
+
+def sfm_scene(n_views: int = 100, n_points: int = 900, seed: int = 4, noise_px: float = 0.5,
+              distortion: bool = True) -> tuple[TracksTensor, np.ndarray]:
+    """A synthetic scene for `sfm.pipeline.reconstruct_incremental`: points
+    seen by cameras on a half ring (`utils.synthetic.generate_scene`), with
+    N(0, noise_px) pixel noise and lens distortion; by default 100 views of
+    900 points, the view count of the reference's backyard pipeline gate.
+    Returns (tracks, intr) as numpy: every visible point is a marker."""
+    scene = generate_scene(n_views=n_views, n_points=n_points, seed=seed, noise_px=noise_px, distortion=distortion)
+    return TracksTensor(obs=scene.points2d, mask=scene.visible), scene.intr

@@ -1,10 +1,15 @@
 """Carry state between the JAX package and this one as numpy arrays.
 
 The port has no learned weights: its state is the NamedTuples (Keypoints,
-Matches, BAProblem, BAResult, and KinFu's TSDFVolume and DepthFrame), with
-the same class names, field names and field order in both packages. `from_numpy` turns such a
-tuple, its fields read as numpy arrays (anything `np.asarray` takes), into
-this package's tuple of tensors; `to_numpy` goes the other way.
+Matches, BAProblem, BAResult, KinFu's TSDFVolume and DepthFrame, and the
+RANSAC's RansacResult), with the same class names, field names and field
+order in both packages. `from_numpy` turns such a tuple, its fields read as
+numpy arrays (anything `np.asarray` takes), into this package's tuple of
+tensors; `to_numpy` goes the other way.
+
+The SfM state, `sfm.tracks.TracksTensor` and `sfm.pipeline.Reconstruction`,
+holds host numpy arrays in both packages, with the same fields: it crosses
+as it is and needs no conversion.
 """
 
 from __future__ import annotations
@@ -15,10 +20,11 @@ import torch
 from opencv_contrib_tpu_torch.ba.bundle import BAProblem, BAResult
 from opencv_contrib_tpu_torch.features.keypoints import Keypoints
 from opencv_contrib_tpu_torch.features.match import Matches
+from opencv_contrib_tpu_torch.mvg.robust import RansacResult
 from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 
-TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, TSDFVolume, DepthFrame)}
+TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, TSDFVolume, DepthFrame, RansacResult)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -10,32 +10,33 @@ from opencv_contrib_tpu_torch.core import se3
 
 
 def pnp_dlt(X: torch.Tensor, xn: torch.Tensor, mask: torch.Tensor | None = None):
-    """DLT resection: world points X (N, 3), normalized image points xn
-    (N, 2), mask (N,). Returns world->cam (R, t). Needs N >= 6 valid points."""
+    """DLT resection: world points X (..., N, 3), normalized image points xn
+    (..., N, 2), mask (..., N). Returns world->cam (R, t). Needs N >= 6 valid
+    points."""
     if mask is None:
-        mask = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
-    Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)  # (N, 4)
+        mask = torch.ones(X.shape[:-1], dtype=torch.bool, device=X.device)
+    Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)  # (..., N, 4)
     zero = torch.zeros_like(Xh)
     u = xn[..., 0:1]
     v = xn[..., 1:2]
-    r1 = torch.cat([Xh, zero, -u * Xh], dim=-1)  # (N, 12)
+    r1 = torch.cat([Xh, zero, -u * Xh], dim=-1)  # (..., N, 12)
     r2 = torch.cat([zero, Xh, -v * Xh], dim=-1)
-    m = torch.cat([mask, mask]).to(X.dtype)
-    A = torch.cat([r1, r2], dim=0) * m[:, None]
+    m = torch.cat([mask, mask], dim=-1).to(X.dtype)
+    A = torch.cat([r1, r2], dim=-2) * m[..., None]
     # the null vector is the last row of Vh; the thin SVD has it whenever A
     # has at least 12 rows
-    _, _, Vh = torch.linalg.svd(A, full_matrices=A.shape[0] < 12)
-    P = Vh[-1].reshape(3, 4)
+    _, _, Vh = torch.linalg.svd(A, full_matrices=A.shape[-2] < 12)
+    P = Vh[..., -1, :].reshape(Vh.shape[:-2] + (3, 4))
     # sign: the majority of valid points must have positive depth
-    depths = Xh @ P[2]
-    sign = torch.sign(torch.sum(torch.where(mask, torch.sign(depths), torch.zeros_like(depths))))
+    depths = torch.einsum("...nj,...j->...n", Xh, P[..., 2, :])
+    sign = torch.sign(torch.sum(torch.where(mask, torch.sign(depths), torch.zeros_like(depths)), dim=-1))
     sign = torch.where(sign == 0, torch.ones_like(sign), sign)
-    P = P * sign
-    M = P[:, :3]
+    P = P * sign[..., None, None]
+    M = P[..., :3]
     S = torch.linalg.svdvals(M)
-    scale = torch.mean(S)
+    scale = torch.mean(S, dim=-1)
     R = se3.project_to_so3(M)
-    t = P[:, 3] / torch.clamp(scale, min=1e-12)
+    t = P[..., 3] / torch.clamp(scale, min=1e-12)[..., None]
     return R, t
 
 
@@ -77,7 +78,7 @@ def refine_pose(R, t, X, xn, mask=None, iters: int = 10, damping: float = 1e-6):
         J = torch.einsum("nij,njk->nik", J_proj, J_point) * mf[..., None, None]
         JtJ = torch.einsum("nik,nil->kl", J, J)
         Jtr = torch.einsum("nik,ni->k", J, r)
-        dx = -torch.linalg.solve(JtJ + damping * eye6, Jtr)
+        dx = -torch.linalg.solve_ex(JtJ + damping * eye6, Jtr)[0]
         dR = se3.exp_so3(dx[:3])
         R, t = dR @ R, dR @ t + dx[3:]
         cost = torch.sum(r * r)

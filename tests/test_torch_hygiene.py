@@ -45,22 +45,26 @@ def test_port_has_its_files():
                  "flow/dis.py", "flow/tvl1.py", "flow/lk.py", "ops/cuda/pyramid.py", "ops/cuda/remap.py",
                  "ops/cuda/transform.py", "ops/cuda/histogram.py", "ops/histogram.py", "ops/filters.py",
                  "core/color.py", "intensity_transform/transforms.py", "xphoto/white_balance.py",
-                 "utils/metrics.py", "quality/__init__.py", "quality/brisque.py"):
+                 "utils/metrics.py", "quality/__init__.py", "quality/brisque.py", "utils/tracing.py",
+                 "mvg/conditioning.py", "mvg/fundamental.py", "mvg/homography.py", "mvg/triangulation.py",
+                 "mvg/robust.py", "mvg/resection.py", "sfm/__init__.py", "sfm/tracks.py", "sfm/pairing.py",
+                 "sfm/pipeline.py"):
         assert need in names
     for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu", "transform.cu", "reduce.cu", "histogram.cu", "maps.cuh"):
         assert (PORT / "ops/cuda/csrc" / cu).exists()
     assert (ROOT / "chip_smoke.py").exists()
 
 
-@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow", "photometric"])
+@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow", "photometric", "sfm"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
     """Asked for "cuda" (their default) on a machine without a card, the
-    frontend, keyframe, dense-flow and photometric entry points raise
+    frontend, keyframe, dense-flow, photometric and SfM entry points raise
     instead of running on the CPU."""
     import numpy as np
     import torch
 
     from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.sfm import pipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     img = np.zeros((32, 48), np.float32)
@@ -70,7 +74,8 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
                                                          ba_points=8),
             "dense_flow": lambda: entry.dense_flow(img, img, "tvl1", levels=2),
             "photometric": lambda: entry.photometric(np.zeros((1, 32, 48, 3), np.float32),
-                                                     np.zeros((1, 32, 48, 3), np.float32))}[name]
+                                                     np.zeros((1, 32, 48, 3), np.float32)),
+            "sfm": lambda: pipeline.reconstruct_incremental(*entry.sfm_scene(6, 150))}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
