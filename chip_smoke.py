@@ -80,7 +80,18 @@ Phases, one JSON line each:
       backyard gate form (>= 90 views, >= 0.9 of the tracks, mean
       reprojection <= 1.4 px); a 16 x 256 scene on the card against the CPU
       with the same RANSAC draws; s a reconstruction, host ms a span,
-      host syncs, peak memory and one profiled run.
+      host syncs, peak memory and one profiled run; the first differing
+      entries of the two logs of the small scene;
+  (n) sparse bundle adjustment (ba/sparse.py): 2048 cameras x 200,000
+      points x 2,000,000 observations (tests/test_scale_tpu.py's problem), 3
+      LM iterations of 10 CG iterations below 1e-2 of the initial cost, the
+      same bits on a rerun, device ms an LM iteration, wall ms, launches,
+      host syncs and peak memory of a solve, the top device ops; the 64 x
+      4096 x 8 problem of tests/test_ba_sparse.py with pixel noise on the
+      card against the CPU; and `reconstruct_incremental` on
+      `entry.sfm_scene(150, 1000)` (above SPARSE_BA_OBS_THRESHOLD) with
+      intrinsics refinement, with a spy on the sparse route, the counters
+      read around it and phase m's gate form.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -128,7 +139,7 @@ PATH_KERNELS = {"frontend": ("knn2", "integral_image"),
                 "keyframe_tick": ("knn2", "integral_image"), "kinfu_tick": ("grid_reduce_vec",),
                 "dense_flow": ("pyrdown", "remap"),
                 "photometric": ("grid_transform", "streamed_transform", "grid_reduce", "grid_histogram", "grid_scan"),
-                "sfm": ()}
+                "sfm": (), "sfm_sparse": ()}
 LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
 DEVICE_KERNELS = ("knn2_kernel", "scan_rows_kernel", "integral_kernel", "grid_reduce_vec_kernel", "pyrdown_kernel",
                   "remap_kernel", "grid_transform_vec4_kernel", "grid_transform_strided_kernel",
@@ -250,6 +261,24 @@ N_SFM_TIMED = 2
 # the JAX package by the same rule)
 SFM_CPU_TOL = {"points": 0.01, "rms_px": 1e-3, "aligned_points": 1e-3, "focal_rtol": 1e-3, "pp_px": 1.0,
                "k12": 2e-3}
+# phase n: the sparse BA (ba/sparse.py) at the shape of tests/test_scale_tpu.py::
+# test_sparse_ba_two_million_obs (cameras, points, observations from default_rng(0); 3 LM iterations of 10 CG
+# iterations; gate: the final cost under 1e-2 of the initial), run twice for the same bits
+SPARSE_BIG = (2048, 200_000, 2_000_000)
+SPARSE_BIG_ITERS, SPARSE_BIG_CG, SPARSE_BIG_GATE = 3, 10, 1e-2
+N_SPARSE_TIMED = 3
+# card against CPU on tests/test_ba_sparse.py::test_sparse_moderate_scale_cpu's problem (64 cameras x 4096
+# points x 8 observations, 8 LM iterations of 20 CG iterations) with N(0, 0.5 px) pixel noise added, so the
+# optimum's cost is far above float32 rounding (without it both end at ~5e-6 from 7.4e4, where a relative
+# comparison means nothing): final costs within rtol 1e-3, cameras and points within 1e-5 (measured on an H100:
+# at most 9.5e-7 and 3.6e-7)
+SPARSE_SMALL = (64, 4096, 8)
+SPARSE_SMALL_ITERS, SPARSE_SMALL_CG, SPARSE_SMALL_NOISE_PX = 8, 20, 0.5
+SPARSE_CPU_TOL = {"cost_rtol": 1e-3, "params": 1e-5}
+# the dense driver above SPARSE_BA_OBS_THRESHOLD: entry.sfm_scene(150, 1000) with intrinsics refinement (the
+# fixpoint's bundles and the final bundle sparse, the intrinsics bundles dense), phase m's gate form
+SFM_SPARSE = (150, 1000)
+SFM_SPARSE_MIN_VIEW_SHARE = 0.9
 
 
 def emit(obj) -> None:
@@ -300,6 +329,15 @@ def exact_frames(frames: np.ndarray, levels: int) -> np.ndarray:
     return np.round(frames / 255.0 * levels).astype(np.float32)
 
 
+def log_diff(a: list, b: list, n: int = 3) -> dict | None:
+    """The first entries where two reconstruction logs part (None if equal)."""
+    if a == b:
+        return None
+    i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    return {"index": i, "lengths": [len(a), len(b)], "a": [list(e) for e in a[i:i + n]],
+            "b": [list(e) for e in b[i:i + n]]}
+
+
 def similarity_rms(A: np.ndarray, B: np.ndarray) -> float:
     """Residual RMS of the best similarity transform A -> B (Umeyama)."""
     muA, muB = A.mean(0), B.mean(0)
@@ -309,6 +347,31 @@ def similarity_rms(A: np.ndarray, B: np.ndarray) -> float:
     R = U @ D @ Vt
     s = np.trace(np.diag(S) @ D) / ((Ac ** 2).sum() / len(A))
     return float(np.sqrt((((A - muA) * s @ R + muB - B) ** 2).sum(axis=1).mean()))
+
+
+def two_million_problem(dev):
+    """tests/test_scale_tpu.py::test_sparse_ba_two_million_obs's problem on
+    `dev` (SPARSE_BIG from default_rng(0), pixels from the port's forward
+    model, points with N(0, 0.01) noise) and its camera buckets."""
+    import torch
+
+    from opencv_contrib_tpu_torch.ba import sparse
+
+    rng = np.random.default_rng(0)
+    C, P, N = SPARSE_BIG
+    ts = np.stack([np.linspace(-0.1, 0.1, C), np.zeros(C), np.full(C, 4.0)], axis=1).astype(np.float32)
+    pts = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
+    intr = np.array([600, 600, 320, 240, 0, 0, 0, 0, 0], np.float32)
+    cams6 = np.concatenate([np.zeros((C, 3), np.float32), ts], axis=1)
+    obs_cam = rng.integers(0, C, N).astype(np.int32)
+    obs_pt = rng.integers(0, P, N).astype(np.int32)
+    noisy = pts + rng.normal(scale=0.01, size=pts.shape).astype(np.float32)
+    card = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    oc, op = card(obs_cam), card(obs_pt)
+    uv = sparse._project_cf(card(cams6).T[:, oc], card(pts).T[:, op], card(intr))
+    prob = sparse.SparseBAProblem(card(cams6), card(noisy), card(intr), oc, op, uv,
+                                  torch.ones(N, dtype=torch.bool, device=dev))
+    return prob, sparse.build_buckets(obs_cam, obs_pt, np.ones(N, bool), C, P, device=dev)
 
 
 @contextlib.contextmanager
@@ -1726,8 +1789,8 @@ class Smoke(Timer):
 
     def count_syncs(self, fn) -> dict:
         """Host syncs of one call of fn: the warnings of
-        torch.cuda.set_sync_debug_mode("warn"), in total and by the line of
-        the port that made them."""
+        torch.cuda.set_sync_debug_mode("warn"), in total, those made from a
+        line of the port, and by the line that made them."""
         import warnings
 
         torch = self.torch
@@ -1745,7 +1808,8 @@ class Smoke(Timer):
             site = f"{w.filename.rsplit('opencv_contrib_tpu_torch/', 1)[-1]}:{w.lineno}"
             sites[site] = sites.get(site, 0) + 1
         top = sorted(sites.items(), key=lambda kv: -kv[1])[:12]
-        return {"total": len(syncs), "top_sites": dict(top)}
+        return {"total": len(syncs), "in_the_port": sum("opencv_contrib_tpu_torch/" in w.filename for w in syncs),
+                "top_sites": dict(top)}
 
     def profile_sfm(self, run) -> dict:
         """One reconstruction under torch.profiler, read from the raw kineto
@@ -1820,7 +1884,8 @@ class Smoke(Timer):
                "rms_px": [card.reprojection_rms(tracks), cpu.reprojection_rms(tracks, device="cpu")],
                "mean_px": [card.reprojection_mean(tracks), cpu.reprojection_mean(tracks, device="cpu")],
                "aligned_points_rms": similarity_rms(card.points[both], cpu.points[both]),
-               "intr": [card.intr.tolist(), cpu.intr.tolist()], "same_log": card.log == cpu.log}
+               "intr": [card.intr.tolist(), cpu.intr.tolist()], "same_log": card.log == cpu.log,
+               "log_diff": log_diff(card.log, cpu.log)}
         tol = SFM_CPU_TOL
         check(bool((card.registered == cpu.registered).all())
               and abs(out["points"][0] - out["points"][1]) <= max(2, tol["points"] * tracks.n_tracks)
@@ -1831,6 +1896,152 @@ class Smoke(Timer):
               and np.abs(card.intr[2:4] - cpu.intr[2:4]).max() <= tol["pp_px"]
               and np.abs(card.intr[4:6] - cpu.intr[4:6]).max() <= tol["k12"], f"sfm small scene, card vs CPU: {out}")
         return out
+
+    # ---- (n) -----------------------------------------------------------------
+    def sparse_ba(self):
+        parts = {}
+        t0 = time.perf_counter()
+        big = self.sparse_big()
+        parts["two_million"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small = self.sparse_card_vs_cpu()
+        parts["small_card_and_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        driver = self.sparse_driver()
+        parts["driver"] = time.perf_counter() - t0
+        emit({"phase": "n_sparse_ba", "two_million": big, "small_card_vs_cpu": small, "driver": driver,
+              "phase_parts_s": parts,
+              "tolerance": f"2M: final cost < {SPARSE_BIG_GATE} x initial, a rerun equal bit for bit; small: final "
+                           f"costs rtol {SPARSE_CPU_TOL['cost_rtol']}, cameras and points within "
+                           f"{SPARSE_CPU_TOL['params']}; driver: >= 1 sparse bundle, registered >= "
+                           f"{SFM_SPARSE_MIN_VIEW_SHARE} x views, points >= {SFM_MIN_POINT_SHARE} x tracks, mean "
+                           f"reprojection <= {SFM_MEAN_PX_GATE} px",
+              "timing": "device_ms_per_lm_iteration: torch.profiler kernel time of a 3-iteration solve less that "
+                        "of a 1-iteration solve, over 2; wall_ms: host clock around a synchronised solve",
+              "ok": True})
+
+    def sparse_big(self) -> dict:
+        """tests/test_scale_tpu.py's 2M-observation problem on the card."""
+        from opencv_contrib_tpu_torch.ba import sparse
+
+        torch = self.torch
+        C, P, N = SPARSE_BIG
+        t0 = time.perf_counter()
+        prob, buckets = two_million_problem(self.dev)
+        s_buckets = time.perf_counter() - t0
+
+        def solve(n_iters=SPARSE_BIG_ITERS):
+            return sparse.bundle_adjust_sparse(prob, n_iters=n_iters, n_cg=SPARSE_BIG_CG, buckets=buckets)
+
+        res, s_first = self.wall_s(solve)
+        c0, c1 = float(res.initial_cost), float(res.final_cost)
+        check(np.isfinite(c1) and c1 < SPARSE_BIG_GATE * c0, f"2M sparse BA: cost {c0} -> {c1}")
+        again = solve()
+        check(all(torch.equal(a, b) for a, b in zip(res, again)), "2M sparse BA: a rerun changed the bits")
+        wall = [self.wall_s(solve)[1] for _ in range(N_SPARSE_TIMED)]
+        syncs = {n: self.count_syncs(lambda: solve(n)) for n in (1, SPARSE_BIG_ITERS)}
+        check(syncs[1]["in_the_port"] == syncs[SPARSE_BIG_ITERS]["in_the_port"],
+              f"2M sparse BA: host syncs grow with the LM iterations: {syncs}")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        solve()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        ev = {n: self.device_events(lambda: solve(n), iters=1) for n in (1, SPARSE_BIG_ITERS)}
+        dev_ms = {n: sum(e.self_device_time_total for e in v) / 1e3 for n, v in ev.items()}
+        top = sorted(ev[SPARSE_BIG_ITERS], key=lambda e: -e.self_device_time_total)[:10]
+        out = {"cameras": C, "points": P, "observations": N, "bucket_slots": list(buckets.idx_a.shape),
+               "lm_iters": SPARSE_BIG_ITERS, "cg_iters": SPARSE_BIG_CG, "initial_cost": c0, "final_cost": c1,
+               "same_bits_on_rerun": True, "s_problem_and_buckets": s_buckets, "s_first_solve": s_first,
+               "wall_ms_solve": [1e3 * w for w in wall], "device_ms_solve": dev_ms,
+               "device_ms_per_lm_iteration": (dev_ms[SPARSE_BIG_ITERS] - dev_ms[1]) / (SPARSE_BIG_ITERS - 1),
+               "device_launches_solve": sum(e.count for e in ev[SPARSE_BIG_ITERS]),
+               "host_syncs_solve": syncs, "peak_mem_of_a_solve_gb": peak / 2 ** 30,
+               "top_device": [{"name": e.key[:80], "count": e.count, "us": e.self_device_time_total} for e in top]}
+        del prob, buckets, res, again
+        torch.cuda.empty_cache()
+        return out
+
+    def sparse_card_vs_cpu(self) -> dict:
+        """tests/test_ba_sparse.py's 64 x 4096 x 8 problem with pixel noise, one
+        set of numpy inputs solved on the card and on the CPU."""
+        import torch
+
+        from opencv_contrib_tpu_torch.ba import sparse
+        from opencv_contrib_tpu_torch.core import se3
+        from opencv_contrib_tpu_torch.utils.synthetic import generate_scene
+
+        rng = np.random.default_rng(1)
+        C, P, k = SPARSE_SMALL
+        scene = generate_scene(n_views=C, n_points=64, seed=2)  # poses only
+        pts = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
+        obs_cam = np.stack([rng.choice(C, k, replace=False) for _ in range(P)]).reshape(-1).astype(np.int32)
+        obs_pt = np.repeat(np.arange(P, dtype=np.int32), k)
+        cams6 = torch.cat([se3.log_so3(torch.from_numpy(scene.Rs)), torch.from_numpy(scene.ts)], dim=1)
+        uv = sparse._project_cf(cams6[obs_cam].T, torch.from_numpy(pts)[obs_pt].T, torch.from_numpy(scene.intr))
+        noisy = pts + rng.normal(scale=0.01, size=pts.shape).astype(np.float32)
+        uv = uv.numpy() + np.random.default_rng(5).normal(scale=SPARSE_SMALL_NOISE_PX, size=uv.shape).astype(
+            np.float32)
+        inputs = (cams6.numpy(), noisy, scene.intr, obs_cam, obs_pt, uv, np.ones(len(obs_cam), bool))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            prob = sparse.SparseBAProblem(*(torch.as_tensor(a, device=dev) for a in inputs))
+            r = sparse.bundle_adjust_sparse(prob, n_iters=SPARSE_SMALL_ITERS, n_cg=SPARSE_SMALL_CG)
+            res[dev] = [x.cpu().numpy() for x in r]
+        card, cpu = res["cuda"], res["cpu"]
+        out = {"shape": list(SPARSE_SMALL), "noise_px": SPARSE_SMALL_NOISE_PX, "initial_cost": [float(card[2]),
+               float(cpu[2])], "final_cost": [float(card[3]), float(cpu[3])],
+               "cost_rel": abs(float(card[3]) / float(cpu[3]) - 1.0),
+               "cameras_max_abs": float(np.abs(card[0] - cpu[0]).max()),
+               "points_max_abs": float(np.abs(card[1] - cpu[1]).max())}
+        check(out["cost_rel"] <= SPARSE_CPU_TOL["cost_rtol"] and out["final_cost"][0] < 0.2 * out["initial_cost"][0]
+              and max(out["cameras_max_abs"], out["points_max_abs"]) <= SPARSE_CPU_TOL["params"],
+              f"sparse BA card vs CPU: {out}")
+        return out
+
+    def sparse_driver(self) -> dict:
+        """reconstruct_incremental above the sparse threshold, with a spy on
+        the sparse route."""
+        from opencv_contrib_tpu_torch.sfm import pipeline
+        from opencv_contrib_tpu_torch.utils import tracing
+
+        tracks, intr = self.entry.sfm_scene(*SFM_SPARSE)
+        n_obs = int(tracks.mask.sum())
+        check(n_obs > pipeline.SPARSE_BA_OBS_THRESHOLD, f"{n_obs} markers: under the sparse threshold")
+        calls = []
+        route = pipeline._run_bundle_sparse
+
+        def spy(rec, tr, mask, *a, **k):
+            calls.append(int(mask.sum()))
+            return route(rec, tr, mask, *a, **k)
+
+        def run():
+            return pipeline.reconstruct_incremental(tracks, intr, refine_intrinsics=True)
+
+        with mock.patch.object(pipeline, "_run_bundle_sparse", spy):
+            rec, s_first = self.counted("sfm_sparse", run)
+            n_calls = len(calls)
+            check(all(v == 0 for v in self.launches["sfm_sparse"].values()),
+                  f"sfm_sparse launched a kernel: {self.launches['sfm_sparse']}")
+            n_reg, n_pts = int(rec.registered.sum()), int(rec.has_point.sum())
+            mean_px, rms_px = rec.reprojection_mean(tracks), rec.reprojection_rms(tracks)
+            check(n_calls >= 1 and n_reg >= SFM_SPARSE_MIN_VIEW_SHARE * tracks.n_views
+                  and n_pts >= SFM_MIN_POINT_SHARE * tracks.n_tracks and mean_px <= SFM_MEAN_PX_GATE,
+                  f"sfm above the threshold: {n_calls} sparse bundles, {n_reg} views, {n_pts} points, "
+                  f"mean {mean_px} px")
+            check(bool(np.isfinite(rec.points[rec.has_point]).all()), "sfm above the threshold: points not finite")
+            tracing.reset_spans()
+            _, s_warm = self.wall_s(run)
+            spans = {k[len(SFM_PREFIX):]: 1e3 * v["total_s"] for k, v in tracing.span_stats().items()}
+            syncs = self.count_syncs(run)
+        return {"scene": f"entry.sfm_scene{SFM_SPARSE}", "views": tracks.n_views, "tracks": tracks.n_tracks,
+                "markers": n_obs, "sparse_threshold": pipeline.SPARSE_BA_OBS_THRESHOLD,
+                "sparse_bundles_first_run": n_calls, "sparse_bundle_observations": calls[:n_calls],
+                "launches": self.launches["sfm_sparse"], "registered": n_reg, "points": n_pts,
+                "reprojection_mean_px": mean_px, "reprojection_rms_px": rms_px, "intr_refined": rec.intr.tolist(),
+                "rounds": sum(r[0] == "round" for r in rec.log), "s_first_run": s_first, "s_warm_run": s_warm,
+                "host_span_ms_warm_run": spans, "host_syncs_per_run": syncs}
 
     def kernels_line(self):
         line = []
@@ -1857,7 +2068,7 @@ def main() -> int:
     smoke = Smoke()
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
                   smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
-                  smoke.grid_kernels, smoke.photometric, smoke.sfm):
+                  smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

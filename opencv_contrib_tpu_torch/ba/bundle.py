@@ -45,16 +45,27 @@ def _cross(a, b):
     return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
 
 
-def _project_grid(cameras, points, intr, jacobians: bool = False, intr_jac: bool = False):
-    """Project every point into every camera: pred (C, P, 2). With
-    `jacobians`, also d pred / d camera (C, P, 2, 6) and d pred / d point
-    (C, P, 2, 3); with `intr_jac`, d pred / d intr (C, P, 2, 9)."""
-    w, tv = cameras[:, :3], cameras[:, 3:]
+def _small_mm(a, b):
+    """a (..., m, k) @ b (..., k, n) for small m, k, n, as broadcast products
+    and a sum: over a batch of millions of 2x3 factors a batched GEMM spends
+    a tile on each (4.3 ms against 0.24 at 2.2 M on an H100)."""
+    return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
+
+
+def _project(pose, X, intr, jacobians: bool = False, intr_jac: bool = False):
+    """Project points X (..., 3) by cameras `pose` (..., 6) [angle-axis | t],
+    the two broadcast against each other: pred (..., 2). With `jacobians`,
+    also d pred / d camera (..., 2, 6) and d pred / d point (..., 2, 3); with
+    `intr_jac`, d pred / d intr (..., 2, 9). The dense grid passes
+    cameras[:, None] against points[None]; the sparse solver (ba/sparse.py)
+    its cameras against the points of their observations. A depth under
+    1e-9 is clamped to 1e-9 and is then a constant."""
+    w, tv = pose[..., :3], pose[..., 3:]
     A, B, dA, dB = se3.so3_coeffs(torch.sum(w * w, dim=-1))
     Wm = se3.hat(w)
     I3 = torch.eye(3, dtype=w.dtype, device=w.device)
-    R = I3 + A[:, None, None] * Wm + B[:, None, None] * (Wm @ Wm)  # (C, 3, 3)
-    Xc = torch.einsum("cij,pj->cpi", R, points) + tv[:, None, :]  # (C, P, 3)
+    R = I3 + A[..., None, None] * Wm + B[..., None, None] * _small_mm(Wm, Wm)  # (..., 3, 3) at the cameras' shape
+    Xc = torch.einsum("...ij,...j->...i", R, X) + tv
     z = Xc[..., 2]
     small = torch.abs(z) < 1e-9
     zs = torch.where(small, torch.full_like(z, 1e-9), z)
@@ -69,7 +80,7 @@ def _project_grid(cameras, points, intr, jacobians: bool = False, intr_jac: bool
     r2 = x * x + y * y
     radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
     drad = k1 + r2 * (2.0 * k2 + 3.0 * k3 * r2)  # d radial / d r2
-    # d distorted / d normalized (C, P, 2, 2)
+    # d distorted / d normalized (..., 2, 2)
     dxx = radial + 2.0 * x * x * drad + 2.0 * p1 * y + 6.0 * p2 * x
     dxy = 2.0 * x * y * drad + 2.0 * p1 * x + 2.0 * p2 * y
     dyx = 2.0 * x * y * drad + 2.0 * p1 * x + 2.0 * p2 * y
@@ -82,24 +93,22 @@ def _project_grid(cameras, points, intr, jacobians: bool = False, intr_jac: bool
     zero = torch.zeros_like(z)
     Jn = torch.stack([torch.stack([invz, zero, nx], -1), torch.stack([zero, invz, ny], -1)], -2)
     Jd = torch.stack([torch.stack([fx * dxx, fx * dxy], -1), torch.stack([fy * dyx, fy * dyy], -1)], -2)
-    J_X = Jd @ Jn  # d pred / d Xc (C, P, 2, 3)
+    J_X = _small_mm(Jd, Jn)  # d pred / d Xc (..., 2, 3)
 
     # d (R(w) X) / d w for R = I + A [w]x + B [w]x^2
-    X = points[None]  # (1, P, 3)
-    wb = w[:, None, :]  # (C, 1, 3)
-    wxX = _cross(wb, X)
-    wwX = _cross(wb, wxX)
-    wX = torch.sum(wb * X, dim=-1)  # (C, P)
-    M = (wX[..., None, None] * I3 + wb[..., :, None] * X[..., None, :]
-         - 2.0 * X[..., :, None] * wb[..., None, :])
-    dAw = (2.0 * dA)[:, None] * w  # (C, 3)
-    dBw = (2.0 * dB)[:, None] * w
-    J_w = (wxX[..., :, None] * dAw[:, None, None, :]
-           - A[:, None, None, None] * se3.hat(X).expand(wxX.shape + (3,))
-           + wwX[..., :, None] * dBw[:, None, None, :]
-           + B[:, None, None, None] * M)  # (C, P, 3, 3)
-    Jc = torch.cat([J_X @ J_w, J_X], dim=-1)  # (C, P, 2, 6)
-    Jp = J_X @ R[:, None]  # (C, P, 2, 3)
+    wxX = _cross(w, X)
+    wwX = _cross(w, wxX)
+    wX = torch.sum(w * X, dim=-1)
+    M = (wX[..., None, None] * I3 + w[..., :, None] * X[..., None, :]
+         - 2.0 * X[..., :, None] * w[..., None, :])
+    dAw = (2.0 * dA)[..., None] * w
+    dBw = (2.0 * dB)[..., None] * w
+    J_w = (wxX[..., :, None] * dAw[..., None, :]
+           - A[..., None, None] * se3.hat(X).expand(wxX.shape + (3,))
+           + wwX[..., :, None] * dBw[..., None, :]
+           + B[..., None, None] * M)  # (..., 3, 3)
+    Jc = torch.cat([_small_mm(J_X, J_w), J_X], dim=-1)  # (..., 2, 6)
+    Jp = _small_mm(J_X, R)  # (..., 2, 3)
 
     Ji = None
     if intr_jac:
@@ -110,13 +119,13 @@ def _project_grid(cameras, points, intr, jacobians: bool = False, intr_jac: bool
         ry = [zero, zero, zero, zero, y * r2, y * r2 * r2, y * r2 * r2 * r2, r2 + 2.0 * y * y, 2.0 * x * y]
         row_x = [xd[..., 0], zero, one, zero] + [fx * v for v in rx[4:]]
         row_y = [zero, xd[..., 1], zero, one] + [fy * v for v in ry[4:]]
-        Ji = torch.stack([torch.stack(row_x, -1), torch.stack(row_y, -1)], -2)  # (C, P, 2, 9)
+        Ji = torch.stack([torch.stack(row_x, -1), torch.stack(row_y, -1)], -2)  # (..., 2, 9)
     return pred, Jc, Jp, Ji
 
 
 def residuals(cameras, points, intr, obs, mask):
     """Masked residual grid (C, P, 2)."""
-    pred = _project_grid(cameras, points, intr)[0]
+    pred = _project(cameras[:, None], points[None], intr)[0]
     return (pred - obs) * mask[..., None]
 
 
@@ -134,7 +143,7 @@ def rms_reprojection_error(cameras, points, intr, obs, mask):
 
 def _per_obs_jacobians(cameras, points, intr, obs, mask, optimize_intr: bool):
     """r (C,P,2), Jc (C,P,2,6), Jp (C,P,2,3), Ji (C,P,2,9) or None; masked."""
-    pred, Jc, Jp, Ji = _project_grid(cameras, points, intr, jacobians=True, intr_jac=optimize_intr)
+    pred, Jc, Jp, Ji = _project(cameras[:, None], points[None], intr, jacobians=True, intr_jac=optimize_intr)
     m3 = mask[..., None].to(pred.dtype)
     m4 = m3[..., None]
     r = (pred - obs) * m3

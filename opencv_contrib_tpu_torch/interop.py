@@ -1,7 +1,8 @@
 """Carry state between the JAX package and this one as numpy arrays.
 
 The port has no learned weights: its state is the NamedTuples (Keypoints,
-Matches, BAProblem, BAResult, KinFu's TSDFVolume and DepthFrame, and the
+Matches, BAProblem, BAResult, the sparse BA's SparseBAProblem,
+SparseBAResult and ObsBuckets, KinFu's TSDFVolume and DepthFrame, and the
 RANSAC's RansacResult), with the same class names, field names and field
 order in both packages. `from_numpy` turns such a tuple, its fields read as
 numpy arrays (anything `np.asarray` takes), into this package's tuple of
@@ -18,13 +19,15 @@ import numpy as np
 import torch
 
 from opencv_contrib_tpu_torch.ba.bundle import BAProblem, BAResult
+from opencv_contrib_tpu_torch.ba.sparse import ObsBuckets, SparseBAProblem, SparseBAResult
 from opencv_contrib_tpu_torch.features.keypoints import Keypoints
 from opencv_contrib_tpu_torch.features.match import Matches
 from opencv_contrib_tpu_torch.mvg.robust import RansacResult
 from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 
-TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, TSDFVolume, DepthFrame, RansacResult)}
+TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, SparseBAProblem, SparseBAResult,
+                                        ObsBuckets, TSDFVolume, DepthFrame, RansacResult)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from opencv_contrib_tpu_torch.ba import bundle
+from opencv_contrib_tpu_torch.ba import bundle, sparse
 from opencv_contrib_tpu_torch.core import camera as cam
 from opencv_contrib_tpu_torch.core import se3
 from opencv_contrib_tpu_torch.mvg import fundamental, homography, resection, robust, triangulation
@@ -182,28 +182,69 @@ def initialize_two_view(tracks: TracksTensor, intr: np.ndarray, i: int, j: int,
     return rec
 
 
-# above this many observations the JAX package routes the fixpoint's bundle
-# to its bucketed sparse solver (ba/sparse.py): the dense (C, P) grid's
-# Jacobian buffers are O(C * P) whatever the fill
+# above this many observations the bundle without intrinsics runs on the
+# bucketed sparse solver (ba/sparse.py): the dense (C, P) grid's Jacobian
+# buffers are O(C * P) whatever the fill
 SPARSE_BA_OBS_THRESHOLD = 100_000
+
+
+def _run_bundle_sparse(rec: Reconstruction, tracks: TracksTensor, mask: np.ndarray, n_iters: int, device="cuda"):
+    """Run the fixpoint's bundle on ba/sparse.py: the flat observation list
+    (capacity rounded up to 4096) and its camera buckets. The buckets are
+    cached on the reconstruction and reused while the sparsity pattern is
+    unchanged, so the fixpoint's repeated solves skip the host argsort."""
+    c_idx, p_idx = np.nonzero(mask)
+    n = len(c_idx)
+    cap = max(4096, int(np.ceil(n / 4096)) * 4096)
+    obs_cam = np.zeros(cap, np.int32)
+    obs_pt = np.zeros(cap, np.int32)
+    obs_uv = np.zeros((2, cap), np.float32)
+    obs_ok = np.zeros(cap, bool)
+    obs_cam[:n] = c_idx
+    obs_pt[:n] = p_idx
+    obs_uv[:, :n] = tracks.obs[c_idx, p_idx].T
+    obs_ok[:n] = True
+
+    dev = resolve(device)
+    fingerprint = (str(dev), cap, n, int(c_idx[0]) if n else 0, int(p_idx[-1]) if n else 0,
+                   hash(c_idx.tobytes()) ^ hash(p_idx.tobytes()))
+    cache = getattr(rec, "_sparse_ba_cache", None)
+    if cache is not None and cache[0] == fingerprint:
+        buckets = cache[1]
+    else:
+        buckets = sparse.build_buckets(obs_cam, obs_pt, obs_ok, mask.shape[0], mask.shape[1], device=dev)
+        rec._sparse_ba_cache = (fingerprint, buckets)
+
+    prob = sparse.make_sparse_problem(rec.Rs, rec.ts, rec.points, rec.intr, obs_cam, obs_pt, obs_uv, obs_ok,
+                                      device=dev)
+    out = sparse.bundle_adjust_sparse(
+        prob, n_iters=n_iters, fix_first_cam=True,
+        cam_free=_on(dev, rec.registered, torch.bool), pt_free=_on(dev, rec.has_point, torch.bool),
+        n_cg=15, buckets=buckets)
+    _store(rec, out)
+
+
+def _store(rec: Reconstruction, out):
+    """Write a bundle's cameras and points back for the registered views and
+    reconstructed tracks."""
+    Rm = _host(se3.exp_so3(out.cameras[:, :3]))
+    rec.Rs = np.where(rec.registered[:, None, None], Rm, rec.Rs).astype(np.float32)
+    rec.ts = np.where(rec.registered[:, None], _host(out.cameras[:, 3:]), rec.ts).astype(np.float32)
+    rec.points = np.where(rec.has_point[:, None], _host(out.points), rec.points).astype(np.float32)
 
 
 def _run_bundle(rec: Reconstruction, tracks: TracksTensor, n_iters: int = 12, optimize_intr=False, device="cuda"):
     mask = tracks.mask & rec.registered[:, None] & rec.has_point[None, :]
     if not optimize_intr and int(mask.sum()) > SPARSE_BA_OBS_THRESHOLD:
-        raise NotImplementedError(
-            f"{int(mask.sum())} observations: above SPARSE_BA_OBS_THRESHOLD the bundle runs on the sparse "
-            "solver of ba/sparse.py, which the port does not have yet (ROADMAP Queue 1 item 3)")
+        _run_bundle_sparse(rec, tracks, mask, n_iters, device=device)
+        return
     dev = resolve(device)
     prob = bundle.make_problem_from_scene(rec.Rs, rec.ts, rec.points, rec.intr, tracks.obs, mask, device=dev)
     out = bundle.bundle_adjust(
         prob, n_iters=n_iters, optimize_intr=optimize_intr,
         cam_free=_on(dev, rec.registered, torch.bool), pt_free=_on(dev, rec.has_point, torch.bool),
     )
-    Rm = _host(se3.exp_so3(out.cameras[:, :3]))
-    rec.Rs = np.where(rec.registered[:, None, None], Rm, rec.Rs).astype(np.float32)
-    rec.ts = np.where(rec.registered[:, None], _host(out.cameras[:, 3:]), rec.ts).astype(np.float32)
-    rec.points = np.where(rec.has_point[:, None], _host(out.points), rec.points).astype(np.float32)
+    _store(rec, out)
     if optimize_intr:
         rec.intr = _host(out.intr)
 
@@ -295,7 +336,7 @@ def reconstruct_incremental(
     alternate intersect / resect with bundling until a fixpoint, then an
     optional intrinsics refinement. `seed` seeds the RANSAC draws (a
     `torch.Generator` on `device`). Above SPARSE_BA_OBS_THRESHOLD
-    observations the bundle raises NotImplementedError."""
+    observations a bundle without intrinsics runs on the sparse solver."""
     dev = resolve(device)
     generator = torch.Generator(dev).manual_seed(seed)
     if init_pair is None:

@@ -26,7 +26,10 @@ reflect border, GMSD's, on 540x960: ms per call over 20 calls, synchronised
 at the end, the median of 7) and a photometric frame (`entry.photometric`
 on `entry.photo_clip()`'s 8-frame clip: ms per frame of a synchronised
 clip, the median of 5 warm runs), where host code such as the reflect pad
-shows. Inputs are made from one seed, so both checkouts see the same data.
+shows; and the keyframe tick's bundle adjustment (`bundle.bundle_adjust` of
+`entry.ba_problem(16, 2048)`, 10 LM iterations): device ms, launches and
+host ms a call. Inputs are made from one seed, so both checkouts see the
+same data.
 It prints one JSON line per turn, the card's name and power limit, and
 writes every turn to --out.
 """
@@ -51,6 +54,7 @@ def worker(root: Path) -> dict:
 
     import opencv_contrib_tpu_torch as port
     from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.ba import bundle
     from opencv_contrib_tpu_torch.core import se3
     from opencv_contrib_tpu_torch.ops import filters, integral
     from opencv_contrib_tpu_torch.ops.cuda import _build, histogram, matching, pyramid, reduce, scan
@@ -135,6 +139,15 @@ def worker(root: Path) -> dict:
         med, ms = wall_ms(fn, calls, repeats)
         host[label] = {"ms_median": med, "ms": ms}
     host["photometric frame ms_median"] = host["photometric clip"]["ms_median"] / n_frames
+    prob = entry.ba_problem(16, 2048, device=dev)
+
+    def ba():
+        return bundle.bundle_adjust(prob, n_iters=10)
+
+    med, ms = wall_ms(ba, 1, 7)
+    host["bundle_adjust 16x2048 10 iterations"] = {"ms_median": med, "ms": ms}
+    rows.append({"kernel": "bundle_adjust (10 LM iterations)", "shape": [16, 2048],
+                 "ms": timer.device_ms(ba, iters=3), "launches_per_call": timer.launches_per_call(ba, iters=3)})
     return {"root": str(root), "device": torch.cuda.get_device_name(0), "launch_floor_ms": timer.launch_floor_ms(),
             "rows": rows, "host_wall": host}
 

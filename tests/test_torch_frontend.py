@@ -235,8 +235,40 @@ def test_ratio_test_match_random(rng, cross_check):
 
 def test_ratio_test_match_rejects_other_metrics():
     x = torch.zeros(4, 8)
-    with pytest.raises(ValueError, match="not ported"):
-        tmatch.ratio_test_match(x, x, metric="hamming")
+    with pytest.raises(ValueError, match="metric 'cosine'"):
+        tmatch.ratio_test_match(x, x, metric="cosine")
+    with pytest.raises(ValueError, match="metric 'cosine'"):
+        tmatch.knn2(x, x, metric="cosine")
+
+
+@pytest.mark.parametrize("cross_check", [True, False])
+def test_hamming_matches_jax(rng, cross_check):
+    """+-1-encoded 16-bit descriptors, so Hamming distances (0..16) tie
+    often: ratio_test_match (plain ratio) and knn2 with metric="hamming" give
+    the JAX package's matches, indices and distances exactly (ties to the
+    lower index, the cross-check's first argmin)."""
+    t = np.sign(rng.normal(size=(90, 16))).astype(np.float32)
+    q = t[rng.integers(0, 90, 70)].copy()
+    flip = rng.uniform(size=q.shape) < 0.15
+    q[flip] = -q[flip]
+    qv, tv = rng.uniform(size=70) > 0.1, rng.uniform(size=90) > 0.1
+    jd, ji = jmatch.knn2(jnp.asarray(q), jnp.asarray(t), jnp.asarray(qv), jnp.asarray(tv), metric="hamming")
+    td, ti = tmatch.knn2(T(q), T(t), T(qv), T(tv), metric="hamming")
+    np.testing.assert_array_equal(N(td), np.asarray(jd))
+    np.testing.assert_array_equal(N(ti), np.asarray(ji))
+    jd = np.asarray(jd)
+    assert (jd[qv, 0] == jd[qv, 1]).sum() > 5  # the case is full of ties
+    for ratio in (0.8, 1.0):
+        m = jmatch.ratio_test_match(jnp.asarray(q), jnp.asarray(t), jnp.asarray(qv), jnp.asarray(tv),
+                                    ratio=ratio, metric="hamming", cross_check=cross_check)
+        tm = tmatch.ratio_test_match(T(q), T(t), T(qv), T(tv), ratio=ratio, metric="hamming",
+                                     cross_check=cross_check)
+        np.testing.assert_array_equal(N(tm.valid), np.asarray(m.valid))
+        np.testing.assert_array_equal(N(tm.train_idx), np.asarray(m.train_idx))
+        np.testing.assert_array_equal(N(tm.distance), np.asarray(m.distance))
+        assert 0 < N(tm.valid).sum() < 70
+    d = N(tmatch.hamming_distance_matrix(T(q), T(t)))
+    np.testing.assert_array_equal(d, (q[:, None, :] != t[None, :, :]).sum(-1))
 
 
 def test_fused_match_on_frontend_descriptors(jax_frontend):

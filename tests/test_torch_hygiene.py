@@ -39,7 +39,7 @@ def _imports(tree: ast.AST):
 
 def test_port_has_its_files():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
-    for need in ("entry.py", "interop.py", "ops/cuda/_build.py", "ops/cuda/scan.py",
+    for need in ("entry.py", "interop.py", "ops/cuda/_build.py", "ops/cuda/scan.py", "ba/sparse.py",
                  "ops/cuda/matching.py", "features/detect.py", "ba/bundle.py", "rgbd/frame.py", "rgbd/icp.py",
                  "rgbd/tsdf.py", "rgbd/kinfu.py", "core/pyramid.py", "ops/cuda/reduce.py", "utils/sdf_scene.py",
                  "flow/dis.py", "flow/tvl1.py", "flow/lk.py", "ops/cuda/pyramid.py", "ops/cuda/remap.py",

@@ -609,15 +609,65 @@ def test_port_meets_dropped_observation_gate():
     assert rec.reprojection_rms(t, device=CPU) < 1.4
 
 
-def test_sparse_threshold_raises(monkeypatch):
-    """Above SPARSE_BA_OBS_THRESHOLD the port raises instead of running
-    another solver; with intrinsics refinement the JAX package keeps the
-    dense solver too."""
-    scene = tscene(n_views=6, n_points=150, seed=4)
-    t = _tracks_from_scene(scene, noise=0.5)
-    monkeypatch.setattr(tpipe, "SPARSE_BA_OBS_THRESHOLD", 100)
-    with pytest.raises(NotImplementedError, match="ba/sparse.py"):
-        tpipe.reconstruct_incremental(t, scene.intr, seed=0, device=CPU)
+def test_sparse_route_replayed(monkeypatch):
+    """tests/test_sfm_scale.py::TestSparseRoutingInDenseDriver in both
+    packages: SPARSE_BA_OBS_THRESHOLD set to 100, so every bundle without
+    intrinsics runs on the sparse solver, on generate_scene(8, 200, seed=0,
+    noise_px=0.3) with the JAX package's draws replayed into the port. Both
+    take the sparse route as often; the same log, registered views and
+    reconstructed tracks; rms and mean px within 1e-4 px (the rule of
+    test_reconstruct_incremental_replayed); the reference's 1.4 px gate."""
+    scene = jscene(n_views=8, n_points=200, seed=0, noise_px=0.3)
+    t = jtrk.TracksTensor(obs=scene.points2d, mask=scene.visible)
+    calls = {"jax": 0, "torch": 0}
+
+    def spy(pkg, mod):
+        orig = mod._run_bundle_sparse
+
+        def counted(*a, **k):
+            calls[pkg] += 1
+            return orig(*a, **k)
+
+        monkeypatch.setattr(mod, "_run_bundle_sparse", counted)
+        monkeypatch.setattr(mod, "SPARSE_BA_OBS_THRESHOLD", 100)
+
+    spy("jax", jpipe)
+    spy("torch", tpipe)
+    draws = Draws()
+    with draws.record():
+        rj = jpipe.reconstruct_incremental(t, scene.intr)
+    with draws.replay():
+        rt = tpipe.reconstruct_incremental(t, scene.intr, device=CPU)
+    assert calls["torch"] == calls["jax"] > 0
+    assert rt.log == rj.log
+    np.testing.assert_array_equal(rt.registered, rj.registered)
+    np.testing.assert_array_equal(rt.has_point, rj.has_point)
+    assert abs(rt.reprojection_rms(t, device=CPU) - rj.reprojection_rms(t)) < 1e-4
+    assert abs(rt.reprojection_mean(t, device=CPU) - rj.reprojection_mean(t)) < 1e-4
+    assert rt.reprojection_mean(t, device=CPU) < 1.4
+
+
+def test_sparse_route_reuses_buckets(monkeypatch):
+    """The sparse route caches its buckets on the reconstruction: a second
+    bundle on the same sparsity pattern builds none, a changed pattern builds
+    them again. Each bundle lowers the rms."""
+    scene = tscene(n_views=6, n_points=150, seed=4, noise_px=0.5)
+    t = _tracks_from_scene(scene)
+    rec = tpipe.initialize_two_view(t, scene.intr, 0, 1, device=CPU)
+    rec.registered[:] = True
+    rec.Rs, rec.ts = scene.Rs.copy(), scene.ts + np.float32(0.01)
+    rec.points = scene.points3d + np.float32(0.02)
+    rec.has_point[:] = True
+    built = []
+    orig = tpipe.sparse.build_buckets
+    monkeypatch.setattr(tpipe.sparse, "build_buckets", lambda *a, **k: built.append(1) or orig(*a, **k))
+    mask = t.mask & rec.registered[:, None] & rec.has_point[None, :]
+    rms = [rec.reprojection_rms(t, device=CPU)]
+    for m in (mask, mask, mask & (np.arange(t.n_tracks) != 7)[None, :]):
+        tpipe._run_bundle_sparse(rec, t, m, n_iters=3, device=CPU)
+        rms.append(rec.reprojection_rms(t, device=CPU))
+    assert len(built) == 2
+    assert rms[1] < rms[0] and rms[-1] < 1.0
 
 
 def test_sfm_scene_and_tracing(tmp_path):
