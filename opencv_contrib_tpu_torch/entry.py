@@ -19,6 +19,10 @@
   clean clip); `photo_clip()` makes a full-HD clip and its degraded copy.
 - `sfm.pipeline.reconstruct_incremental(tracks, intr)`: the incremental SfM
   driver; `sfm_scene()` makes its 100-view x 900-track synthetic scene.
+- `sfm.pipeline_scale.reconstruct_sequential(tracks, intr)`: the sequential
+  SfM driver at the 5k-view scale (sparse slot tracks, windowed and global
+  sparse BA); `sfm_sequence_scene()` makes its 5,000-view x 1,024-slot
+  orbit.
 
 They run on the card unless the caller passes `device="cpu"`; with no card
 they raise. Matrix products run in full f32 inside them.
@@ -44,10 +48,11 @@ from opencv_contrib_tpu_torch.ops.histogram import clahe
 from opencv_contrib_tpu_torch.ops.image import warp_affine
 from opencv_contrib_tpu_torch.rgbd import kinfu
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
+from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_sequence_scene
 from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
 from opencv_contrib_tpu_torch.utils.device import resolve
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
-from opencv_contrib_tpu_torch.utils.synthetic import generate_scene
+from opencv_contrib_tpu_torch.utils.synthetic import SequenceScene, generate_scene, generate_sequence_scene
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -283,3 +288,17 @@ def sfm_scene(n_views: int = 100, n_points: int = 900, seed: int = 4, noise_px: 
     Returns (tracks, intr) as numpy: every visible point is a marker."""
     scene = generate_scene(n_views=n_views, n_points=n_points, seed=seed, noise_px=noise_px, distortion=distortion)
     return TracksTensor(obs=scene.points2d, mask=scene.visible), scene.intr
+
+
+def sfm_sequence_scene(n_views: int = 5000, slots: int = 1024, seed: int = 0,
+                       noise_px: float = 0.3) -> tuple[SparseTracks, np.ndarray, SequenceScene]:
+    """A synthetic orbit for `sfm.pipeline_scale.reconstruct_sequential`
+    (`utils.synthetic.generate_sequence_scene`) with N(0, noise_px) pixel
+    noise, by scripts/sfm_scale_run.py's rule: tracks live max(24, V // 125)
+    views (40 at 5,000 views: a 5k-view orbit turns ~0.07 deg a view, so
+    triangulation needs long baselines), and the driver takes
+    min_gap = max(3, track_span // 3). Returns (tracks, intr, scene), the
+    scene holding the true poses and points; all numpy."""
+    scene = generate_sequence_scene(n_views=n_views, slots_per_view=slots, track_span=max(24, n_views // 125),
+                                    seed=seed, noise_px=noise_px)
+    return from_sequence_scene(scene), scene.intr, scene

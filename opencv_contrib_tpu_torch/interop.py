@@ -2,15 +2,18 @@
 
 The port has no learned weights: its state is the NamedTuples (Keypoints,
 Matches, BAProblem, BAResult, the sparse BA's SparseBAProblem,
-SparseBAResult and ObsBuckets, KinFu's TSDFVolume and DepthFrame, and the
-RANSAC's RansacResult), with the same class names, field names and field
+SparseBAResult and ObsBuckets, KinFu's TSDFVolume and DepthFrame, the
+RANSAC's RansacResult, and the 5k-view driver's device-resident MapState),
+with the same class names, field names and field
 order in both packages. `from_numpy` turns such a tuple, its fields read as
 numpy arrays (anything `np.asarray` takes), into this package's tuple of
 tensors; `to_numpy` goes the other way.
 
-The SfM state, `sfm.tracks.TracksTensor` and `sfm.pipeline.Reconstruction`,
-holds host numpy arrays in both packages, with the same fields: it crosses
-as it is and needs no conversion.
+The host-side SfM state, `sfm.tracks.TracksTensor`,
+`sfm.pipeline.Reconstruction`, and the 5k-view driver's
+`sfm.pipeline_scale.SparseTracks` and `SequentialReconstruction`, holds
+host numpy arrays in both packages, with the same fields: it crosses as it
+is and needs no conversion.
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ from opencv_contrib_tpu_torch.features.match import Matches
 from opencv_contrib_tpu_torch.mvg.robust import RansacResult
 from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
+from opencv_contrib_tpu_torch.sfm.pipeline_scale import MapState
 
 TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, SparseBAProblem, SparseBAResult,
-                                        ObsBuckets, TSDFVolume, DepthFrame, RansacResult)}
+                                        ObsBuckets, TSDFVolume, DepthFrame, RansacResult, MapState)}
 
 
 def _is_namedtuple(x) -> bool:

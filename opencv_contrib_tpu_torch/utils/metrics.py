@@ -1,7 +1,10 @@
-"""Image-quality metrics (the port of the image half of
-opencv_contrib_tpu/utils/metrics.py, :71-117: QualityMSE / PSNR / SSIM /
-GMSD of the quality module, quality/README.md:9-22). Maps go through the
-grid_transform kernel and means through grid_reduce.
+"""Evaluation metrics — the port of opencv_contrib_tpu/utils/metrics.py.
+
+- Trajectory: ATE / RPE (the TUM RGB-D benchmark metrics), numpy on host
+  trajectories as in the JAX package.
+- Image quality: QualityMSE / PSNR / SSIM / GMSD of the quality module
+  (quality/README.md:9-22). Maps go through the grid_transform kernel and
+  means through grid_reduce.
 
 `mse` and `psnr` return Python floats, as the JAX versions do, so each call
 waits for the device once."""
@@ -13,6 +16,60 @@ import torch
 
 from opencv_contrib_tpu_torch.ops import filters
 from opencv_contrib_tpu_torch.ops.cuda import reduce, transform
+
+
+# ----------------------------------------------------------------------------
+# Trajectory metrics
+# ----------------------------------------------------------------------------
+
+
+def umeyama_align(A: np.ndarray, B: np.ndarray, with_scale: bool = True):
+    """Similarity transform (s, R, t) minimizing |s R A + t - B|^2."""
+    muA, muB = A.mean(0), B.mean(0)
+    Ac, Bc = A - muA, B - muB
+    C = Bc.T @ Ac / len(A)
+    U, S, Vt = np.linalg.svd(C)
+    d = np.sign(np.linalg.det(U @ Vt))
+    D = np.diag([1.0, 1.0, d])
+    R = U @ D @ Vt
+    if with_scale:
+        var = (Ac**2).sum() / len(A)
+        s = float(np.trace(np.diag(S) @ D) / var)
+    else:
+        s = 1.0
+    t = muB - s * R @ muA
+    return s, R, t
+
+
+def ate_rmse(traj_est: np.ndarray, traj_gt: np.ndarray, align: bool = True) -> float:
+    """Absolute trajectory error (RMSE of aligned positions). traj_* are
+    (N, 3) camera centers or (N, 4, 4) poses."""
+    if traj_est.ndim == 3:
+        traj_est = traj_est[:, :3, 3]
+    if traj_gt.ndim == 3:
+        traj_gt = traj_gt[:, :3, 3]
+    if align:
+        s, R, t = umeyama_align(traj_est, traj_gt)
+        traj_est = (s * (R @ traj_est.T)).T + t
+    return float(np.sqrt(((traj_est - traj_gt) ** 2).sum(axis=1).mean()))
+
+
+def rpe(traj_est: np.ndarray, traj_gt: np.ndarray, delta: int = 1):
+    """Relative pose error over frame gaps of `delta`: returns (trans_rmse,
+    rot_rmse_rad). traj_* are (N, 4, 4)."""
+    t_errs, r_errs = [], []
+    for i in range(len(traj_est) - delta):
+        dE = np.linalg.inv(traj_est[i]) @ traj_est[i + delta]
+        dG = np.linalg.inv(traj_gt[i]) @ traj_gt[i + delta]
+        E = np.linalg.inv(dG) @ dE
+        t_errs.append(np.linalg.norm(E[:3, 3]))
+        r_errs.append(np.arccos(np.clip((np.trace(E[:3, :3]) - 1) / 2, -1, 1)))
+    return float(np.sqrt(np.mean(np.square(t_errs)))), float(np.sqrt(np.mean(np.square(r_errs))))
+
+
+# ----------------------------------------------------------------------------
+# Image quality
+# ----------------------------------------------------------------------------
 
 
 def _f32(a) -> torch.Tensor:

@@ -48,23 +48,23 @@ def test_port_has_its_files():
                  "utils/metrics.py", "quality/__init__.py", "quality/brisque.py", "utils/tracing.py",
                  "mvg/conditioning.py", "mvg/fundamental.py", "mvg/homography.py", "mvg/triangulation.py",
                  "mvg/robust.py", "mvg/resection.py", "sfm/__init__.py", "sfm/tracks.py", "sfm/pairing.py",
-                 "sfm/pipeline.py"):
+                 "sfm/pipeline.py", "sfm/pipeline_scale.py"):
         assert need in names
     for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu", "transform.cu", "reduce.cu", "histogram.cu", "maps.cuh"):
         assert (PORT / "ops/cuda/csrc" / cu).exists()
     assert (ROOT / "chip_smoke.py").exists()
 
 
-@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow", "photometric", "sfm"])
+@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow", "photometric", "sfm", "sfm_scale"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
     """Asked for "cuda" (their default) on a machine without a card, the
-    frontend, keyframe, dense-flow, photometric and SfM entry points raise
-    instead of running on the CPU."""
+    frontend, keyframe, dense-flow, photometric and both SfM drivers' entry
+    points raise instead of running on the CPU."""
     import numpy as np
     import torch
 
     from opencv_contrib_tpu_torch import entry
-    from opencv_contrib_tpu_torch.sfm import pipeline
+    from opencv_contrib_tpu_torch.sfm import pipeline, pipeline_scale
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     img = np.zeros((32, 48), np.float32)
@@ -75,7 +75,8 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
             "dense_flow": lambda: entry.dense_flow(img, img, "tvl1", levels=2),
             "photometric": lambda: entry.photometric(np.zeros((1, 32, 48, 3), np.float32),
                                                      np.zeros((1, 32, 48, 3), np.float32)),
-            "sfm": lambda: pipeline.reconstruct_incremental(*entry.sfm_scene(6, 150))}[name]
+            "sfm": lambda: pipeline.reconstruct_incremental(*entry.sfm_scene(6, 150)),
+            "sfm_scale": lambda: pipeline_scale.reconstruct_sequential(*entry.sfm_sequence_scene(24, 32)[:2])}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
