@@ -7,8 +7,9 @@ It builds the hand-written kernels from opencv_contrib_tpu_torch/ops/cuda/csrc
 (first use, a few seconds of nvcc), holds each kernel against its plain
 PyTorch version on the card, drives the port's main paths through the entry
 points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`,
-`entry.dense_flow`, `entry.photometric`, the two SfM drivers), and checks
-their outputs.
+`entry.dense_flow`, `entry.photometric`, the two SfM drivers,
+`entry.hash_kinfu_track`, `entry.large_kinfu_track`, `entry.rgbd_odometry`),
+and checks their outputs.
 
 Phases, one JSON line each:
   (a) build and launch checks at small ragged shapes;
@@ -104,7 +105,21 @@ Phases, one JSON line each:
       run of tests/test_scale_tpu.py profiled by step (chunk, windowed BA,
       re-triangulation, global bundle: launches, device ms and syncs each,
       busy share, top device ops); and a noise-free 48 x 48 orbit on the card
-      against the CPU with the same RANSAC draws.
+      against the CPU with the same RANSAC draws;
+  (p) the KinFu remainder at 640x480: `entry.hash_kinfu_track` (HashKinFu,
+      3 m / 512 voxels, 16,384 blocks) over orbit_poses(8, 0.5) with the
+      counters read around it, the drift gate, the pool and hit-share gates,
+      0 host syncs, ms and device ms a tick, stages a tick, peak memory;
+      `entry.large_kinfu_track` (96^3 submaps) over the wide orbit with its
+      gates, the loop constraint and `optimize_pose_graph`, host syncs a
+      frame; `entry.rgbd_odometry` (rgbd, icp, merged) on a textured pair,
+      its launches (4 pyrdown, 24 getAb), gates, ms and host syncs a call and
+      a profiled call; the colored TSDF at 512^3 (ms, peak memory),
+      register_depth, extract_planes, clean_depth (the integral kernel, held
+      to its plain version at the padded frame) and the three normals; the
+      same paths at 120x160 on the card against the CPU; and a HashKinFu tick
+      and a merged odometry with getAb and pyrdown swapped for their plain
+      versions.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -154,6 +169,10 @@ PATH_KERNELS = {"frontend": ("knn2", "integral_image"),
                 "photometric": ("grid_transform", "streamed_transform", "grid_reduce", "grid_histogram", "grid_scan"),
                 "sfm": (), "sfm_sparse": (), "sfm_scale": ()}
 LAUNCH_PATH = {k: path for path, ks in PATH_KERNELS.items() for k in ks}
+# phase p's paths: their counts go in the kernels line beside those of the paths above (launches_by_path)
+PATH_KERNELS.update({"hash_kinfu": ("grid_reduce_vec",), "large_kinfu": ("grid_reduce_vec",),
+                     "odometry": ("grid_reduce_vec", "pyrdown"), "odometry_icp": ("grid_reduce_vec", "pyrdown"),
+                     "odometry_rgbd": ("pyrdown",), "clean_depth": ("integral_image",)})
 DEVICE_KERNELS = ("knn2_kernel", "scan_rows_kernel", "integral_kernel", "grid_reduce_vec_kernel", "pyrdown_kernel",
                   "remap_kernel", "grid_transform_vec4_kernel", "grid_transform_strided_kernel",
                   "streamed_transform_kernel", "grid_reduce_vec4_kernel", "grid_reduce_strided_kernel",
@@ -322,6 +341,32 @@ SCALE_PREFIX = "sfm_scale."  # the 5k driver's spans (its own: sequential, globa
 SCALE_STEPS = {"_chunk_register_jit": "chunk", "_windowed_ba_jit": "windowed_ba", "_retriangulate": "retriangulate",
                "_global_ba_jit": "global_bundle"}
 
+# phase p, the KinFu remainder at VGA: 640x480 frames of the reference orbit rendered on the card with the
+# intrinsics (400, 400, 320, 240). HashKinFu: orbit_poses(8, sweep=0.5), 3 m / 512 voxels (the VGA / 512^3 KinFu's
+# voxel), 16,384 blocks (HashKinFu's default), the reference's drift gate (test_kinfu.cpp:326-330), no block evicted,
+# and the last raycast hitting >= 0.75 of the pixels with depth (the JAX package hits 0.83 on frame 0). LargeKinFu:
+# tests/test_rgbd_scale.py:67-80's wide orbit (10 frames, sweep 1.2, max_dist_from_center 0.35) with the 96^3 / 3 m
+# submaps of LargeKinFuParams, its drift gate, and :96-101's loop constraint. Odometry: tests/test_rgbd.py:197-210's
+# textured pair (frames 0 and 1) and its gate for icp and merged. The colored TSDF at 512^3 over 3.2 m (the
+# reference ColoredKinFu's dims), two frames with a seeded texture
+RGBD_SHAPE = (480, 640)
+RGBD_INTR = [400.0, 400.0, 320.0, 240.0, 0, 0, 0, 0, 0]
+HASH_VOXEL, HASH_CAPACITY, HASH_HIT_SHARE = 3.0 / 512, 16384, 0.75
+KINFU_DRIFT = (0.02, 0.1)  # rad, m
+LARGE_ORBIT, LARGE_PARAMS, LARGE_DRIFT = (10, 1.2), dict(max_dist_from_center=0.35), (0.05, 0.15)
+ODO_METHODS, ODO_GATE, N_ODO_TIMED = ("rgbd", "icp", "merged"), (0.015, 0.03), 3
+ODO_LAUNCHES = {"rgbd": {"pyrdown": 4, "grid_reduce_vec": 0}, "icp": {"pyrdown": 4, "grid_reduce_vec": 24},
+                "merged": {"pyrdown": 4, "grid_reduce_vec": 24}}  # 2 gray pyramids of 3 levels; 7 + 7 + 10 steps
+COLORED_RES, COLORED_SIZE = (512, 512, 512), 3.2
+HASH_STAGES = {"make_frame", "icp", "allocate", "integrate", "raycast"}  # HashKinFu.update's record_function ranges
+N_HASH_TIMED, N_HASH_PROFILED = 6, 2
+# the card against the CPU at tests/test_rgbd.py's 120x160 (intrinsics 120, 120, 80, 60): the CPU tests'
+# tolerances, with the allowances widened where the card's summation order shows (getAb, cuBLAS, the integral kernel)
+RGBD_SMALL_SHAPE = (120, 160)
+RGBD_SMALL_INTR = [120.0, 120.0, 80.0, 60.0, 0, 0, 0, 0, 0]
+RGBD_CPU_TOL = {"hash_pose": 1e-4, "blocks": 1e-3, "large_pose": 2e-3, "odometry_T": 1e-4, "colors": 1e-5,
+                "voxel_share": 1e-3, "pixel_share": 1e-3, "plane": 1e-4, "clean_depth": 1e-5, "normals": 1e-4}
+RGBD_PLAIN_TOL = 1e-4  # a HashKinFu tick's pose and a merged odometry's T, kernel path against plain path
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -986,11 +1031,12 @@ class Smoke(Timer):
             emit(row)
 
     # ---- (g) -----------------------------------------------------------------
-    def orbit_depths(self, shape=(480, 640), intr=KINFU_INTR):
-        """Depth frames of the reference orbit, rendered on the card."""
+    def orbit_depths(self, shape=(480, 640), intr=KINFU_INTR, n: int = N_ORBIT, sweep: float = ORBIT_SWEEP):
+        """Poses (numpy) and depth frames (n, H, W) of the reference orbit,
+        rendered on the card."""
         from opencv_contrib_tpu_torch.utils import sdf_scene
 
-        poses = sdf_scene.orbit_poses(N_ORBIT, sweep=ORBIT_SWEEP)
+        poses = sdf_scene.orbit_poses(n, sweep=sweep)
         it = self.card(intr)
         return poses, self.torch.stack([sdf_scene.render_depth(self.card(p), it, shape=shape) for p in poses])
 
@@ -1126,13 +1172,23 @@ class Smoke(Timer):
 
     def drift(self, poses, T_cw_last):
         """Pose drift of the last frame against the orbit's truth, modulo the
-        first frame (KinFu's world is the first camera frame)."""
+        first frame (KinFu's world is the first camera frame), by
+        `rel_error`."""
+        from opencv_contrib_tpu_torch.core import se3
+
+        T_gt = se3.inverse(self.card(poses[0])) @ self.card(poses[-1])
+        return self.rel_error(se3.inverse(T_gt) @ se3.inverse(T_cw_last))
+
+    def rel_error(self, T):
+        """The rotation angle and the translation length of the relative
+        transform T (4, 4). Not log_se3's twist: its translation part is NaN
+        for rotations of 1e-4 to about 2.4e-4 rad in float32 (the cosine
+        rounds to 1), a defect of the JAX package's se3 that the port keeps
+        (ROADMAP Queue 3)."""
         from opencv_contrib_tpu_torch.core import se3
 
         torch = self.torch
-        T_gt = se3.inverse(self.card(poses[0])) @ self.card(poses[-1])
-        d = se3.log_se3(se3.inverse(T_gt) @ se3.inverse(T_cw_last))
-        return {"rot": float(torch.linalg.norm(d[:3])), "trans": float(torch.linalg.norm(d[3:]))}
+        return {"rot": float(torch.linalg.norm(se3.log_so3(T[:3, :3]))), "trans": float(torch.linalg.norm(T[:3, 3]))}
 
     def profile_kinfu(self, n: int = 2):
         """The bench tick under torch.profiler: device busy share, top device
@@ -1156,7 +1212,7 @@ class Smoke(Timer):
               "our_kernels": ours})
 
     @staticmethod
-    def kinfu_stages(prof, n: int) -> dict:
+    def kinfu_stages(prof, n: int, stages=frozenset({"make_frame", "icp", "integrate", "raycast"})) -> dict:
         """Per tick, for each of KinFu.update's record_function ranges: the
         host ms inside it, and the device ms and launches of the kernels
         launched inside it (the ticks run unsynchronised, so the host and the
@@ -1175,7 +1231,7 @@ class Smoke(Timer):
                 row["host_ms"] += e.cpu_time_total / 1e3 / n
                 row["device_ms"] += sum(k.duration for k in ks) / 1e3 / n
                 row["launches"] += len(ks) / n
-        check(set(out) == {"make_frame", "icp", "integrate", "raycast"}, f"KinFu stage ranges: {sorted(out)}")
+        check(set(out) == set(stages), f"KinFu stage ranges: {sorted(out)}")
         return out
 
     # ---- (i) -----------------------------------------------------------------
@@ -2307,6 +2363,361 @@ class Smoke(Timer):
               and out["aligned_points_rms"] <= tol["aligned_points"], f"sfm_scale small, card vs CPU: {out}")
         return out
 
+    # ---- (p) -----------------------------------------------------------------
+    def rgbd(self):
+        out, parts = {}, {}
+        for name, fn in (("hash_kinfu", self.hash_kinfu), ("large_kinfu", self.large_kinfu),
+                         ("odometry", self.odometry), ("modules", self.rgbd_modules),
+                         ("card_vs_cpu", self.rgbd_card_vs_cpu), ("plain_path", self.rgbd_plain_path)):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            parts[name] = time.perf_counter() - t0
+        emit({"phase": "p_rgbd", **out, "phase_parts_s": parts,
+              "tolerance": f"HashKinFu: every tick tracks, drift rot < {KINFU_DRIFT[0]}, trans < {KINFU_DRIFT[1]} m, "
+                           f"blocks < {HASH_CAPACITY}, last raycast hits >= {HASH_HIT_SHARE} of the pixels with "
+                           f"depth, 0 host syncs in the port; LargeKinFu: every frame tracks, >= 2 submaps, drift "
+                           f"rot < {LARGE_DRIFT[0]}, trans < {LARGE_DRIFT[1]} m, final pose-graph cost <= initial; "
+                           f"odometry: ok, icp and merged within {ODO_GATE[0]} rad / {ODO_GATE[1]} m; card vs CPU: "
+                           f"{RGBD_CPU_TOL}; plain path within {RGBD_PLAIN_TOL}",
+              "timing": "ms: host clock around synchronised calls; device_ms: kernel time from torch.profiler; "
+                        "peak memory from torch.cuda.max_memory_allocated over the run",
+              "ok": True})
+
+    def vga_orbit(self):
+        """orbit_poses(8, sweep=0.5) at VGA with RGBD_INTR, rendered once."""
+        if getattr(self, "_vga_orbit", None) is None:
+            self._vga_orbit = self.orbit_depths(RGBD_SHAPE, RGBD_INTR)
+        return self._vga_orbit
+
+    def textured_gray(self, depth, T_wc, intr):
+        """tests/test_rgbd.py:199-203's texture, sin(4x) cos(4y) of the world
+        point seen at each pixel (0 where there is no depth)."""
+        from opencv_contrib_tpu_torch.rgbd import frame
+
+        torch = self.torch
+        T = torch.as_tensor(T_wc, device=depth.device)
+        pw = torch.einsum("ij,hwj->hwi", T[:3, :3], frame.depth_to_points(depth, intr)) + T[:3, 3]
+        return torch.sin(4.0 * pw[..., 0]) * torch.cos(4.0 * pw[..., 1]) * (depth > 0)
+
+    def peak_gb(self, fn):
+        """fn's result, and the peak device memory during it above what was
+        held before it, in GB."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+
+    def hash_kinfu(self) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+
+        from opencv_contrib_tpu_torch.rgbd import hash_tsdf, kinfu
+
+        torch, entry = self.torch, self.entry
+        poses, depths = self.vga_orbit()
+        kw = dict(frame_shape=RGBD_SHAPE, voxel_size=HASH_VOXEL, capacity=HASH_CAPACITY)
+        entry.hash_kinfu_track(depths[:2], RGBD_INTR, **kw)  # warm-up: cuSOLVER, the allocator
+        (track, s), peak = self.peak_gb(lambda: self.counted("hash_kinfu",
+                                                             lambda: entry.hash_kinfu_track(depths, RGBD_INTR, **kw)))
+        ok, n_active = track.ok.cpu().tolist(), track.n_active.cpu().tolist()
+        check(all(ok), f"HashKinFu lost tracking: {ok}")
+        drift = self.drift(poses, track.T_cw[-1])
+        check(drift["rot"] < KINFU_DRIFT[0] and drift["trans"] < KINFU_DRIFT[1], f"HashKinFu drift {drift}")
+        check(max(n_active) < HASH_CAPACITY, f"HashKinFu pool full: {n_active}")
+        intr = self.card(RGBD_INTR)
+        _, _, valid = hash_tsdf.raycast(track.volume, intr, track.T_cw[-1], shape=RGBD_SHAPE)
+        has = depths[-1] > 0
+        hit = float((valid & has).sum()) / float(has.sum())
+        check(hit >= HASH_HIT_SHARE, f"HashKinFu last raycast hits {hit} of the pixels with depth")
+        ticks = len(depths) - 1
+        getab = self.launches["hash_kinfu"]["grid_reduce_vec"] / ticks
+        check(getab == sum(kinfu.KinFuParams.icp_iterations), f"getAb launches per tick {getab}")
+        syncs = self.count_syncs(lambda: entry.hash_kinfu_track(depths, RGBD_INTR, **kw))
+        check(syncs["in_the_port"] == 0, f"HashKinFu ticks synchronised the host: {syncs}")
+
+        # ms per tick: a tracker past frames 0-1, N_HASH_TIMED unsynchronised ticks, then profiled ticks
+        p = kinfu.KinFuParams(intr=np.asarray(RGBD_INTR, np.float32), frame_shape=RGBD_SHAPE,
+                              volume_resolution=(512,) * 3, volume_size=HASH_VOXEL * 512)
+        kf = kinfu.HashKinFu(p, capacity=HASH_CAPACITY)
+        kf.update(depths[0])
+        kf.update(depths[1])
+        order = list(range(2, len(depths))) + list(range(len(depths) - 2, 1, -1))  # out and back along the orbit
+        frames = [depths[i] for i in order[:N_HASH_TIMED]]
+        _, wall = self.wall_s(lambda: [kf.update(f, sync=False) for f in frames])
+        check(bool(kf.last_ok), "HashKinFu timed ticks lost tracking")
+        prof_frames = [depths[i] for i in order[N_HASH_TIMED:N_HASH_TIMED + N_HASH_PROFILED]]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_prof = self.wall_s(lambda: [kf.update(f, sync=False) for f in prof_frames])
+        ev = kernel_events(prof)
+        busy_us = sum(e.self_device_time_total for e in ev)
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+        return {"frames": [len(depths), *RGBD_SHAPE], "voxel_m": HASH_VOXEL, "capacity": HASH_CAPACITY,
+                "s_entry_run": s, "ms_per_frame_entry": s / len(depths) * 1e3, "ms_per_tick": wall / len(frames) * 1e3,
+                "device_ms_per_tick": busy_us / 1e3 / len(prof_frames), "device_busy_share": busy_us * 1e-6 / wall_prof,
+                "stages_per_tick": self.kinfu_stages(prof, len(prof_frames), HASH_STAGES),
+                "top_device": [{"name": e.key[:80], "count": e.count, "us": e.self_device_time_total} for e in top],
+                "active_blocks": n_active, "raycast_hit_share": hit, "drift": drift, "ok": ok,
+                "launches": self.launches["hash_kinfu"], "getab_per_tick": getab, "host_syncs_run": syncs,
+                "host_syncs_per_tick": syncs["in_the_port"] / ticks, "peak_mem_gb": peak}
+
+    def large_kinfu(self) -> dict:
+        from opencv_contrib_tpu_torch.rgbd import kinfu, submap
+
+        entry = self.entry
+        poses, depths = self.orbit_depths(RGBD_SHAPE, RGBD_INTR, *LARGE_ORBIT)
+        kw = dict(frame_shape=RGBD_SHAPE, **LARGE_PARAMS)
+        entry.large_kinfu_track(depths[:2], RGBD_INTR, **kw)  # warm-up
+        (out, s), peak = self.peak_gb(lambda: self.counted("large_kinfu",
+                                                           lambda: entry.large_kinfu_track(depths, RGBD_INTR, **kw)))
+        check(all(out.ok), f"LargeKinFu lost tracking: {out.ok}")
+        check(out.n_submaps[-1] >= 2, f"LargeKinFu made {out.n_submaps[-1]} submaps")
+        drift = self.drift(poses, out.T_cw[-1])
+        check(drift["rot"] < LARGE_DRIFT[0] and drift["trans"] < LARGE_DRIFT[1], f"LargeKinFu drift {drift}")
+        getab = self.launches["large_kinfu"]["grid_reduce_vec"] / (len(depths) - 1)
+        check(getab == sum(kinfu.KinFuParams.icp_iterations), f"getAb launches per frame {getab}")
+        lk = out.tracker
+        i, j = 0, len(lk.submaps) - 1  # tests/test_rgbd_scale.py:96-101: first -> last from the current estimates
+        lk.add_loop_constraint(i, j, submap._host_mul(lk.submaps[i].T_ws, lk.submaps[j].T_ws, invert_a=True), 2.0)
+        (c0, c1), s_opt = self.wall_s(lambda: lk.optimize_pose_graph(n_iters=15))
+        check(np.isfinite(c0) and c1 <= c0, f"pose graph costs {c0} -> {c1}")
+        _, s_opt2 = self.wall_s(lambda: lk.optimize_pose_graph(n_iters=15))  # warm
+        syncs_opt = self.count_syncs(lambda: lk.optimize_pose_graph(n_iters=15))
+        syncs = self.count_syncs(lambda: entry.large_kinfu_track(depths, RGBD_INTR, **kw))
+        return {"frames": [len(depths), *RGBD_SHAPE], "params": LARGE_PARAMS, "s": s,
+                "ms_per_frame": s / len(depths) * 1e3, "submaps_after_frame": out.n_submaps, "drift": drift,
+                "pose_graph_costs": [c0, c1], "s_optimize_15": [s_opt, s_opt2], "host_syncs_optimize": syncs_opt,
+                "launches": self.launches["large_kinfu"], "getab_per_frame": getab, "host_syncs_run": syncs,
+                "host_syncs_per_frame": syncs["in_the_port"] / len(depths), "peak_mem_gb": peak}
+
+    def odometry(self) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+
+        from opencv_contrib_tpu_torch.core import se3
+
+        torch, entry = self.torch, self.entry
+        poses, depths = self.vga_orbit()
+        intr = self.card(RGBD_INTR)
+        g0, g1 = (self.textured_gray(depths[k], poses[k], intr) for k in (0, 1))
+        args = (g1, depths[1], g0, depths[0], RGBD_INTR)  # src = frame 1, dst = frame 0
+        T_gt = se3.inverse(self.card(poses[0])) @ self.card(poses[1])
+        rows = {}
+        for method in ODO_METHODS:
+            entry.rgbd_odometry(*args, method=method)  # warm-up
+            (T, ok), s = self.counted("odometry" if method == "merged" else "odometry_" + method,
+                                      lambda: entry.rgbd_odometry(*args, method=method))
+            launches = self.launches["odometry" if method == "merged" else "odometry_" + method]
+            err = self.rel_error(T_gt @ se3.inverse(T))
+            check(ok, f"odometry {method}: not ok")
+            if method != "rgbd":
+                check(err["rot"] < ODO_GATE[0] and err["trans"] < ODO_GATE[1], f"odometry {method}: {err}")
+            check(all(launches[k] == v for k, v in ODO_LAUNCHES[method].items()),
+                  f"odometry {method} launches {launches}")
+            wall = [self.wall_s(lambda: entry.rgbd_odometry(*args, method=method))[1] for _ in range(N_ODO_TIMED)]
+            rows[method] = {"error_vs_truth": err, "ms_per_call": float(np.median(wall)) * 1e3,
+                            "ms_first_counted": s * 1e3, "launches": launches,
+                            "host_syncs_call": self.count_syncs(lambda: entry.rgbd_odometry(*args, method=method))}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = self.wall_s(lambda: entry.rgbd_odometry(*args, method="merged"))
+        ev = kernel_events(prof)
+        busy_us = sum(e.self_device_time_total for e in ev)
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+        rows["merged"]["profile"] = {
+            "wall_ms_under_profiler": wall * 1e3, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us * 1e-6 / wall,
+            "device_launches": sum(e.count for e in ev),
+            "top_device": [{"name": e.key[:80], "count": e.count, "us": e.self_device_time_total} for e in top]}
+        return {"pair": "orbit_poses(8, sweep=0.5) frames 1 -> 0, textured", "shape": list(RGBD_SHAPE), **rows}
+
+    def rgbd_modules(self) -> dict:
+        from opencv_contrib_tpu_torch.core import se3
+        from opencv_contrib_tpu_torch.ops.cuda import scan
+        from opencv_contrib_tpu_torch.rgbd import colored_tsdf, depth_utils, normals
+
+        torch = self.torch
+        poses, depths = self.vga_orbit()
+        intr = self.card(RGBD_INTR)
+        rgb = self.card(np.random.default_rng(5).uniform(0, 1, RGBD_SHAPE + (3,)))
+        T_cw = [se3.inverse(self.card(p)) for p in poses]
+        out = {}
+
+        def timed(name, fn):
+            fn()  # warm-up
+            res, s = self.wall_s(fn)
+            out[name + "_ms"] = s * 1e3
+            return res
+
+        def colored():
+            vol = colored_tsdf.create(COLORED_RES, COLORED_SIZE, device=self.dev)
+            for k in (0, 1):
+                vol = colored_tsdf.integrate(vol, depths[k], rgb, intr, T_cw[k])
+            return vol
+
+        vol, out["colored_integrate2_peak_gb"] = self.peak_gb(colored)
+        (pts, _, col, valid), out["raycast_colored_peak_gb"] = self.peak_gb(
+            lambda: colored_tsdf.raycast_colored(vol, intr, T_cw[1], shape=RGBD_SHAPE))
+        share = float((valid & (depths[1] > 0)).sum()) / float((depths[1] > 0).sum())
+        check(share > 0.5 and bool(torch.isfinite(col).all()) and float(col.max()) <= 1.0,
+              f"raycast_colored: hit share {share}")
+        out["colored_hit_share"] = share
+        timed("colored_integrate", lambda: colored_tsdf.integrate(vol, depths[1], rgb, intr, T_cw[1]))
+        timed("raycast_colored", lambda: colored_tsdf.raycast_colored(vol, intr, T_cw[1], shape=RGBD_SHAPE))
+        del vol
+        intr_rgb = self.card([410.0, 405.0, 318.0, 244.0, 0, 0, 0, 0, 0])
+        T_rgb = se3.exp_se3(self.card([0.01, 0.02, -0.01, 0.05, -0.01, 0.02]))
+        reg = timed("register_depth", lambda: depth_utils.register_depth(depths[0], intr, intr_rgb, T_rgb))
+        out["register_share"] = float((reg > 0).float().mean())
+        plane, mask = timed("extract_planes", lambda: depth_utils.extract_planes(
+            depths[0], intr, torch.Generator().manual_seed(0)))
+        out["plane"], out["plane_share"] = plane.cpu().tolist(), float(mask.float().mean())
+        check(abs(float(torch.linalg.norm(plane[:3])) - 1.0) < 1e-4 and out["plane_share"] > 0.05,
+              f"extract_planes: {out['plane']}, {out['plane_share']}")
+        depth_utils.clean_depth(depths[0], intr)  # warm-up
+        cleaned, s = self.counted("clean_depth", lambda: depth_utils.clean_depth(depths[0], intr))
+        out["clean_depth_ms"], out["clean_depth_launches"] = s * 1e3, self.launches["clean_depth"]
+        check(bool(torch.isfinite(cleaned).all()) and bool((cleaned[depths[0] == 0] == 0).all()), "clean_depth")
+        # clean_depth's summed-area tables are the integral kernel's, at the padded frame's shape
+        x = torch.nn.functional.pad(depths[0], (1, 1, 1, 1))
+        ii, ref = scan.integral_padded(x), scan.integral_padded_plain(x)
+        err, top = float((ii - ref).abs().max()), float(ref.abs().max())
+        check(err <= 2e-6 * top, f"integral at {tuple(x.shape)}: {err} > 2e-6 * {top}")
+        out["integral_padded"] = {"shape": list(x.shape), "max_abs_err": err, "max_abs": top}
+        for m in normals.METHODS:
+            n = timed("normals_" + m, lambda: normals.rgbd_normals(depths[0], intr, method=m))
+            share = float((n.abs().sum(-1) > 0).float().mean())
+            check(share > 0.3 and bool(torch.isfinite(n).all()), f"normals {m}: valid share {share}")
+        return out
+
+    def rgbd_card_vs_cpu(self) -> dict:
+        """The paths of this phase at 120x160 on the card and on the CPU."""
+        from opencv_contrib_tpu_torch.core import se3
+        from opencv_contrib_tpu_torch.ops.cuda import scan
+        from opencv_contrib_tpu_torch.rgbd import colored_tsdf, depth_utils, normals
+
+        torch, entry = self.torch, self.entry
+        cpu, tol, out = torch.device("cpu"), RGBD_CPU_TOL, {}
+        sk = dict(frame_shape=RGBD_SMALL_SHAPE)
+
+        def both(fn):
+            return fn(self.dev), fn(cpu)
+
+        def pose_diff(a, b):
+            return float((a.cpu() - b.cpu()).abs().max())
+
+        poses, small = self.orbit_depths(RGBD_SMALL_SHAPE, RGBD_SMALL_INTR)
+        small = small.cpu()  # both devices track the card's renders
+        hc, hh = both(lambda d: entry.hash_kinfu_track(small[:5].to(d), RGBD_SMALL_INTR, voxel_size=3.2 / 96,
+                                                       capacity=4096, device=d, **sk))
+        out["hash_kinfu_pose"] = max(pose_diff(a, b) for a, b in zip(hc.T_cw, hh.T_cw))
+        nc, nh = hc.n_active.cpu().tolist(), hh.n_active.tolist()
+        out["hash_kinfu_blocks"] = [nc, nh]
+        check(bool(hc.ok.all()) and bool(hh.ok.all()) and out["hash_kinfu_pose"] <= tol["hash_pose"]
+              and all(abs(a - b) <= max(2, tol["blocks"] * b) for a, b in zip(nc, nh)), f"HashKinFu card vs CPU {out}")
+
+        _, wide = self.orbit_depths(RGBD_SMALL_SHAPE, RGBD_SMALL_INTR, *LARGE_ORBIT)
+        wide = wide[:6].cpu()
+        lc, lh = both(lambda d: entry.large_kinfu_track(wide.to(d), RGBD_SMALL_INTR, device=d,
+                                                        max_dist_from_center=0.2, **sk))
+        out["large_kinfu_pose"] = max(pose_diff(a, b) for a, b in zip(lc.T_cw, lh.T_cw))
+        out["large_kinfu_submaps"] = [lc.n_submaps, lh.n_submaps]
+        check(all(lc.ok) and all(lh.ok) and lc.n_submaps == lh.n_submaps and lc.n_submaps[-1] >= 2
+              and out["large_kinfu_pose"] <= tol["large_pose"], f"LargeKinFu card vs CPU {out}")
+
+        gray = [self.textured_gray(small[k].to(self.dev), poses[k], self.card(RGBD_SMALL_INTR)).cpu() for k in (0, 1)]
+        for m in ODO_METHODS:
+            (Tc, okc), (Th, okh) = both(lambda d: entry.rgbd_odometry(gray[1], small[1], gray[0], small[0],
+                                                                      RGBD_SMALL_INTR, method=m, device=d))
+            out["odometry_" + m] = pose_diff(Tc, Th)
+            check(okc == okh and out["odometry_" + m] <= tol["odometry_T"], f"odometry {m} card vs CPU {out}")
+
+        it = {d: torch.as_tensor(np.asarray(RGBD_SMALL_INTR, np.float32), device=d) for d in (self.dev, cpu)}
+        T_cw = [se3.inverse(torch.as_tensor(p)) for p in poses[:2]]
+        rgb = torch.as_tensor(np.random.default_rng(5).uniform(0, 1, RGBD_SMALL_SHAPE + (3,)).astype(np.float32))
+
+        def colored(d):
+            vol = colored_tsdf.create((64, 64, 64), 3.2, device=d)
+            for k in (0, 1):
+                vol = colored_tsdf.integrate(vol, small[k].to(d), rgb.to(d), it[d], T_cw[k].to(d))
+            return vol, colored_tsdf.raycast_colored(vol, it[d], T_cw[1].to(d), shape=RGBD_SMALL_SHAPE)
+
+        (vc, rc), (vh, rh) = both(colored)
+        wdiff = (vc.base.weight.cpu() != vh.base.weight).float().mean().item()
+        cdiff = (vc.color.cpu() - vh.color).abs().amax(-1)
+        out["colored"] = {"weight_differs_share": wdiff, "color_over_tol_share": float((cdiff > tol["colors"]).float()
+                                                                                       .mean()),
+                          "raycast_valid_differs": int((rc[3].cpu() != rh[3]).sum()),
+                          "raycast_color_max": float((rc[2].cpu() - rh[2])[rc[3].cpu() & rh[3]].abs().max())}
+        check(wdiff <= tol["voxel_share"] and out["colored"]["color_over_tol_share"] <= tol["voxel_share"]
+              and out["colored"]["raycast_valid_differs"] <= max(2, tol["pixel_share"] * rh[3].numel()),
+              f"colored TSDF card vs CPU {out['colored']}")
+
+        d0 = {d: small[0].to(d) for d in (self.dev, cpu)}
+        intr_rgb = np.array([130.0, 128.0, 78.0, 62.0, 0, 0, 0, 0, 0], np.float32)
+        T_rgb = se3.exp_se3(torch.tensor([0.01, 0.02, -0.01, 0.05, -0.01, 0.02]))
+        rc_, rh_ = both(lambda d: depth_utils.register_depth(d0[d], it[d], torch.as_tensor(intr_rgb, device=d),
+                                                             T_rgb.to(d)))
+        out["register_differs"] = int((rc_.cpu() != rh_).sum())
+        (pc, mc), (ph, mh) = both(lambda d: depth_utils.extract_planes(d0[d], it[d], torch.Generator().manual_seed(3)))
+        out["plane"] = float((pc.cpu() - ph).abs().max())
+        out["plane_mask_differs"] = int((mc.cpu() != mh).sum())
+        check(out["register_differs"] <= max(2, 1e-4 * rh_.numel()) and out["plane"] <= tol["plane"]
+              and out["plane_mask_differs"] <= max(2, 1e-4 * mh.numel()), f"depth utils card vs CPU {out}")
+        # clean_depth: the card's box sums are differences of the integral kernel's tables, which sum in their own
+        # order: the depth may move by 4x the largest table difference (of the z channel, the largest table)
+        cc, ch = both(lambda d: depth_utils.clean_depth(d0[d], it[d]))
+        x = torch.nn.functional.pad(d0[self.dev], (1, 1, 1, 1))
+        table = float((scan.integral_padded(x) - scan.integral_padded_plain(x)).abs().max())
+        out["clean_depth"] = {"max_diff": float((cc.cpu() - ch).abs().max()), "table_diff": table}
+        check(out["clean_depth"]["max_diff"] <= tol["clean_depth"] + 4 * table, f"clean_depth card vs CPU {out}")
+        with plain_path():
+            cp = depth_utils.clean_depth(d0[self.dev], it[self.dev])
+        out["clean_depth"]["plain_path_vs_cpu"] = float((cp.cpu() - ch).abs().max())
+        check(out["clean_depth"]["plain_path_vs_cpu"] <= tol["clean_depth"], f"clean_depth plain vs CPU {out}")
+        # normals; FALS within 1e-4 + 2 eps kappa (tests/test_torch_rgbd_odometry.py: kappa is 3e3-3e4 here)
+        A = normals._fals_system(d0[cpu], it[cpu])[0].double().numpy()
+        kappa = np.linalg.cond(np.where(np.asarray(small[0] > 0)[..., None, None], A, np.eye(3)))
+        for m in normals.METHODS:
+            nc_, nh_ = both(lambda d: normals.rgbd_normals(d0[d], it[d], method=m))
+            diff = (nc_.cpu() - nh_).abs().amax(-1).numpy()
+            bound = tol["normals"] + (2 * 2.0 ** -24 * kappa if m == "fals" else 0.0)
+            valid = (nh_.abs().sum(-1) > 0).numpy()
+            out["normals_" + m] = {"max_diff": float(diff[valid].max()), "over_bound": int((diff > bound)[valid].sum()),
+                                   "valid_differs": int(((nc_.cpu().abs().sum(-1) > 0).numpy() != valid).sum())}
+            check(out["normals_" + m]["over_bound"] == 0 and out["normals_" + m]["valid_differs"] <= 2,
+                  f"normals {m} card vs CPU {out['normals_' + m]}")
+        return out
+
+    def rgbd_plain_path(self) -> dict:
+        """One HashKinFu tick and one merged odometry at VGA with getAb and
+        pyrdown swapped for their plain versions, against the kernel path."""
+        from opencv_contrib_tpu_torch.rgbd import kinfu
+
+        entry = self.entry
+        poses, depths = self.vga_orbit()
+
+        def tick():
+            p = kinfu.KinFuParams(intr=np.asarray(RGBD_INTR, np.float32), frame_shape=RGBD_SHAPE,
+                                  volume_resolution=(512,) * 3, volume_size=HASH_VOXEL * 512)
+            kf = kinfu.HashKinFu(p, capacity=HASH_CAPACITY)
+            kf.update(depths[0])
+            check(kf.update(depths[1]), "HashKinFu tick lost tracking")
+            return kf.T_cw
+
+        intr = self.card(RGBD_INTR)
+        g0, g1 = (self.textured_gray(depths[k], poses[k], intr) for k in (0, 1))
+
+        def odo():
+            return entry.rgbd_odometry(g1, depths[1], g0, depths[0], RGBD_INTR, method="merged")[0]
+
+        kernel = (tick(), odo())
+        with plain_path():
+            plain = (tick(), odo())
+        out = {"hash_kinfu_tick_pose": float((kernel[0] - plain[0]).abs().max()),
+               "odometry_merged_T": float((kernel[1] - plain[1]).abs().max())}
+        check(max(out.values()) <= RGBD_PLAIN_TOL, f"plain path differs from the kernel path: {out}")
+        return out
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -2315,6 +2726,8 @@ class Smoke(Timer):
             line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                          "launches": self.launches[path][name], "launches_path": path, "shape": row["shape"],
                          "max_abs_err": row["max_abs_err"], "ms": row["ms"], "kernel_ms": row.get("kernel_ms", row["ms"]),
+                         "launches_by_path": {p: self.launches[p][name] for p, ks in PATH_KERNELS.items()
+                                              if name in ks and p in self.launches},
                          "plain_ms": row["plain_ms"],
                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                          "library_ms": row["library_ms"], "wall_ms": row["wall_ms"],
@@ -2332,7 +2745,7 @@ def main() -> int:
     smoke = Smoke()
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
                   smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
-                  smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale):
+                  smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

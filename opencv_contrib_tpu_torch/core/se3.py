@@ -109,7 +109,7 @@ def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)  # no host-to-device copy
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)  # an item assignment of a Python number would copy it from the host: a sync
     return T
 
 

@@ -10,6 +10,14 @@
 - `kinfu_track(depths, intr, ...)`: the KinectFusion tick over a depth
   sequence (`bench.py::bench_kinfu_vga512` runs it at VGA / 512^3 on the
   frames of `kinfu_bench_frames`).
+- `hash_kinfu_track(depths, intr, ...)`: the same on the hashed-block
+  volume (`rgbd.kinfu.HashKinFu`), at VGA and 3 m / 512 voxels by default.
+- `large_kinfu_track(depths, intr, ...)`: the submap-based large-scale KinFu
+  (`rgbd.submap.LargeKinFu`); the tracker is returned for loop constraints
+  and its pose-graph optimisation.
+- `rgbd_odometry(gray_src, depth_src, gray_dst, depth_dst, intr, method)`:
+  frame-to-frame RGB-D odometry (`rgbd.odometry.compute`: "rgbd", "icp" or
+  "merged").
 - `dense_flow(I0, I1, method)`: DIS-class or TV-L1 dense optical flow;
   `flow_pair()` makes a textured pair at MPI-Sintel's 436 x 1024 with its
   true flow.
@@ -46,7 +54,8 @@ from opencv_contrib_tpu_torch.mvg import resection
 from opencv_contrib_tpu_torch.ops import filters
 from opencv_contrib_tpu_torch.ops.histogram import clahe
 from opencv_contrib_tpu_torch.ops.image import warp_affine
-from opencv_contrib_tpu_torch.rgbd import kinfu
+from opencv_contrib_tpu_torch.rgbd import kinfu, odometry, submap
+from opencv_contrib_tpu_torch.rgbd.hash_tsdf import HashTSDF
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_sequence_scene
 from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
@@ -164,6 +173,59 @@ def kinfu_track(depths, intr, frame_shape=(480, 640), volume_resolution=(512, 51
         poses.append(kf.T_cw)
         oks.append(kf.last_ok)
     return KinFuTrack(torch.stack(poses), torch.stack(oks), kf.volume)
+
+
+class HashKinFuTrack(NamedTuple):
+    T_cw: torch.Tensor  # (N, 4, 4) world -> camera pose after each frame
+    ok: torch.Tensor  # (N,) tracking flag of each frame (True for the first)
+    n_active: torch.Tensor  # (N,) allocated blocks after each frame
+    volume: HashTSDF  # the volume after the last frame
+
+
+def hash_kinfu_track(depths, intr, frame_shape=(480, 640), voxel_size: float = 3.0 / 512, capacity: int = 16384,
+                     device="cuda") -> HashKinFuTrack:
+    """Run the hashed-block KinFu tick (`rgbd.kinfu.HashKinFu`) over depths
+    (N, H, W) in meters: per-frame pose, tracking flag and block count, and
+    the final volume. Nothing is read back to the host until the caller
+    reads the result."""
+    p = kinfu.KinFuParams(intr=np.asarray(intr, np.float32), frame_shape=tuple(frame_shape),
+                          volume_resolution=(512, 512, 512), volume_size=voxel_size * 512)
+    kf = kinfu.HashKinFu(p, capacity=capacity, device=device)
+    poses, oks, active = [], [], []
+    for d in depths:
+        kf.update(d, sync=False)
+        poses.append(kf.T_cw)
+        oks.append(kf.last_ok)
+        active.append(kf.volume.active.sum())
+    return HashKinFuTrack(torch.stack(poses), torch.stack(oks), torch.stack(active), kf.volume)
+
+
+class LargeKinFuTrack(NamedTuple):
+    T_cw: torch.Tensor  # (N, 4, 4) world -> camera pose after each frame
+    ok: list  # tracking flag of each frame (True for the first)
+    n_submaps: list  # submaps after each frame
+    tracker: submap.LargeKinFu  # for add_loop_constraint / optimize_pose_graph
+
+
+def large_kinfu_track(depths, intr, frame_shape=(480, 640), device="cuda", **params) -> LargeKinFuTrack:
+    """Run the large-scale KinFu (`rgbd.submap.LargeKinFu`) over depths
+    (N, H, W) in meters; `params` are further `LargeKinFuParams` fields
+    (volume_resolution, max_dist_from_center, ...). The tracker reads two
+    values back to the host a frame (the reference's control flow)."""
+    p = submap.LargeKinFuParams(intr=np.asarray(intr, np.float32), frame_shape=tuple(frame_shape), **params)
+    lk = submap.LargeKinFu(p, device=device)
+    poses, oks, counts = [], [], []
+    for d in depths:
+        oks.append(lk.update(d))
+        poses.append(lk.T_cw)
+        counts.append(len(lk.submaps))
+    return LargeKinFuTrack(torch.stack(poses), oks, counts, lk)
+
+
+def rgbd_odometry(gray_src, depth_src, gray_dst, depth_dst, intr, method: str = "merged", device="cuda"):
+    """The transform src camera -> dst camera from two gray + depth frames
+    (`rgbd.odometry.compute`): (T (4, 4) on the device, success bool)."""
+    return odometry.compute(gray_src, depth_src, gray_dst, depth_dst, intr, method=method, device=device)
 
 
 def kinfu_bench_frames(n: int, H: int = 480, W: int = 640) -> np.ndarray:

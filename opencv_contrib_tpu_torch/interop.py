@@ -3,9 +3,10 @@
 The port has no learned weights: its state is the NamedTuples (Keypoints,
 Matches, BAProblem, BAResult, the sparse BA's SparseBAProblem,
 SparseBAResult and ObsBuckets, KinFu's TSDFVolume and DepthFrame, the
-RANSAC's RansacResult, and the 5k-view driver's device-resident MapState),
-with the same class names, field names and field
-order in both packages. `from_numpy` turns such a tuple, its fields read as
+hashed-block volume's HashTSDF, the pose graph's PoseGraph, the colored
+volume's ColoredTSDFVolume (which nests a TSDFVolume), the RANSAC's
+RansacResult, and the 5k-view driver's device-resident MapState), with the
+same class names, field names and field order in both packages. `from_numpy` turns such a tuple, its fields read as
 numpy arrays (anything `np.asarray` takes), into this package's tuple of
 tensors; `to_numpy` goes the other way.
 
@@ -13,7 +14,9 @@ The host-side SfM state, `sfm.tracks.TracksTensor`,
 `sfm.pipeline.Reconstruction`, and the 5k-view driver's
 `sfm.pipeline_scale.SparseTracks` and `SequentialReconstruction`, holds
 host numpy arrays in both packages, with the same fields: it crosses as it
-is and needs no conversion.
+is and needs no conversion. So do the large-scale KinFu's
+`rgbd.submap.Submap` (its pose and constraints are host numpy; its volume
+crosses by `from_numpy`) and `rgbd.submap.LargeKinFuParams`.
 """
 
 from __future__ import annotations
@@ -26,12 +29,16 @@ from opencv_contrib_tpu_torch.ba.sparse import ObsBuckets, SparseBAProblem, Spar
 from opencv_contrib_tpu_torch.features.keypoints import Keypoints
 from opencv_contrib_tpu_torch.features.match import Matches
 from opencv_contrib_tpu_torch.mvg.robust import RansacResult
+from opencv_contrib_tpu_torch.rgbd.colored_tsdf import ColoredTSDFVolume
 from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
+from opencv_contrib_tpu_torch.rgbd.hash_tsdf import HashTSDF
+from opencv_contrib_tpu_torch.rgbd.posegraph import PoseGraph
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import MapState
 
 TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, SparseBAProblem, SparseBAResult,
-                                        ObsBuckets, TSDFVolume, DepthFrame, RansacResult, MapState)}
+                                        ObsBuckets, TSDFVolume, DepthFrame, HashTSDF, PoseGraph, ColoredTSDFVolume,
+                                        RansacResult, MapState)}
 
 
 def _is_namedtuple(x) -> bool:

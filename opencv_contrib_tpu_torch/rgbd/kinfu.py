@@ -11,6 +11,10 @@ instead of selecting between two full volumes. Each stage of the tick runs
 inside a `torch.profiler.record_function` range (`kinfu.make_frame`,
 `kinfu.icp`, `kinfu.integrate`, `kinfu.raycast`), so that a profile of
 `update` attributes host time, device time and launches to the stages.
+
+`HashKinFu` runs the same tick on the hashed-block volume (rgbd/hash_tsdf.py):
+allocate along the band, integrate, and a raycast whose maps are decimated
+into the model pyramid. It makes no host round trip either.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ from torch.profiler import record_function
 
 from opencv_contrib_tpu_torch.core import se3
 from opencv_contrib_tpu_torch.rgbd import frame as frame_mod
+from opencv_contrib_tpu_torch.rgbd import hash_tsdf as ht
 from opencv_contrib_tpu_torch.rgbd import icp as icp_mod
 from opencv_contrib_tpu_torch.rgbd import tsdf as tsdf_mod
 from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
-from opencv_contrib_tpu_torch.utils.device import resolve
+from opencv_contrib_tpu_torch.utils.device import resolve, to_device
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
 
 
@@ -60,6 +65,16 @@ class KinFuParams:
                            volume_resolution=(64, 64, 64), pyramid_levels=3, icp_iterations=(5, 3, 2))
 
 
+def _pyr_from(pts, nrm, valid, levels: int):
+    """The model pyramid of raycast maps: 2x decimations, made contiguous
+    for the ICP kernel."""
+    frames = []
+    for _ in range(levels):
+        frames.append(DepthFrame(depth=pts[..., 2], points=pts, normals=nrm, valid=valid))
+        pts, nrm, valid = (a[::2, ::2].contiguous() for a in (pts, nrm, valid))
+    return tuple(frames)
+
+
 def _raycast_pyramid(volume, intr, T_cw, shape, levels, depth_max, n_coarse=None):
     """The model pyramid at pose T_cw: above 256^3 voxels (dims divisible by
     8) the splatting raycast, otherwise the marching one; levels are 2x
@@ -80,11 +95,7 @@ def _raycast_pyramid(volume, intr, T_cw, shape, levels, depth_max, n_coarse=None
     else:
         pts, nrm, valid = tsdf_mod.raycast(volume, intr, T_cw, shape=shape, depth_max=depth_max,
                                            n_coarse=n_coarse, n_fine=12, normals="gradient")
-    frames = []
-    for _ in range(levels):
-        frames.append(DepthFrame(depth=pts[..., 2], points=pts, normals=nrm, valid=valid))
-        pts, nrm, valid = (a[::2, ::2].contiguous() for a in (pts, nrm, valid))
-    return tuple(frames)
+    return _pyr_from(pts, nrm, valid, levels)
 
 
 class KinFu:
@@ -128,13 +139,6 @@ class KinFu:
         return _raycast_pyramid(self.volume, self.intr, T_cw, p.frame_shape, p.pyramid_levels, p.depth_max,
                                 self._n_coarse)
 
-    def _depth(self, depth) -> torch.Tensor:
-        d = depth if isinstance(depth, torch.Tensor) else torch.as_tensor(np.asarray(depth, np.float32))
-        d = d.to(torch.float32)
-        if d.device.type == "cpu" and self.device.type == "cuda":  # no stream synchronisation for the copy
-            return d.pin_memory().to(self.device, non_blocking=True)
-        return d.to(self.device)
-
     @f32_matmuls
     def update(self, depth, sync: bool = True) -> bool:
         """One frame tick (updateT, kinfu.cpp:233). Returns False on
@@ -144,7 +148,7 @@ class KinFu:
         changes neither the pose nor the volume either way."""
         p = self.p
         with record_function("kinfu.make_frame"):
-            depth = self._depth(depth)
+            depth = to_device(depth, self.device)
             pyr = frame_mod.make_frame(depth, self.intr, levels=p.pyramid_levels)
         if self.frame_count == 0:
             with record_function("kinfu.integrate"):
@@ -181,3 +185,82 @@ class KinFu:
         pts, _, valid = tsdf_mod.raycast(self.volume, self.intr, self.T_cw, shape=self.p.frame_shape,
                                          depth_max=self.p.depth_max)
         return pts[..., 2] * valid
+
+
+class HashKinFu:
+    """KinFu on the hashed-block volume: the reference's hashTSDFParams
+    preset (kinfu.hpp:19, hash_tsdf.cpp:81-91), for unbounded scenes, with
+    blocks allocated along the truncation band every frame. Same tick
+    contract as KinFu (update -> bool, reset, pose). The voxel is
+    volume_size / volume_resolution[0]. A frame that fails to track still
+    allocates its blocks (as the JAX version does) but integrates nothing
+    and keeps the pose and the model."""
+
+    def __init__(self, params: KinFuParams, capacity: int = 16384, device="cuda"):
+        self.p = params
+        self.capacity = capacity
+        self.device = resolve(device)
+        self.intr = to_device(params.intr, self.device)  # pinned: no stream sync
+        self.reset()
+
+    def reset(self):
+        vs = self.p.volume_size / self.p.volume_resolution[0]
+        self.volume = ht.create(self.capacity, voxel_size=float(vs), device=self.device)
+        self.T_cw = torch.eye(4, device=self.device)
+        self.frame_count = 0
+        self.model_pyr = None
+        self.last_ok = None
+
+    @property
+    def pose(self) -> np.ndarray:
+        return se3.inverse(self.T_cw).cpu().numpy()
+
+    def _fuse(self, depth, T_cw, gate=None):
+        p = self.p
+        with record_function("kinfu.allocate"):
+            self.volume = ht.allocate(self.volume, depth, self.intr, T_cw, depth_max=p.depth_max)
+        with record_function("kinfu.integrate"):
+            self.volume = ht.integrate(self.volume, depth, self.intr, T_cw, max_weight=p.tsdf_max_weight,
+                                       depth_max=p.depth_max, gate=gate)
+        with record_function("kinfu.raycast"):
+            pts, nrm, valid = ht.raycast(self.volume, self.intr, T_cw, shape=p.frame_shape, depth_max=p.depth_max)
+            return _pyr_from(pts, nrm, valid, p.pyramid_levels)
+
+    def _first(self, depth):
+        """Frame 0: fuse at the first pose; the model is its raycast."""
+        self.model_pyr = self._fuse(depth, self.T_cw)
+
+    def _tick(self, depth) -> torch.Tensor:
+        """Track the filtered pyramid against the model, fuse the raw depth
+        where tracking held, raycast the new model. Returns the flag."""
+        p = self.p
+        with record_function("kinfu.make_frame"):
+            pyr = frame_mod.make_frame(depth, self.intr, levels=p.pyramid_levels)
+        with record_function("kinfu.icp"):
+            T_rel, ok, _ = icp_mod.estimate_transform(pyr, self.model_pyr, self.intr,
+                                                      iterations=p.icp_iterations, dist_thresh=p.icp_dist_thresh)
+            T_cw = torch.where(ok, se3.inverse(T_rel) @ self.T_cw, self.T_cw)
+        model = self._fuse(depth, T_cw, gate=ok)
+        self.model_pyr = tuple(DepthFrame(*(torch.where(ok, a, b) for a, b in zip(new, old)))
+                               for new, old in zip(model, self.model_pyr))
+        self.T_cw = T_cw
+        return ok
+
+    @f32_matmuls
+    def update(self, depth, sync: bool = True) -> bool:
+        """One frame tick. Returns False on tracking failure; with
+        sync=False the flag stays on the device in `last_ok` and nothing is
+        read back."""
+        with record_function("kinfu.make_frame"):
+            depth = to_device(depth, self.device)
+        if self.frame_count == 0:
+            self._first(depth)
+            self.frame_count = 1
+            self.last_ok = torch.ones((), dtype=torch.bool, device=self.device)
+            return True
+        self.last_ok = self._tick(depth)
+        self.frame_count += 1
+        return bool(self.last_ok) if sync else True
+
+    def n_active_blocks(self) -> int:
+        return ht.n_active(self.volume)

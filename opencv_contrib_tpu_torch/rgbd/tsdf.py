@@ -272,9 +272,7 @@ def sample_gradient(vol: TSDFVolume, pts_world: torch.Tensor) -> torch.Tensor:
     """Central-difference TSDF gradient (surface normal direction)."""
     h = _scalars(vol)[0]
     g = []
-    for axis in range(3):
-        e = torch.zeros(3, dtype=torch.float32, device=pts_world.device)
-        e[axis] = h
+    for e in torch.eye(3, dtype=torch.float32, device=pts_world.device) * h:  # no item assignment: a host copy
         g.append(sample_trilinear(vol, pts_world + e)[0] - sample_trilinear(vol, pts_world - e)[0])
     g = torch.stack(g, dim=-1)
     return g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-9)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,13 @@ def resolve(device) -> torch.device:
         raise RuntimeError("no CUDA device: the entry points run on the GPU; "
                            "pass device='cpu' to run the plain versions on the CPU")
     return d
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """Host data or a tensor as float32 on `device`; a host array goes
+    through pinned memory, so the copy does not synchronise the stream."""
+    d = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x, np.float32))
+    d = d.to(torch.float32)
+    if d.device.type == "cpu" and device.type == "cuda":
+        return d.pin_memory().to(device, non_blocking=True)
+    return d.to(device)

@@ -48,22 +48,28 @@ def test_port_has_its_files():
                  "utils/metrics.py", "quality/__init__.py", "quality/brisque.py", "utils/tracing.py",
                  "mvg/conditioning.py", "mvg/fundamental.py", "mvg/homography.py", "mvg/triangulation.py",
                  "mvg/robust.py", "mvg/resection.py", "sfm/__init__.py", "sfm/tracks.py", "sfm/pairing.py",
-                 "sfm/pipeline.py", "sfm/pipeline_scale.py"):
+                 "sfm/pipeline.py", "sfm/pipeline_scale.py", "rgbd/hash_tsdf.py", "rgbd/posegraph.py",
+                 "rgbd/submap.py", "rgbd/odometry.py", "rgbd/colored_tsdf.py", "rgbd/depth_utils.py",
+                 "rgbd/normals.py"):
         assert need in names
     for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu", "transform.cu", "reduce.cu", "histogram.cu", "maps.cuh"):
         assert (PORT / "ops/cuda/csrc" / cu).exists()
     assert (ROOT / "chip_smoke.py").exists()
 
 
-@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow", "photometric", "sfm", "sfm_scale"])
+@pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow", "photometric", "sfm", "sfm_scale",
+                                  "HashKinFu", "LargeKinFu", "odometry.compute", "hash_kinfu_track",
+                                  "large_kinfu_track", "rgbd_odometry"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
     """Asked for "cuda" (their default) on a machine without a card, the
     frontend, keyframe, dense-flow, photometric and both SfM drivers' entry
-    points raise instead of running on the CPU."""
+    points, the hashed-block and large-scale KinFu and the RGB-D odometry
+    raise instead of running on the CPU."""
     import numpy as np
     import torch
 
     from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.rgbd import kinfu, odometry, submap
     from opencv_contrib_tpu_torch.sfm import pipeline, pipeline_scale
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -76,7 +82,15 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
             "photometric": lambda: entry.photometric(np.zeros((1, 32, 48, 3), np.float32),
                                                      np.zeros((1, 32, 48, 3), np.float32)),
             "sfm": lambda: pipeline.reconstruct_incremental(*entry.sfm_scene(6, 150)),
-            "sfm_scale": lambda: pipeline_scale.reconstruct_sequential(*entry.sfm_sequence_scene(24, 32)[:2])}[name]
+            "sfm_scale": lambda: pipeline_scale.reconstruct_sequential(*entry.sfm_sequence_scene(24, 32)[:2]),
+            "HashKinFu": lambda: kinfu.HashKinFu(kinfu.KinFuParams.default(intr, (32, 48)), capacity=64),
+            "LargeKinFu": lambda: submap.LargeKinFu(submap.LargeKinFuParams(intr=intr, frame_shape=(32, 48))),
+            "odometry.compute": lambda: odometry.compute(img, img + 1, img, img + 1, intr, method="icp"),
+            "hash_kinfu_track": lambda: entry.hash_kinfu_track(np.ones((1, 32, 48), np.float32), intr,
+                                                               frame_shape=(32, 48), capacity=64),
+            "large_kinfu_track": lambda: entry.large_kinfu_track(np.ones((1, 32, 48), np.float32), intr,
+                                                                 frame_shape=(32, 48)),
+            "rgbd_odometry": lambda: entry.rgbd_odometry(img, img + 1, img, img + 1, intr)}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
