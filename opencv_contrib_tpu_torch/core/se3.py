@@ -146,6 +146,40 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
 
 
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions (..., 4) as (w, x, y, z)."""
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (w, -x, -y, -z), built on the device (no host copy)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) (w, x, y, z), normalised first -> rotation (..., 3, 3)."""
+    q = quat_normalize(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation -> quaternion (w, x, y, z), branch-free (Shepperd): all four
     candidates are built and the best-conditioned one is selected."""

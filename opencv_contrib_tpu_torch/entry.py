@@ -18,9 +18,14 @@
 - `rgbd_odometry(gray_src, depth_src, gray_dst, depth_dst, intr, method)`:
   frame-to-frame RGB-D odometry (`rgbd.odometry.compute`: "rgbd", "icp" or
   "merged").
-- `dense_flow(I0, I1, method)`: DIS-class or TV-L1 dense optical flow;
-  `flow_pair()` makes a textured pair at MPI-Sintel's 436 x 1024 with its
-  true flow.
+- `tum_kinfu(root)`: a TUM RGB-D sequence on disk through the port's loader
+  (`utils.native.TumLoader`, its own PNG codec), KinFu on each depth, and
+  the ATE against the sequence's groundtruth.txt, read back from disk.
+- `dynafu_track(depths, intr)`: DynaFu (`rgbd.dynafu.DynaFu`), non-rigid
+  fusion through a warp field, over a depth sequence.
+- `dense_flow(I0, I1, method)`: dense optical flow by DIS, TV-L1, DeepFlow,
+  SimpleFlow, sparse-to-dense, dense RLOF or PCAFlow; `flow_pair()` makes a
+  textured pair at MPI-Sintel's 436 x 1024 with its true flow.
 - `photometric(degraded, clean)`: the photometric / image-quality path over
   an RGB clip (gamma, grayworld white balance, gray, CLAHE, then PSNR,
   SSIM, GMSD, BRISQUE features and the no-reference score against the
@@ -46,19 +51,22 @@ import torch
 from opencv_contrib_tpu_torch import quality, xphoto
 from opencv_contrib_tpu_torch.ba import bundle
 from opencv_contrib_tpu_torch.core import camera as cam
+from opencv_contrib_tpu_torch.core import se3
 from opencv_contrib_tpu_torch.core.color import rgb_to_gray
 from opencv_contrib_tpu_torch.features import describe, detect, match
-from opencv_contrib_tpu_torch.flow import dis, tvl1
+from opencv_contrib_tpu_torch.flow import dis, extra, pcaflow, tvl1
 from opencv_contrib_tpu_torch.intensity_transform import gamma_correction
 from opencv_contrib_tpu_torch.mvg import resection
 from opencv_contrib_tpu_torch.ops import filters
 from opencv_contrib_tpu_torch.ops.histogram import clahe
 from opencv_contrib_tpu_torch.ops.image import warp_affine
 from opencv_contrib_tpu_torch.rgbd import kinfu, odometry, submap
+from opencv_contrib_tpu_torch.rgbd.dynafu import DynaFu
 from opencv_contrib_tpu_torch.rgbd.hash_tsdf import HashTSDF
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_sequence_scene
 from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
+from opencv_contrib_tpu_torch.utils import datasets, metrics, native
 from opencv_contrib_tpu_torch.utils.device import resolve
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
 from opencv_contrib_tpu_torch.utils.synthetic import SequenceScene, generate_scene, generate_sequence_scene
@@ -228,6 +236,63 @@ def rgbd_odometry(gray_src, depth_src, gray_dst, depth_dst, intr, method: str = 
     return odometry.compute(gray_src, depth_src, gray_dst, depth_dst, intr, method=method, device=device)
 
 
+class TumKinFu(NamedTuple):
+    poses: np.ndarray  # (N, 4, 4) camera -> world pose after each frame (KinFu's world: the first camera)
+    ate: float  # ATE RMSE (m) of the tracked frames against groundtruth.txt, similarity-aligned
+    frames: int  # frames the loader gave
+    lost: list  # indices of the frames whose tracking failed (left out of the ATE)
+
+
+def tum_kinfu(root, intr=None, frame_shape=None, device="cuda", n_threads: int = 4, prefetch: int = 8,
+              **params) -> TumKinFu:
+    """A TUM RGB-D sequence from disk through KinFu (tests/test_tum_e2e.py's
+    harness): `utils.native.TumLoader` decodes the frames (n_threads workers,
+    prefetch frames ahead), `rgbd.kinfu.KinFu` tracks each depth, and the
+    trajectory's ATE (`utils.metrics.ate_rmse`) is taken against the
+    ground-truth pose nearest each frame's rgb timestamp
+    (`datasets.tum_gt_pose_at` on groundtruth.txt). intr defaults to
+    `datasets.TUM_FR1_INTR`, frame_shape to the frames' size; `params` are
+    further `KinFuParams` fields (volume_resolution, volume_size,
+    volume_center, sparse_blocks, ...). The ticks run unsynchronised; the
+    tracking flags and poses are read back once, after the last frame."""
+    dev = resolve(device)
+    loader = native.TumLoader(str(root), n_threads=n_threads, prefetch=prefetch)
+    intr = datasets.TUM_FR1_INTR if intr is None else np.asarray(intr, np.float32)
+    shape = (loader.height, loader.width) if frame_shape is None else tuple(frame_shape)
+    kf = kinfu.KinFu(kinfu.KinFuParams(intr=intr, frame_shape=shape, **params), device=dev)
+    T_cw, oks, stamps = [], [], []
+    with loader:
+        for t_rgb, _, _, depth in loader:
+            kf.update(depth, sync=False)
+            T_cw.append(kf.T_cw)
+            oks.append(kf.last_ok)
+            stamps.append(t_rgb)
+    poses = se3.inverse(torch.stack(T_cw)).cpu().numpy()
+    ok = torch.stack(oks).cpu().numpy()
+    gt = datasets.load_tum(str(root)).gt
+    if gt is None:
+        raise FileNotFoundError(f"{root}: no groundtruth.txt")
+    traj_gt = np.stack([datasets.tum_gt_pose_at(gt, t)[:3, 3] for t in stamps])
+    ate = metrics.ate_rmse(poses[ok, :3, 3], traj_gt[ok])
+    return TumKinFu(poses, float(ate), len(stamps), [int(i) for i in np.flatnonzero(~ok)])
+
+
+class DynaFuTrack(NamedTuple):
+    ok: list  # tracking flag of each frame (True for the first)
+    tracker: DynaFu  # its volume, warp field, get_cloud and render_live
+
+
+def dynafu_track(depths, intr, device="cuda", **params) -> DynaFuTrack:
+    """Run DynaFu (`rgbd.dynafu.DynaFu`) over depths (N, H, W) in meters;
+    `params` are its constructor's (volume_resolution, volume_size,
+    volume_center, n_nodes, node_sigma; frame_shape defaults to the frames'
+    size). Each frame reads its tracking flag back to the host."""
+    if "frame_shape" not in params:
+        params["frame_shape"] = tuple(depths[0].shape)
+    df = DynaFu(intr, device=device, **params)
+    return DynaFuTrack([df.update(d) for d in depths], df)
+
+
 def kinfu_bench_frames(n: int, H: int = 480, W: int = 640) -> np.ndarray:
     """The depth ramp of `bench.py::bench_kinfu_vga512` (`base + 0.002 * i`
     for frame i, in meters): (n, H, W) float32."""
@@ -236,14 +301,18 @@ def kinfu_bench_frames(n: int, H: int = 480, W: int = 640) -> np.ndarray:
     return np.stack([base + 0.002 * i for i in range(n)])
 
 
-FLOW_METHODS = {"dis": dis.compute, "tvl1": tvl1.compute}
+FLOW_METHODS = {"dis": dis.compute, "tvl1": tvl1.compute, "deepflow": extra.deepflow, "simpleflow": extra.simpleflow,
+                "sparse_to_dense": extra.sparse_to_dense, "rlof": extra.rlof_dense, "pcaflow": pcaflow.compute}
 
 
 @f32_matmuls
 def dense_flow(I0, I1, method: str = "dis", device="cuda", **params) -> torch.Tensor:
     """Dense flow I0 -> I1 of two (H, W) frames: (H, W, 2) as (dy, dx), on
-    `device`. `method` "dis" (`flow.dis.compute`) or "tvl1"
-    (`flow.tvl1.compute`); `params` go to it (levels, ...)."""
+    `device`. `method`: "dis" (`flow.dis.compute`), "tvl1"
+    (`flow.tvl1.compute`), "deepflow", "simpleflow", "sparse_to_dense",
+    "rlof" (`flow.extra.deepflow`, `simpleflow`, `sparse_to_dense`,
+    `rlof_dense`) or "pcaflow" (`flow.pcaflow.compute`); `params` go to it
+    (levels, ...)."""
     if method not in FLOW_METHODS:
         raise ValueError(f"dense_flow: method must be one of {sorted(FLOW_METHODS)}, got {method!r}")
     dev = resolve(device)

@@ -12,6 +12,13 @@ from opencv_contrib_tpu_torch.ops import filters
 from opencv_contrib_tpu_torch.ops.image import sample_windows
 
 
+def _window_offsets(radius: int, device=None):
+    """The (2r+1)^2 offsets (dy, dx) of a window, row-major, float32."""
+    o = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
+    dy, dx = torch.meshgrid(o, o, indexing="ij")
+    return dy.reshape(-1), dx.reshape(-1)
+
+
 def lk_level(I0, I1, pts_yx, flow0, radius: int = 7, iters: int = 10):
     """One-level LK: track points pts_yx (N, 2) from I0 to I1 starting at
     flow0 (N, 2) (dy, dx). Returns (flow (N, 2), valid (N,))."""

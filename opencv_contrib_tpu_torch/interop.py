@@ -5,8 +5,9 @@ Matches, BAProblem, BAResult, the sparse BA's SparseBAProblem,
 SparseBAResult and ObsBuckets, KinFu's TSDFVolume and DepthFrame, the
 hashed-block volume's HashTSDF, the pose graph's PoseGraph, the colored
 volume's ColoredTSDFVolume (which nests a TSDFVolume), the RANSAC's
-RansacResult, and the 5k-view driver's device-resident MapState), with the
-same class names, field names and field order in both packages. `from_numpy` turns such a tuple, its fields read as
+RansacResult, the 5k-view driver's device-resident MapState, and DynaFu's
+WarpField), with the same class names, field names and field order in both
+packages. `from_numpy` turns such a tuple, its fields read as
 numpy arrays (anything `np.asarray` takes), into this package's tuple of
 tensors; `to_numpy` goes the other way.
 
@@ -34,11 +35,12 @@ from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
 from opencv_contrib_tpu_torch.rgbd.hash_tsdf import HashTSDF
 from opencv_contrib_tpu_torch.rgbd.posegraph import PoseGraph
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
+from opencv_contrib_tpu_torch.rgbd.warpfield import WarpField
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import MapState
 
 TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, SparseBAProblem, SparseBAResult,
                                         ObsBuckets, TSDFVolume, DepthFrame, HashTSDF, PoseGraph, ColoredTSDFVolume,
-                                        RansacResult, MapState)}
+                                        RansacResult, MapState, WarpField)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -7,6 +7,10 @@ library for `sm_90a`, in `build/kernels/<hash>/` at the root of the checkout,
 keyed on a hash of the sources and the flags, and loaded with `ctypes`. A
 later call, or a later process on the same checkout, reuses the libraries.
 
+`build_host(source, signatures)` does the same for a C++ source of the
+port's host code (the PNG unfilter of `utils/png.py`), with the host
+compiler, into a directory of its own beside the kernels'.
+
 Every C entry point returns `cudaGetLastError()` after its launches;
 `check()` raises when that is not 0. The argtypes of each entry point are
 set once, when its library is loaded; `on_device()` enters a device guard
@@ -26,6 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -137,6 +142,49 @@ def build() -> dict[str, ctypes.CDLL]:
             libs[src.stem] = lib
         _libs.update(libs)
         return _libs
+
+
+_host_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _host_compiler() -> str:
+    for cand in ("c++", "g++", "clang++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (c++, g++ or clang++) found: the port's host routines are built with one")
+
+
+def build_host(source: Path, signatures: dict) -> ctypes.CDLL:
+    """Compile (if needed) and load one C++ source of host code with the
+    host compiler, into `build/kernels/host-<hash>/`; `signatures` gives the
+    argtypes of each entry point, which returns an int. A failed build
+    raises. Thread-safe; compiles at most once per checkout and source."""
+    source = Path(source)
+    with _lock:
+        if source.stem in _host_libs:
+            return _host_libs[source.stem]
+        h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+        h.update(source.name.encode())
+        h.update(source.read_bytes())
+        out_dir = BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lib = out_dir / f"lib{source.stem}.so"
+        if not lib.exists():
+            tmp = out_dir / f".lib{source.stem}.{os.getpid()}.{threading.get_ident()}.so"
+            p = subprocess.run([_host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(source)],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if p.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"host build of {source.name} failed:\n{p.stdout}")
+            os.replace(tmp, lib)
+        dll = ctypes.CDLL(str(lib))
+        for fn, argtypes in signatures.items():
+            f = getattr(dll, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _host_libs[source.stem] = dll
+        return dll
 
 
 def lib(name: str) -> ctypes.CDLL:

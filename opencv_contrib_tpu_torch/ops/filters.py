@@ -130,6 +130,18 @@ def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int, eps: floa
     return box_filter(a, radius) * I + box_filter(b, radius)
 
 
+SOBEL_D = (-1.0, 0.0, 1.0)
+SOBEL_S = (1.0, 2.0, 1.0)
+
+
+def sobel(img: torch.Tensor, dx: int = 1, dy: int = 0) -> torch.Tensor:
+    """Sobel derivative (OpenCV kernel; dx, dy in {0, 1}, ksize 3), reflect
+    border. The taps stay host tensors: sep_filter2d reads them as scalars."""
+    kr = torch.tensor(SOBEL_D if dy else SOBEL_S)
+    kc = torch.tensor(SOBEL_D if dx else SOBEL_S)
+    return sep_filter2d(img, kr, kc)
+
+
 def gradients(img: torch.Tensor):
     """Central-difference image gradients (gy, gx), replicate-edge borders."""
     gy = (torch.roll(img, -1, 0) - torch.roll(img, 1, 0)) * 0.5

@@ -167,7 +167,7 @@ def _active_blocks(vol: TSDFVolume, depth, intr, T_cw, depth_max: float, bs: int
                 & (gi[..., 0] <= Ox) & (gi[..., 1] <= Oy) & (gi[..., 2] <= Oz))
         gx, gy, gz = (gi[..., a].clamp(0, n - 1) for a, n in enumerate((Ox, Oy, Oz)))
         flat = (gx * Oy + gy) * Oz + gz
-        grid[torch.where(near, flat, no).reshape(-1)] = 1.0
+        grid.index_fill_(0, torch.where(near, flat, no).reshape(-1), 1.0)  # no host copy of the value
     goct = F.max_pool3d(grid[:no].reshape(1, 1, Ox, Oy, Oz), 3, stride=1, padding=1)[0, 0]
     gblk = goct.reshape(Bx, 2, By, 2, Bz, 2).amax(dim=(1, 3, 5))
     return gblk.reshape(-1) > 0.5

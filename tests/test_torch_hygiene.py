@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of opencv_contrib_tpu_torch/, and
-not chip_smoke.py, imports JAX or the JAX package.
+not chip_smoke.py, imports JAX or the JAX package, nor PIL (the port reads
+and writes PNG with its own codec, utils/png.py).
 
 This walks the source with `ast` rather than checking `sys.modules`: the
 test process imports JAX anyway (the parity tests need it, and some Python
@@ -13,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "opencv_contrib_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "opencv_contrib_tpu")
+FORBIDDEN = ("jax", "jaxlib", "opencv_contrib_tpu", "PIL")
 
 
 def _forbidden(module: str | None) -> bool:
@@ -50,8 +51,11 @@ def test_port_has_its_files():
                  "mvg/robust.py", "mvg/resection.py", "sfm/__init__.py", "sfm/tracks.py", "sfm/pairing.py",
                  "sfm/pipeline.py", "sfm/pipeline_scale.py", "rgbd/hash_tsdf.py", "rgbd/posegraph.py",
                  "rgbd/submap.py", "rgbd/odometry.py", "rgbd/colored_tsdf.py", "rgbd/depth_utils.py",
-                 "rgbd/normals.py"):
+                 "rgbd/normals.py", "utils/png.py", "utils/io.py", "utils/datasets.py", "utils/tum_export.py",
+                 "utils/native.py", "rgbd/warpfield.py", "rgbd/dynafu.py", "flow/motempl.py", "flow/pcaflow.py",
+                 "flow/gpc.py", "flow/extra.py", "ximgproc/__init__.py", "ximgproc/interp.py"):
         assert need in names
+    assert (PORT / "utils/csrc/unfilter.cpp").exists()
     for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu", "transform.cu", "reduce.cu", "histogram.cu", "maps.cuh"):
         assert (PORT / "ops/cuda/csrc" / cu).exists()
     assert (ROOT / "chip_smoke.py").exists()
@@ -59,20 +63,28 @@ def test_port_has_its_files():
 
 @pytest.mark.parametrize("name", ["frontend", "keyframe_tick", "dense_flow", "photometric", "sfm", "sfm_scale",
                                   "HashKinFu", "LargeKinFu", "odometry.compute", "hash_kinfu_track",
-                                  "large_kinfu_track", "rgbd_odometry"])
-def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
+                                  "large_kinfu_track", "rgbd_odometry", "tum_kinfu", "dynafu_track", "DynaFu",
+                                  "dense_flow_deepflow", "dense_flow_simpleflow", "dense_flow_sparse_to_dense",
+                                  "dense_flow_rlof", "dense_flow_pcaflow"])
+def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
     """Asked for "cuda" (their default) on a machine without a card, the
     frontend, keyframe, dense-flow, photometric and both SfM drivers' entry
-    points, the hashed-block and large-scale KinFu and the RGB-D odometry
-    raise instead of running on the CPU."""
+    points, the hashed-block and large-scale KinFu, the RGB-D odometry, the
+    TUM disk path, DynaFu and every dense-flow method raise instead of
+    running on the CPU. (The TUM loader decodes on the host and has no
+    device path.)"""
     import numpy as np
     import torch
 
     from opencv_contrib_tpu_torch import entry
-    from opencv_contrib_tpu_torch.rgbd import kinfu, odometry, submap
+    from opencv_contrib_tpu_torch.rgbd import dynafu, kinfu, odometry, submap
     from opencv_contrib_tpu_torch.sfm import pipeline, pipeline_scale
+    from opencv_contrib_tpu_torch.utils.tum_export import write_tum_sequence
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if name == "tum_kinfu":
+        root = tmp_path / "tum"
+        write_tum_sequence(str(root), np.ones((2, 32, 48), np.float32), [np.eye(4)] * 2)
     img = np.zeros((32, 48), np.float32)
     intr = np.array([50.0, 50.0, 24.0, 16.0, 0, 0, 0, 0, 0], np.float32)
     call = {"frontend": lambda: entry.frontend(img, img, K=8),
@@ -90,7 +102,13 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, name):
                                                                frame_shape=(32, 48), capacity=64),
             "large_kinfu_track": lambda: entry.large_kinfu_track(np.ones((1, 32, 48), np.float32), intr,
                                                                  frame_shape=(32, 48)),
-            "rgbd_odometry": lambda: entry.rgbd_odometry(img, img + 1, img, img + 1, intr)}[name]
+            "rgbd_odometry": lambda: entry.rgbd_odometry(img, img + 1, img, img + 1, intr),
+            "tum_kinfu": lambda: entry.tum_kinfu(str(tmp_path / "tum"), intr=intr, volume_resolution=(32, 32, 32)),
+            "dynafu_track": lambda: entry.dynafu_track(np.ones((1, 32, 48), np.float32), intr),
+            "DynaFu": lambda: dynafu.DynaFu(intr, frame_shape=(32, 48)),
+            **{f"dense_flow_{m}": (lambda m=m: entry.dense_flow(img, img, m, levels=2))
+               for m in ("deepflow", "simpleflow", "sparse_to_dense", "rlof")},
+            "dense_flow_pcaflow": lambda: entry.dense_flow(img, img, "pcaflow", k=3)}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
@@ -124,7 +142,8 @@ def test_the_walk_catches_each_form():
     src = ("import jax\nfrom jax import numpy\nimport opencv_contrib_tpu.ops as o\n"
            "from opencv_contrib_tpu.features import match\n"
            "import importlib\nimportlib.import_module('jax.numpy')\n__import__('jaxlib')\n"
-           "import opencv_contrib_tpu_torch\nfrom . import x\n")
+           "import opencv_contrib_tpu_torch\nfrom . import x\nimport PIL\nfrom PIL import Image\n"
+           "importlib.import_module('PIL.Image')\nimport PILLOW_LIKE\n")
     mods = sorted(m for _, m in _imports(ast.parse(src)) if _forbidden(m))
-    assert mods == ["jax", "jax", "jax.numpy", "jaxlib", "opencv_contrib_tpu.features",
+    assert mods == ["PIL", "PIL", "PIL.Image", "jax", "jax", "jax.numpy", "jaxlib", "opencv_contrib_tpu.features",
                     "opencv_contrib_tpu.ops"]
