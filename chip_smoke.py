@@ -9,7 +9,8 @@ PyTorch version on the card, drives the port's main paths through the entry
 points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`,
 `entry.dense_flow`, `entry.photometric`, the two SfM drivers,
 `entry.hash_kinfu_track`, `entry.large_kinfu_track`, `entry.rgbd_odometry`,
-`entry.tum_kinfu`, `entry.dynafu_track`), and checks their outputs.
+`entry.tum_kinfu`, `entry.dynafu_track`, `entry.dryrun_multichip`), and
+checks their outputs.
 
 Phases, one JSON line each:
   (a) build and launch checks at small ragged shapes;
@@ -195,6 +196,12 @@ PATH_KERNELS.update({"hash_kinfu": ("grid_reduce_vec",), "large_kinfu": ("grid_r
 # phase q's paths: KinFu from disk (getAb; its depth pyramid is no pyrdown), DynaFu (no kernel of ours), and the
 # dense-flow remainder (pyrdown in every pyramid, remap in the variational refinement of DeepFlow and RLOF)
 PATH_KERNELS.update({"tum_kinfu": ("grid_reduce_vec",), "dynafu": (), "dense_flow_extra": ("pyrdown", "remap")})
+# phase r's paths: the dist_sfm step's frontend (the integral kernel) and the stage pipeline's detect and match
+# stages (the integral kernel; knn2 through ratio_test_match); the BA, submap and checkpoint paths launch none
+PATH_KERNELS.update({"dist_dense_ba": (), "dist_sparse_ba": (), "dist_global_ba": (),
+                     "dist_sfm_step": ("integral_image",), "dist_submaps": (),
+                     "dist_stage_pipeline": ("integral_image", "knn2"), "dist_checkpoint": (),
+                     "dryrun_multichip": ()})
 DEVICE_KERNELS = ("knn2_kernel", "scan_rows_kernel", "integral_kernel", "grid_reduce_vec_kernel", "pyrdown_kernel",
                   "remap_kernel", "grid_transform_vec4_kernel", "grid_transform_strided_kernel",
                   "streamed_transform_kernel", "grid_reduce_vec4_kernel", "grid_reduce_strided_kernel",
@@ -424,6 +431,17 @@ FLOW_EXTRA_LAUNCHES = {"deepflow": {"pyrdown": 8, "remap": 25}, "simpleflow": {"
                        "pcaflow": {"pyrdown": 4, "remap": 0}}
 # flow: at most 1e-3 of the pixels past FLOW_CPU_TOL (cuBLAS resizes the coarse flow in another summation order,
 # and an ulp can move SimpleFlow's integer winner at a tie)
+# phase r: the distributed layer on a world-size-1 NCCL mesh, each path against its single-device twin
+DIST_REL_TOL = 1e-6  # relative: NCCL's all_reduce of one rank is a copy
+DIST_SFM_FRAMES = 32  # entry.make_frames(32)'s first 32 frames: a (32, 32, 512, 512) distance block, 1.07 GB
+DIST_SUBMAPS = (16, 4096)  # submaps x boundary points
+DIST_SUBMAP_ITERS = 25  # tests/test_parallel.py's steps
+DIST_STAGE_FRAMES = 8
+DIST_VOLUME = (256, 256, 256)
+DIST_PREFIX = "ncclDevKernel"  # NCCL's device kernels in the profiler's raw events
+# a profiler window drops its first device events, more the more windows the process has opened (phase r's
+# checkpoint lost all 20 of its copies behind 8 markers): open each with 256 marker fills, and again if none stayed
+DIST_MARKERS, DIST_WINDOWS = 256, 3
 REMAINDER_CPU_TOL = {"tum_pose": 1e-3, "tum_ate": 1e-3, "dynafu_xi": 1e-3, "dynafu_render": 1e-3,
                      "flow": FLOW_CPU_TOL, "flow_share": 1e-3, "gpc_tie_share": 0.01, "motempl_deg": 1e-3}
 
@@ -2327,7 +2345,7 @@ class Smoke(Timer):
         check(n_reg >= SFM_SCALE_MIN_VIEW_SHARE * V and mean_px <= SFM_MEAN_PX_GATE
               and n_pts >= SFM_SCALE_MIN_POINT_SHARE * T and max(ate_windows) < SFM_SCALE_ATE
               and bool(np.isfinite(rec.points[rec.has_point]).all()), f"sfm_scale gates: {out}")
-        del tracks, rec
+        self.scale_rec = (tracks, rec)  # phase r bundles copies of it on a mesh
         torch.cuda.empty_cache()
         return out
 
@@ -3053,6 +3071,306 @@ class Smoke(Timer):
               f"motion templates card vs CPU {out['motempl']}")
         return out
 
+    # ---- (r) -----------------------------------------------------------------
+    def distributed(self):
+        """The distributed layer on a world-size-1 NCCL mesh in this process:
+        each path once with the counters read around it, once under the
+        profiler and the sync log, and against its single-device twin."""
+        from opencv_contrib_tpu_torch.parallel import mesh as pm
+
+        torch = self.torch
+        mesh = pm.make_mesh(1, 1, device="cuda")
+        warm = pm.psum(torch.ones(1, device=self.dev), mesh, pm.AXES)  # the communicator's set-up, outside the timings
+        check(float(warm) == 1.0, "NCCL all_reduce of one rank")
+        out, parts = {"mesh": list(mesh.shape), "backend": self.torch.distributed.get_backend()}, {}
+        for name, fn in (("dense_ba", self.dist_dense), ("sparse_ba", self.dist_sparse),
+                         ("global_ba", self.dist_global), ("dist_sfm", self.dist_sfm),
+                         ("submap_shard", self.dist_submaps), ("stage_pipeline", self.dist_stages),
+                         ("checkpoint", self.dist_checkpoint), ("dryrun_multichip", self.dist_dryrun)):
+            t0 = time.perf_counter()
+            out[name] = fn(mesh)
+            parts[name] = time.perf_counter() - t0
+        emit({"phase": "r_distributed", **out, "phase_parts_s": parts,
+              "tolerance": f"each path against its single-device twin on the card, max |a - b| / max |b| <= "
+                           f"{DIST_REL_TOL} (stage pipeline, checkpoint: equal bits); the dryrun's gates",
+              "timing": "wall_s: host clock around the counted run, wall_s_turns / twin_wall_s_turns: the path and its "
+                        "twin in turns after it (twin, path, twin); device_ms and nccl from the raw kineto events of "
+                        "a profiled run (device events only; ncclDevKernel_* kernels), with the sync log on",
+              "ok": True})
+
+    def dist_run(self, path: str, fn, twin=None) -> tuple:
+        """fn() once counted (wall s, launches of the port's kernels), then
+        once under torch.profiler and the sync log (device ms and launches,
+        NCCL launches and device ms, host syncs, the top device ops). With
+        its single-device twin: the twin first (a warm-up of the shared
+        code), and after the profile the twin, fn and the twin again on the
+        host's clock, so the two walls are read in turns. Returns (fn's
+        result, the twin's, the row)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        if twin is not None:
+            twin()
+        res, wall = self.counted(path, fn)
+        if self.marker is None:
+            self.marker = torch.empty(16, dtype=torch.uint8, device=self.dev)
+        pad = WINDOW_PAD_S
+        for _ in range(DIST_WINDOWS):  # a window that kept no marker may have lost fn's first events: again
+            torch.cuda.synchronize()
+            with self.sync_log() as got:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only: a long path's
+                    time.sleep(pad)                                          # CPU ops would triple the events
+                    for _ in range(DIST_MARKERS):
+                        self.marker.zero_()
+                    fn()
+                    torch.cuda.synchronize()
+            by_name, markers = {}, 0
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() != DeviceType.CUDA:
+                    continue
+                if FLUSH_KERNEL in e.name():
+                    markers += 1
+                    continue
+                agg = by_name.setdefault(e.name(), [0, 0])
+                agg[0] += 1
+                agg[1] += e.duration_ns()
+            if markers:
+                break
+            pad *= 4
+        check(markers > 0, f"{path}: no profiler window kept its markers")
+        nccl = [v for n, v in by_name.items() if n.startswith(DIST_PREFIX)]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+        row = {"wall_s": wall, "device_ms": sum(v[1] for v in by_name.values()) / 1e6,
+               "device_launches": sum(v[0] for v in by_name.values()),
+               "nccl_launches": sum(v[0] for v in nccl), "nccl_device_ms": sum(v[1] for v in nccl) / 1e6,
+               "host_syncs": self.sync_summary(got)["in_the_port"],
+               "port_kernel_launches": {k: v for k, v in self.launches[path].items() if v},
+               "top_device": [{"name": n[:60], "count": c, "ms": d / 1e6} for n, (c, d) in top]}
+        twin_res = None
+        if twin is not None:
+            twin_res, t1 = self.wall_s(twin)
+            _, m2 = self.wall_s(fn)
+            _, t2 = self.wall_s(twin)
+            row.update(wall_s_turns=[wall, m2], twin_wall_s_turns=[t1, t2],
+                       twin_host_syncs=self.count_syncs(twin)["in_the_port"])
+        return res, twin_res, row
+
+    @staticmethod
+    def rel_diff(a, b) -> float:
+        a, b = (np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64) for x in (a, b))
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def held(self, what: str, pairs) -> float:
+        """The largest relative difference over (mesh, twin) pairs, gated."""
+        worst = max(self.rel_diff(a, b) for a, b in pairs)
+        check(worst <= DIST_REL_TOL, f"{what}: the mesh path against its single-device twin: {worst}")
+        return worst
+
+    def dist_dense(self, mesh) -> dict:
+        """bench.py::bench_keyframes's BA refresh, 16 x 2048, 10 LM."""
+        from opencv_contrib_tpu_torch.ba import bundle
+        from opencv_contrib_tpu_torch.parallel import dist_ba
+
+        prob = self.entry.ba_problem(16, 2048, device=self.dev)
+        res, ref, row = self.dist_run("dist_dense_ba", lambda: dist_ba.bundle_adjust(prob, mesh, n_iters=N_BA),
+                                      lambda: bundle.bundle_adjust(prob, n_iters=N_BA))
+        row["max_rel_diff"] = self.held("dense dist_ba", zip(res, ref))
+        row.update(views=16, points=2048, lm_iters=N_BA, cost=[float(res.initial_cost), float(res.final_cost)])
+        return row
+
+    def dist_sparse(self, mesh) -> dict:
+        """Phase n's 2048 x 200,000 x 2,000,000 problem, 3 LM x 10 CG."""
+        from opencv_contrib_tpu_torch.ba import sparse
+        from opencv_contrib_tpu_torch.parallel import dist_ba
+
+        prob, buckets = two_million_problem(self.dev)
+        kw = dict(n_iters=SPARSE_BIG_ITERS, n_cg=SPARSE_BIG_CG, buckets=buckets)
+        res, ref, row = self.dist_run("dist_sparse_ba", lambda: dist_ba.bundle_adjust_sparse(prob, mesh, **kw),
+                                      lambda: sparse.bundle_adjust_sparse(prob, **kw))
+        row["max_rel_diff"] = self.held("sparse dist_ba", zip(res, ref))
+        row.update(problem=list(SPARSE_BIG), lm_iters=SPARSE_BIG_ITERS, cg_iters=SPARSE_BIG_CG,
+                   cost=[float(res.initial_cost), float(res.final_cost)])
+        del prob, buckets, res, ref
+        self.torch.cuda.empty_cache()
+        return row
+
+    def dist_global(self, mesh) -> dict:
+        """global_ba (15 LM x 15 CG) on copies of phase o's reconstruction,
+        its points and translations moved by N(0, 0.01) from a seed so the
+        bundle has work to do, on the mesh and without it."""
+        import copy
+
+        from opencv_contrib_tpu_torch.sfm import pipeline_scale
+
+        tracks, rec = self.scale_rec
+        rec = copy.deepcopy(rec)
+        rng = np.random.default_rng(7)
+        rec.points = (rec.points + rng.normal(scale=0.01, size=rec.points.shape)).astype(np.float32)
+        rec.ts = (rec.ts + rng.normal(scale=0.01, size=rec.ts.shape)).astype(np.float32)
+
+        def bundled(mesh_=None):
+            r = copy.deepcopy(rec)
+            pipeline_scale.global_ba(r, tracks, mesh=mesh_)
+            return r
+
+        on_mesh, twin, row = self.dist_run("dist_global_ba", lambda: bundled(mesh), bundled)
+        check(np.abs(twin.ts - rec.ts).max() > 0, "global_ba moved no pose")
+        row["max_rel_diff"] = self.held("global_ba(mesh=)", [(getattr(on_mesh, f), getattr(twin, f))
+                                                              for f in ("Rs", "ts", "points")])
+        row.update(views=tracks.n_views, slots=tracks.slots, registered=int(rec.registered.sum()),
+                   mean_px_perturbed_then_bundled=[rec.reprojection_mean_px(tracks),
+                                                   on_mesh.reprojection_mean_px(tracks)])
+        return row
+
+    def dist_sfm(self, mesh) -> dict:
+        """batched_frontend -> distributed_matching -> distributed_bundle on
+        the first 32 of entry.make_frames(32)'s frames at K=512; the twin
+        detects and describes frame by frame (in full f32, as
+        batched_frontend runs), matches by all_pairs_match_reference and
+        bundles by ba.bundle."""
+        from opencv_contrib_tpu_torch.ba import bundle
+        from opencv_contrib_tpu_torch.features import describe, detect
+        from opencv_contrib_tpu_torch.parallel import dist_sfm, ring_match
+        from opencv_contrib_tpu_torch.utils.precision import f32_matmul_precision
+
+        torch = self.torch
+        imgs = self.frames[:DIST_SFM_FRAMES]
+        prob = self.entry.ba_problem(16, 2048, device=self.dev)
+
+        def step():
+            descs, xy, valid = dist_sfm.batched_frontend(imgs, mesh, max_keypoints=K, threshold=FRONTEND["threshold"])
+            match = dist_sfm.distributed_matching(descs, valid, mesh)
+            return (descs, xy, valid), match, dist_sfm.distributed_bundle(prob, mesh, n_iters=N_BA)
+
+        def twin():
+            out = []
+            with f32_matmul_precision():
+                for img in imgs:
+                    img = self.card(img)
+                    k = detect.fast_hessian(img, max_keypoints=K, threshold=FRONTEND["threshold"], n_octaves=2)
+                    out.append((describe.surf_describe(img, k), k.xy(), k.valid))
+            fe = [torch.stack([t[i] for t in out]) for i in range(3)]
+            return fe, ring_match.all_pairs_match_reference(fe[0], fe[2]), bundle.bundle_adjust(prob, n_iters=N_BA)
+
+        (fe, match, ba), (t_fe, t_match, t_ba), row = self.dist_run("dist_sfm_step", step, twin)
+        check(all(torch.equal(a, b) for a, b in zip(fe[1:], t_fe[1:])) and torch.equal(match[2], t_match[2])
+              and torch.equal(match[0][match[2]], t_match[0][match[2]]), "dist_sfm: keypoints or matches differ")
+        row["max_rel_diff"] = self.held("dist_sfm", [(fe[0], t_fe[0]), (match[1][match[2]], t_match[1][match[2]]),
+                                                     *zip(ba, t_ba)])
+        n = DIST_SFM_FRAMES
+        row.update(frames=[n, 480, 640], K=K, distance_block_gb=n * n * K * K * 4 / 1e9,
+                   valid_keypoints=int(fe[2].sum()), matches_0_1=int(match[2][0, 1].sum()),
+                   matches_total=int(match[2].sum()))
+        check(row["matches_0_1"] > 10, f"dist_sfm: frames 0 and 1 match {row['matches_0_1']} keypoints")
+        del fe, match, t_fe, t_match
+        torch.cuda.empty_cache()
+        return row
+
+    def dist_submaps(self, mesh) -> dict:
+        """16 submaps x 4,096 boundary points in a ring, 25 sharded GN steps
+        (tests/test_parallel.py's count); the twin is the same steps with
+        the all_reduce taken out."""
+        from opencv_contrib_tpu_torch.core import se3
+        from opencv_contrib_tpu_torch.parallel import submap_shard
+
+        torch = self.torch
+        S, M = DIST_SUBMAPS
+        rng = np.random.default_rng(0)
+        xi = np.concatenate([np.zeros((1, 6)), 0.2 * rng.standard_normal((S - 1, 6))]).astype(np.float32)
+        T_true = se3.exp_se3(self.card(xi))
+        pts = self.card(rng.uniform(-1, 1, (S, M, 3)))
+        nbr = torch.arange(S, device=self.dev).roll(1)  # submap s borders s - 1
+        pw = torch.einsum("smk,sjk->smj", pts, T_true[:, :3, :3]) + T_true[:, None, :3, 3]
+        Tn = torch.linalg.inv(T_true[nbr])
+        tgt = torch.einsum("smk,sjk->smj", pw, Tn[:, :3, :3]) + Tn[:, None, :3, 3]
+        w = torch.ones((S, M), device=self.dev)
+        noise = np.concatenate([np.zeros((1, 6)), 0.05 * rng.standard_normal((S - 1, 6))]).astype(np.float32)
+        T0 = se3.exp_se3(self.card(noise)) @ T_true
+        args = (T0, pts, tgt, nbr, w)
+
+        def twin():
+            with mock.patch.object(submap_shard, "psum", lambda x, mesh, axes: x):
+                return submap_shard.optimize_submaps(*args, mesh, n_iters=DIST_SUBMAP_ITERS)
+
+        out, ref, row = self.dist_run(
+            "dist_submaps", lambda: submap_shard.optimize_submaps(*args, mesh, n_iters=DIST_SUBMAP_ITERS), twin)
+        row["max_rel_diff"] = self.held("submap_shard", [(out, ref)])
+        err = [float((T - T_true)[1:].norm(dim=(1, 2)).mean()) for T in (T0, out)]
+        check(err[1] < 0.3 * err[0], f"submap_shard: pose error {err[0]} -> {err[1]}")
+        row.update(submaps=S, boundary_points=M, gn_steps=DIST_SUBMAP_ITERS, pose_error=err)
+        return row
+
+    def dist_stages(self, mesh) -> dict:
+        """frontend_stages at 480x640, n_kp=512, over 8 frames: an extent-1
+        pp axis takes the three stages composed into one; the twin is the
+        sequential chain, held at atol 0."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from opencv_contrib_tpu_torch.features import describe, detect
+        from opencv_contrib_tpu_torch.parallel import stage_pipeline
+
+        torch = self.torch
+        ref = self.card(self.frames[0])
+        kp = detect.fast_hessian(ref, max_keypoints=K, threshold=FRONTEND["threshold"])
+        stages, pack, unpack, C = stage_pipeline.frontend_stages(describe.surf_describe(ref, kp), kp.valid,
+                                                                 img_hw=(480, 640), n_kp=K,
+                                                                 threshold=FRONTEND["threshold"])
+        pp = DeviceMesh(mesh.device_type, [0], mesh_dim_names=("pp",))
+        items = torch.stack([pack(self.card(f)) for f in self.frames[:DIST_STAGE_FRAMES]])
+
+        def chain(x):
+            for st in stages:
+                x = st(x)
+            return x
+
+        out, seq, row = self.dist_run("dist_stage_pipeline",
+                                      lambda: stage_pipeline.pipeline_map_sharded([chain], items, pp),
+                                      lambda: torch.stack([chain(x) for x in items]))
+        check(torch.equal(out, seq), "stage pipeline: the pipelined chain differs from the sequential one")
+        idx0, dist0 = unpack(out[0])
+        row.update(frames=[DIST_STAGE_FRAMES, 480, 640], n_kp=K, carrier_floats=C, equal_bits=True,
+                   self_matches_frame0=int((dist0 > -0.5).sum()))
+        check(row["self_matches_frame0"] >= K // 4, f"stage pipeline: frame 0 matched {row['self_matches_frame0']}")
+        return row
+
+    def dist_checkpoint(self, mesh) -> dict:
+        """save_slam_state of a 256^3 KinFu volume after 3 orbit frames, its
+        pose and a 3-node pose graph; restored bit for bit."""
+        import tempfile
+
+        from opencv_contrib_tpu_torch.core import se3
+        from opencv_contrib_tpu_torch.parallel import checkpoint
+        from opencv_contrib_tpu_torch.rgbd import posegraph
+
+        torch = self.torch
+        _, depths = self.orbit_depths(n=3)
+        tr = self.entry.kinfu_track(depths, KINFU_INTR, volume_resolution=DIST_VOLUME,
+                                    volume_size=KINFU_ORBIT["volume_size"], volume_center=KINFU_ORBIT["volume_center"],
+                                    device=self.dev)
+        poses = se3.inverse(tr.T_cw)
+        graph = posegraph.make_graph(poses, [[0, 1], [1, 2]], se3.inverse(poses[:-1]) @ poses[1:], device=self.dev)
+        state = {"volume": tr.volume, "T_cw": tr.T_cw[-1], "posegraph": graph}
+        with tempfile.TemporaryDirectory(prefix="ckpt_") as d:
+            def round_trip():
+                path = checkpoint.save_slam_state(os.path.join(d, "slam"), **state)
+                return path, checkpoint.restore_pytree(path, state)
+
+            (path, back), _, row = self.dist_run("dist_checkpoint", round_trip)
+            mb = os.path.getsize(path) / 2 ** 20
+            t0 = time.perf_counter()
+            checkpoint.restore_pytree(path, state)
+            s_restore = time.perf_counter() - t0
+        same = [torch.equal(a, b) for a, b in zip(*(torch.utils._pytree.tree_leaves(x) for x in (state, back)))]
+        check(all(same) and len(same) == 5 + 1 + 6, f"checkpoint: {sum(same)} of {len(same)} leaves equal")
+        row.update(volume=list(DIST_VOLUME), leaves=len(same), equal_bits=True, file_mb=mb, s_restore=s_restore)
+        return row
+
+    def dist_dryrun(self, mesh) -> dict:
+        out, _, row = self.dist_run("dryrun_multichip", lambda: self.entry.dryrun_multichip(1))
+        row.update(out)
+        return row
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -3081,7 +3399,7 @@ def main() -> int:
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
                   smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
                   smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd,
-                  smoke.remainder):
+                  smoke.remainder, smoke.distributed):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -141,6 +141,35 @@ def rms_reprojection_error(cameras, points, intr, obs, mask):
     return torch.sqrt(torch.sum(r * r) / n)
 
 
+class Sums:
+    """The reductions of a solve that holds the whole observation grid:
+    every sum is complete and every block whole, so each is the identity.
+    parallel/dist_ba.py passes the solver its mesh's version, which sums
+    the partials of a rank's (cameras, points) block over the point shards
+    ("sp"), the camera shards ("dp") or both, and gathers shards, where
+    GSPMD places the collectives of the JAX package's sharded solve."""
+
+    cams = pts = slice(None)  # this rank's block of the (C, P) grid
+
+    def over_points(self, x):  # per-camera sums: add the point shards' partials
+        return x
+
+    def over_cams(self, x):  # per-point sums: add the camera shards' partials
+        return x
+
+    def total(self, x):  # sums over the whole grid
+        return x
+
+    def all_cams(self, x):  # camera-sharded dim 0 -> every camera
+        return x
+
+    def all_points(self, x):  # point-sharded dim 0 -> every point
+        return x
+
+
+LOCAL = Sums()
+
+
 def _per_obs_jacobians(cameras, points, intr, obs, mask, optimize_intr: bool):
     """r (C,P,2), Jc (C,P,2,6), Jp (C,P,2,3), Ji (C,P,2,9) or None; masked."""
     pred, Jc, Jp, Ji = _project(cameras[:, None], points[None], intr, jacobians=True, intr_jac=optimize_intr)
@@ -150,13 +179,14 @@ def _per_obs_jacobians(cameras, points, intr, obs, mask, optimize_intr: bool):
     return r, Jc * m4, Jp * m4, (Ji * m4 if Ji is not None else None)
 
 
-def _normal_blocks(r, Jc, Jp, lam, pt_free):
-    """Damped U (C,6,6), V^-1 (P,3,3), W (C,P,6,3), Y = W V^-1, bc, bp."""
-    U = torch.einsum("cpki,cpkj->cij", Jc, Jc)
-    V = torch.einsum("cpki,cpkj->pij", Jp, Jp)
+def _normal_blocks(r, Jc, Jp, lam, pt_free, sums: Sums = LOCAL):
+    """Damped U (C,6,6), V^-1 (P,3,3), W (C,P,6,3), Y = W V^-1, bc, bp of
+    the block's cameras and points (`sums` completes U, V, bc and bp)."""
+    U = sums.over_points(torch.einsum("cpki,cpkj->cij", Jc, Jc))
+    V = sums.over_cams(torch.einsum("cpki,cpkj->pij", Jp, Jp))
     W = torch.einsum("cpki,cpkj->cpij", Jc, Jp)
-    bc = -torch.einsum("cpki,cpk->ci", Jc, r)
-    bp = -torch.einsum("cpki,cpk->pi", Jp, r)
+    bc = sums.over_points(-torch.einsum("cpki,cpk->ci", Jc, r))
+    bp = sums.over_cams(-torch.einsum("cpki,cpk->pi", Jp, r))
     # LM damping, multiplicative on the diagonal
     dU = torch.clamp(torch.diagonal(U, dim1=1, dim2=2), min=1e-6)
     dV = torch.clamp(torch.diagonal(V, dim1=1, dim2=2), min=1e-6)
@@ -169,19 +199,22 @@ def _normal_blocks(r, Jc, Jp, lam, pt_free):
     return U, Vinv, W, Y, bc, bp
 
 
-def _solve_schur(r, Jc, Jp, lam, cam_free, pt_free, Ji=None, intr_sel=None, intr_tie=None):
+def _solve_schur(r, Jc, Jp, lam, cam_free, pt_free, Ji=None, intr_sel=None, intr_tie=None, sums: Sums = LOCAL):
     """One damped explicit-Schur step; with Ji the shared intrinsics enter
     the reduced system as one extra block (intr_sel selects free
     components, intr_tie maps the reduced parameters to the full 9).
-    Returns (dcam (C,6), dpt (P,3), dintr (9,))."""
-    C = r.shape[0]
+    r, Jc, Jp (and Ji) hold the block's observations, cam_free every
+    camera, pt_free the block's points. Returns (dcam (C,6) for every
+    camera, dpt (P,3) for the block's points, dintr (9,))."""
     dt, dev = r.dtype, r.device
-    U, Vinv, W, Y, bc, bp = _normal_blocks(r, Jc, Jp, lam, pt_free)
+    U, Vinv, W, Y, bc, bp = _normal_blocks(r, Jc, Jp, lam, pt_free, sums)
+    U, W, Y, bc = (sums.all_cams(x) for x in (U, W, Y, bc))  # every camera against the block's points
+    C = U.shape[0]
 
-    S = -torch.einsum("apik,bpjk->aibj", Y, W)  # (C, 6, C, 6)
+    S = -sums.over_points(torch.einsum("apik,bpjk->aibj", Y, W))  # (C, 6, C, 6)
     idx = torch.arange(C, device=dev)
     S[idx, :, idx, :] += U
-    rhs = bc - torch.einsum("cpik,pk->ci", Y, bp)
+    rhs = bc - sums.over_points(torch.einsum("cpik,pk->ci", Y, bp))
 
     # frozen cameras: identity rows/cols, zero rhs
     free = cam_free.to(dt)
@@ -196,15 +229,15 @@ def _solve_schur(r, Jc, Jp, lam, cam_free, pt_free, Ji=None, intr_sel=None, intr
         if intr_tie is not None:
             Ji = torch.einsum("cpka,ab->cpkb", Ji, intr_tie)
         Ji = Ji * sel
-        A_ii = torch.einsum("cpki,cpkj->ij", Ji, Ji)
-        A_ci = torch.einsum("cpki,cpkj->cij", Jc, Ji)
-        Bi = torch.einsum("cpki,cpkj->pij", Ji, Jp)
-        b_i = -torch.einsum("cpki,cpk->i", Ji, r)
+        A_ii = sums.total(torch.einsum("cpki,cpkj->ij", Ji, Ji))
+        A_ci = sums.all_cams(sums.over_points(torch.einsum("cpki,cpkj->cij", Jc, Ji)))
+        Bi = sums.over_cams(torch.einsum("cpki,cpkj->pij", Ji, Jp))
+        b_i = sums.total(-torch.einsum("cpki,cpk->i", Ji, r))
         A_ii = A_ii + torch.diag(lam * torch.clamp(torch.diag(A_ii), min=1e-6))
-        S_ci = (A_ci - torch.einsum("apik,pjk->aij", Y, Bi)) * free[:, None, None]
+        S_ci = (A_ci - sums.over_points(torch.einsum("apik,pjk->aij", Y, Bi))) * free[:, None, None]
         BiV = torch.einsum("pij,pjk->pik", Bi, Vinv)
-        S_ii = A_ii - torch.einsum("pik,pjk->ij", BiV, Bi)
-        rhs_i = b_i - torch.einsum("pik,pk->i", BiV, bp)
+        S_ii = A_ii - sums.over_points(torch.einsum("pik,pjk->ij", BiV, Bi))
+        rhs_i = b_i - sums.over_points(torch.einsum("pik,pk->i", BiV, bp))
         S_ii = S_ii + torch.diag(1.0 - sel)  # pin frozen intrinsic components
         rhs_i = rhs_i * sel
 
@@ -228,21 +261,23 @@ def _solve_schur(r, Jc, Jp, lam, cam_free, pt_free, Ji=None, intr_sel=None, intr
     return dcam * cam_free[:, None], dpt * pt_free[:, None], dintr
 
 
-def _solve_schur_pcg(r, Jc, Jp, lam, cam_free, pt_free, n_cg: int = 30):
+def _solve_schur_pcg(r, Jc, Jp, lam, cam_free, pt_free, n_cg: int = 30, sums: Sums = LOCAL):
     """Implicit-Schur camera solve by CG with the block diagonal of S as
-    preconditioner (S x = U x - Y (W^T x) without forming S)."""
+    preconditioner (S x = U x - Y (W^T x) without forming S). Arguments
+    and returns as `_solve_schur`'s."""
     dt, dev = r.dtype, r.device
-    U, Vinv, W, Y, bc, bp = _normal_blocks(r, Jc, Jp, lam, pt_free)
+    U, Vinv, W, Y, bc, bp = _normal_blocks(r, Jc, Jp, lam, pt_free, sums)
+    U, W, Y, bc = (sums.all_cams(x) for x in (U, W, Y, bc))
     free = cam_free.to(dt)[:, None]
 
     def matvec(x):
         x = x * free
         wx = torch.einsum("cpij,ci->pj", W, x)
-        sx = torch.einsum("cij,cj->ci", U, x) - torch.einsum("cpik,pk->ci", Y, wx)
+        sx = torch.einsum("cij,cj->ci", U, x) - sums.over_points(torch.einsum("cpik,pk->ci", Y, wx))
         return sx * free + x * (1.0 - free)
 
-    rhs = (bc - torch.einsum("cpik,pk->ci", Y, bp)) * free
-    S_diag = U - torch.einsum("cpik,cpjk->cij", Y, W)
+    rhs = (bc - sums.over_points(torch.einsum("cpik,pk->ci", Y, bp))) * free
+    S_diag = U - sums.over_points(torch.einsum("cpik,cpjk->cij", Y, W))
     Minv = torch.linalg.inv(S_diag + 1e-9 * torch.eye(6, dtype=dt, device=dev))
 
     def prec(x):
@@ -283,8 +318,17 @@ def bundle_adjust(
 ) -> BAResult:
     """Levenberg-Marquardt BA with on-device accept/reject and a fixed
     iteration count. The first camera is held fixed by default (gauge)."""
-    obs, mask, intr0 = problem.obs, problem.mask, problem.intr
-    C, P = obs.shape[0], obs.shape[1]
+    return _bundle_adjust(problem, n_iters, optimize_intr, fix_first_cam, cam_free, pt_free, lam0, solver, n_cg)
+
+
+def _bundle_adjust(problem: BAProblem, n_iters, optimize_intr, fix_first_cam, cam_free, pt_free, lam0, solver, n_cg,
+                   sums: Sums = LOCAL) -> BAResult:
+    """The LM loop of `bundle_adjust`. Cameras, points and intrinsics stay
+    whole on every caller; each iteration linearises the (sums.cams,
+    sums.pts) block of the observation grid, and `sums` completes the sums
+    and gathers the steps (parallel/dist_ba.py)."""
+    obs, mask, intr0 = problem.obs[sums.cams, sums.pts], problem.mask[sums.cams, sums.pts], problem.intr
+    C, P = problem.cameras.shape[0], problem.points.shape[0]
     dt, dev = obs.dtype, obs.device
     cam_free = (torch.ones(C, dtype=torch.bool, device=dev) if cam_free is None
                 else cam_free.to(torch.bool).clone())
@@ -293,7 +337,8 @@ def bundle_adjust(
     if pt_free is None:
         pt_free = torch.ones(P, dtype=torch.bool, device=dev)
     # points with no valid observation must not move
-    pt_free = pt_free & (torch.sum(mask, dim=0) > 0)
+    pt_free = pt_free & (sums.all_points(sums.over_cams(torch.sum(mask, dim=0))) > 0)
+    pt_free_b = pt_free[sums.pts]
 
     # intrinsic components BA may move (f, c, k1, k2); fx/fy tied to one focal
     intr_sel = torch.tensor([1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0], dtype=dt, device=dev)
@@ -305,29 +350,32 @@ def bundle_adjust(
                          "use solver='schur' (or 'auto')")
     use_pcg = (solver == "pcg") or (solver == "auto" and C > 1024 and not optimize_intr)
 
+    def block_cost(cams, pts, it):
+        return sums.total(cost(cams[sums.cams], pts[sums.pts], it, obs, mask))
+
     cams, pts, it = problem.cameras, problem.points, intr0
     lam = torch.tensor(lam0, dtype=dt, device=dev)
-    c0 = cost(cams, pts, it, obs, mask)
+    c0 = block_cost(cams, pts, it)
     lam_hist = []
     for _ in range(n_iters):
-        r, Jc, Jp, Ji = _per_obs_jacobians(cams, pts, it, obs, mask, optimize_intr)
+        r, Jc, Jp, Ji = _per_obs_jacobians(cams[sums.cams], pts[sums.pts], it, obs, mask, optimize_intr)
         if use_pcg:
-            dcam, dpt, di = _solve_schur_pcg(r, Jc, Jp, lam, cam_free, pt_free, n_cg=n_cg)
+            dcam, dpt, di = _solve_schur_pcg(r, Jc, Jp, lam, cam_free, pt_free_b, n_cg=n_cg, sums=sums)
         else:
             dcam, dpt, di = _solve_schur(
-                r, Jc, Jp, lam, cam_free, pt_free, Ji=Ji,
+                r, Jc, Jp, lam, cam_free, pt_free_b, Ji=Ji,
                 intr_sel=intr_sel if optimize_intr else None,
-                intr_tie=intr_tie if optimize_intr else None)
-        new_cams, new_pts, new_it = cams + dcam, pts + dpt, it + di
-        c_old = cost(cams, pts, it, obs, mask)
-        c_new = cost(new_cams, new_pts, new_it, obs, mask)
+                intr_tie=intr_tie if optimize_intr else None, sums=sums)
+        new_cams, new_pts, new_it = cams + dcam, pts + sums.all_points(dpt), it + di
+        c_old = block_cost(cams, pts, it)
+        c_new = block_cost(new_cams, new_pts, new_it)
         accept = c_new < c_old
         cams = torch.where(accept, new_cams, cams)
         pts = torch.where(accept, new_pts, pts)
         it = torch.where(accept, new_it, it)
         lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9), torch.clamp(lam * 4.0, max=1e6))
         lam_hist.append(lam)
-    c1 = cost(cams, pts, it, obs, mask)
+    c1 = block_cost(cams, pts, it)
     lam_history = torch.stack(lam_hist) if lam_hist else torch.zeros(0, dtype=dt, device=dev)
     return BAResult(cams, pts, it, c0, c1, lam_history)
 

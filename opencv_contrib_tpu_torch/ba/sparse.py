@@ -232,26 +232,52 @@ def _point_sums(vals: torch.Tensor, order: PointOrder) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # implicit-Schur PCG over buckets
 
+
+class Sums:
+    """The reductions of a solve that holds every camera's bucket: each is
+    the identity. parallel/dist_ba.py passes the solver its mesh's version:
+    there a rank holds the buckets of the cameras `cams`, and the point
+    sums, the scalar products and the camera steps are completed across
+    ranks (the JAX package's per-shard partials + psum under GSPMD)."""
+
+    cams = slice(None)  # the cameras whose buckets this solve holds
+
+    def points(self, x):  # (P, D) per-point sums: add the other ranks' partials
+        return x
+
+    def total(self, x):  # scalar sums
+        return x
+
+    def all_cams(self, x):  # (C_held, ...) -> every camera's
+        return x
+
+
+LOCAL = Sums()
+
 _V_ENTRIES = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))  # V's distinct entries
 _V_FULL = [0, 1, 2, 1, 3, 4, 2, 4, 5]  # V (3, 3), row-major, from them
 
 
-def _solve_sparse_pcg(r, Jc, Jp, ptA, order: PointOrder, lam, cam_free, pt_free, n_cg: int):
+def _solve_sparse_pcg(r, Jc, Jp, ptA, order: PointOrder, lam, cam_free, pt_free, n_cg: int, sums: Sums = LOCAL):
     """One damped implicit-Schur step by PCG over the camera buckets.
 
     r (C, Kc, 2), Jc (C, Kc, 2, 6), Jp (C, Kc, 2, 3): each bucket slot's
     residual and Jacobians, zero on padding slots; ptA (C, Kc) each slot's
     point (any valid index on padding slots); `order` the slots sorted by
-    point. Returns dcam (C, 6), dpt (P, 3) and `solved`, a device bool that is
+    point; cam_free (C,) of the same cameras, pt_free (P,) of every point.
+    Returns dcam (C, 6), dpt (P, 3) and `solved`, a device bool that is
     false when the LU of a preconditioner block met a zero pivot (the JAX
-    package's inverse then gives a non-finite step, which LM rejects)."""
+    package's inverse then gives a non-finite step, which LM rejects).
+    Under a mesh's `sums` the C cameras are this rank's: the CG vectors stay
+    sharded by camera, and each matvec completes its point sums with one
+    reduction."""
     C, Kc = ptA.shape
     P = pt_free.shape[0]
     dt, dev = r.dtype, r.device
     Jc2 = Jc.reshape(C, Kc * 2, 6)
 
     def point_sums(v):  # (C, Kc, D) -> (P, D)
-        return _point_sums(v.reshape(C * Kc, -1), order)
+        return sums.points(_point_sums(v.reshape(C * Kc, -1), order))
 
     # camera blocks: one batched product over each camera's bucket
     U = Jc2.transpose(1, 2) @ Jc2  # (C, 6, 6)
@@ -260,9 +286,9 @@ def _solve_sparse_pcg(r, Jc, Jp, ptA, order: PointOrder, lam, cam_free, pt_free,
     # point blocks: V's 6 distinct entries and bp in one sum over each point's slots
     Vu = torch.stack([torch.sum(Jp[..., j] * Jp[..., l], dim=-1) for j, l in _V_ENTRIES], dim=-1)
     bpo = -torch.sum(Jp * r[..., None], dim=-2)  # (C, Kc, 3)
-    sums = point_sums(torch.cat([Vu, bpo], dim=-1))  # (P, 9)
-    V = torch.stack([sums[:, k] for k in _V_FULL], dim=-1).reshape(P, 3, 3)  # no index tensor: no copy to the card
-    bp = sums[:, 6:]
+    vb = point_sums(torch.cat([Vu, bpo], dim=-1))  # (P, 9)
+    V = torch.stack([vb[:, k] for k in _V_FULL], dim=-1).reshape(P, 3, 3)  # no index tensor: no copy to the card
+    bp = vb[:, 6:]
 
     # LM damping (multiplicative) and the freeze of fixed points
     U = U + torch.diag_embed(lam * torch.clamp(torch.diagonal(U, dim1=1, dim2=2), min=1e-6))
@@ -309,23 +335,23 @@ def _solve_sparse_pcg(r, Jc, Jp, ptA, order: PointOrder, lam, cam_free, pt_free,
     res = rhs
     z = prec(res)
     p = z
-    rz = torch.sum(res * z)
+    rz = sums.total(torch.sum(res * z))
     zero = torch.zeros((), dtype=dt, device=dev)
     for _ in range(n_cg):
         Ap = matvec(p)
-        denom = torch.sum(p * Ap)
+        denom = sums.total(torch.sum(p * Ap))
         alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, zero)
         x = x + alpha * p
         res = res - alpha * Ap
         z = prec(res)
-        rz_new = torch.sum(res * z)
+        rz_new = sums.total(torch.sum(res * z))
         beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, zero)
         p = z + beta * p
         rz = rz_new
     dcam = x * free
     # back-substitute the points: dp = V^-1 (bp - W^T dcam)
     dpt = vinv_mul(bp - halfdown(dcam)) * pt_free.to(dt)[:, None]
-    return dcam, dpt, torch.all(info == 0)
+    return dcam, dpt, sums.total(torch.sum(info != 0)) == 0
 
 
 def bundle_adjust_sparse(
@@ -358,32 +384,36 @@ def _bundle_adjust_sparse_jit(
     pt_free: torch.Tensor | None = None,
     lam0: float = 1e-4,
     n_cg: int = 30,
+    sums: Sums = LOCAL,
 ) -> SparseBAResult:
     """The LM loop on given buckets, with the JAX package's signature (its
     jitted body): a fixed number of iterations with the accept / reject on
-    the device, no host sync. Points with no valid observation do not move."""
+    the device, no host sync. Points with no valid observation do not move.
+    Under a mesh's `sums` (parallel/dist_ba.py) `buckets` hold the columns
+    of the cameras `sums.cams`; cameras and points stay whole."""
     cams, pts, intr = problem.cameras, problem.points, problem.intr
     C, P = cams.shape[0], pts.shape[0]
     dt, dev = cams.dtype, cams.device
     cam_free = torch.ones(C, dtype=torch.bool, device=dev) if cam_free is None else cam_free.to(torch.bool)
     if fix_first_cam:  # a mask, not an item assignment, which would copy the value to the card
         cam_free = cam_free & (torch.arange(C, device=dev) > 0)
+    cam_free = cam_free[sums.cams]
     if pt_free is None:
         pt_free = torch.ones(P, dtype=torch.bool, device=dev)
 
     sl = _bucket_slots(problem, buckets)
-    pt_free = pt_free.to(torch.bool) & (sl.order.offsets[1:P + 1] > sl.order.offsets[:P])
+    pt_free = pt_free.to(torch.bool) & (sums.points(sl.order.offsets[1:P + 1] - sl.order.offsets[:P]) > 0)
 
     def total_cost(c, p):  # sparse_cost over the bucket slots: one rotation a camera
-        r = (_project(c[:, None], p[sl.pt], intr)[0] - sl.uv) * sl.ok.to(dt)[..., None]
-        return 0.5 * torch.sum(r * r)
+        r = (_project(c[sums.cams][:, None], p[sl.pt], intr)[0] - sl.uv) * sl.ok.to(dt)[..., None]
+        return sums.total(0.5 * torch.sum(r * r))
 
     lam = torch.full((), lam0, dtype=dt, device=dev)
     c0 = cost = total_cost(cams, pts)
     for _ in range(n_iters):
-        r, Jc, Jp = _obs_residual_jac(cams[:, None], pts[sl.pt], sl.uv, sl.ok, intr)
-        dcam, dpt, solved = _solve_sparse_pcg(r, Jc, Jp, sl.pt, sl.order, lam, cam_free, pt_free, n_cg)
-        new_cams, new_pts = cams + dcam, pts + dpt
+        r, Jc, Jp = _obs_residual_jac(cams[sums.cams][:, None], pts[sl.pt], sl.uv, sl.ok, intr)
+        dcam, dpt, solved = _solve_sparse_pcg(r, Jc, Jp, sl.pt, sl.order, lam, cam_free, pt_free, n_cg, sums)
+        new_cams, new_pts = cams + sums.all_cams(dcam), pts + dpt
         c_new = total_cost(new_cams, new_pts)
         accept = (c_new < cost) & solved
         cams = torch.where(accept, new_cams, cams)

@@ -36,6 +36,10 @@
   SfM driver at the 5k-view scale (sparse slot tracks, windowed and global
   sparse BA); `sfm_sequence_scene()` makes its 5,000-view x 1,024-slot
   orbit.
+- `dryrun_multichip(n_devices)`: the distributed layer (`parallel/`) over an
+  n_devices mesh: sharded dense and sparse BA, the ring match and the
+  sequential driver's mesh route, the twin of
+  `__graft_entry__.dryrun_multichip`.
 
 They run on the card unless the caller passes `device="cpu"`; with no card
 they raise. Matrix products run in full f32 inside them.
@@ -64,7 +68,7 @@ from opencv_contrib_tpu_torch.rgbd import kinfu, odometry, submap
 from opencv_contrib_tpu_torch.rgbd.dynafu import DynaFu
 from opencv_contrib_tpu_torch.rgbd.hash_tsdf import HashTSDF
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
-from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_sequence_scene
+from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_sequence_scene, reconstruct_sequential
 from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
 from opencv_contrib_tpu_torch.utils import datasets, metrics, native
 from opencv_contrib_tpu_torch.utils.device import resolve
@@ -433,3 +437,55 @@ def sfm_sequence_scene(n_views: int = 5000, slots: int = 1024, seed: int = 0,
     scene = generate_sequence_scene(n_views=n_views, slots_per_view=slots, track_span=max(24, n_views // 125),
                                     seed=seed, noise_px=noise_px)
     return from_sequence_scene(scene), scene.intr, scene
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
+    """One pass of the distributed layer over an n_devices mesh, the twin of
+    `__graft_entry__.dryrun_multichip`: a 2 x n/2 ("dp", "sp") mesh from 4
+    ranks up, else 1 x n; every rank of the process group calls it (one
+    process alone gets a world-size-1 group). It runs the dense Schur BA
+    with the observation grid sharded over the mesh (2 iterations), the
+    sparse BA with the observations sharded over every axis, the ring
+    all-pairs match over sp, and `reconstruct_sequential` with its global
+    bundles sharded, each behind the JAX function's gate. Returns the
+    gated numbers."""
+    from opencv_contrib_tpu_torch.ba import sparse
+    from opencv_contrib_tpu_torch.parallel import dist_ba, ring_match
+    from opencv_contrib_tpu_torch.parallel.mesh import make_mesh
+
+    n_dp, n_sp = (2, n_devices // 2) if n_devices >= 4 else (1, n_devices)
+    mesh = make_mesh(n_dp, n_sp, device=device)
+    dev = resolve(device)
+    V, T = max(4, n_dp * 2), 64 * n_sp
+    scene = generate_scene(n_views=V, n_points=T, seed=0)
+    rng = np.random.default_rng(0)
+    prob = bundle.make_problem_from_scene(scene.Rs, scene.ts,
+                                          scene.points3d + rng.normal(scale=0.02, size=(T, 3)).astype(np.float32),
+                                          scene.intr, scene.points2d, scene.visible, device=dev)
+    out = {"mesh": [n_dp, n_sp]}
+
+    def gate(ok: bool, what: str):
+        if not ok:
+            raise RuntimeError(f"dryrun_multichip: {what}: {out}")
+
+    res = dist_ba.bundle_adjust(prob, mesh, n_iters=2)
+    out["dense_cost"] = [float(res.initial_cost), float(res.final_cost)]
+    gate(out["dense_cost"][1] <= out["dense_cost"][0], "the sharded dense BA raised the cost")
+    sres = dist_ba.bundle_adjust_sparse(sparse.from_dense(prob), mesh, n_iters=2, n_cg=8)
+    out["sparse_cost"] = [float(sres.initial_cost), float(sres.final_cost)]
+    gate(out["sparse_cost"][1] <= out["sparse_cost"][0], "the sharded sparse BA raised the cost")
+
+    N, K, D = 2 * n_sp, 16, 8
+    descs = torch.from_numpy(np.random.default_rng(1).normal(size=(N, K, D)).astype(np.float32)).to(dev)
+    idx, _, _ = ring_match.ring_all_pairs_match(descs, torch.ones((N, K), dtype=torch.bool, device=dev), mesh)
+    out["ring_shape"] = list(idx.shape)
+    gate(tuple(idx.shape) == (N, N, K), "the ring match's shape")
+
+    sc = generate_sequence_scene(n_views=48, slots_per_view=32, track_span=7, seed=0, noise_px=0.2)
+    tracks = from_sequence_scene(sc)
+    rec = reconstruct_sequential(tracks, sc.intr, window=8, ba_every=4, min_gap=2, final_global_iters=2, mesh=mesh,
+                                 device=device)
+    out["registered"] = int(rec.registered.sum())
+    out["mean_px"] = rec.reprojection_mean_px(tracks, device=device)
+    gate(out["registered"] >= 36 and out["mean_px"] < 2.0, "the sequential reconstruction's gates")
+    return out

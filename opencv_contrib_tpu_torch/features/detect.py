@@ -234,7 +234,11 @@ def assign_orientation(ii: torch.Tensor, kps: Keypoints, n_bins: int = 36) -> Ke
     mag = torch.sqrt(dx * dx + dy * dy)
     bin_f = (ang + math.pi) / (2 * math.pi) * n_bins
     bin_i = torch.clamp(bin_f.to(torch.int64), 0, n_bins - 1)
-    hist = torch.zeros(K, n_bins, dtype=mag.dtype, device=mag.device).scatter_add_(1, bin_i, mag)
+    if mag.is_cuda:  # scatter_add_'s float atomics sum in an order that changes from run to run
+        onehot = bin_i[..., None] == torch.arange(n_bins, device=mag.device)
+        hist = torch.sum(torch.where(onehot, mag[..., None], torch.zeros_like(mag)[..., None]), dim=1)
+    else:  # in index order, as the JAX package's scatter-add sums on the CPU
+        hist = torch.zeros(K, n_bins, dtype=mag.dtype, device=mag.device).scatter_add_(1, bin_i, mag)
     hist = (torch.roll(hist, 1, -1) + hist + torch.roll(hist, -1, -1)) / 3.0
     peak = torch.argmax(hist, dim=-1)
     l = torch.gather(hist, 1, ((peak - 1) % n_bins)[:, None])[:, 0]

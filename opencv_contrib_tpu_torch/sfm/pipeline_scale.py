@@ -40,11 +40,19 @@ The public functions run on the card unless the caller passes
 autograd bookkeeping on the host. RANSAC draws come from
 `torch.Generator`s seeded from `seed` and the view (the init pair from the
 pair), the roles of the JAX package's `fold_in(key, v)` and
-`fold_in(key, i * V + j)`. The sharded global BA (`mesh`) is not ported.
+`fold_in(key, i * V + j)`.
+
+With a `mesh` (parallel/mesh.py) every rank runs the host loop with the same
+seeds, and the global bundles (growth-triggered and final) shard over the
+mesh through parallel.dist_ba; the windowed bundles stay whole on each rank.
+The final sequence is the single-device route's, re-triangulation and
+pruning included (the JAX package's mesh route skips them,
+pipeline_scale.py:851-869), so a mesh changes the result only by rounding.
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -56,6 +64,8 @@ from opencv_contrib_tpu_torch.ba.bundle import _small_mm
 from opencv_contrib_tpu_torch.core import camera as cam
 from opencv_contrib_tpu_torch.core import se3
 from opencv_contrib_tpu_torch.mvg import fundamental, resection, robust, triangulation
+from opencv_contrib_tpu_torch.parallel import dist_ba
+from opencv_contrib_tpu_torch.parallel.mesh import check_replicated
 from opencv_contrib_tpu_torch.utils.device import resolve
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
 from opencv_contrib_tpu_torch.utils.tracing import trace_span
@@ -344,10 +354,10 @@ def _set_rows(x: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.T
     return _dump_row(x, 0).index_copy_(0, idx, rows)[:x.shape[0]]
 
 
-def _solve_slots(st: MapState, vids, tid_w, uv_w, ok_w, cam_free, pt_free, intr, n_iters, n_cg):
+def _solve_slots(st: MapState, vids, tid_w, uv_w, ok_w, cam_free, pt_free, intr, n_iters, n_cg, mesh=None):
     """Sparse BA over the (C, K) slots of the views `vids` against all T
     points (slot-trivial buckets), its cameras written back where
-    `cam_free`."""
+    `cam_free`; sharded over `mesh` when one is given."""
     C, K = tid_w.shape
     V = st.Rs.shape[0]
     dev = st.points.device
@@ -356,7 +366,11 @@ def _solve_slots(st: MapState, vids, tid_w, uv_w, ok_w, cam_free, pt_free, intr,
         obs_cam=torch.arange(C * K, dtype=torch.int32, device=dev) // K,
         obs_pt=tid_w.reshape(-1).int(), obs_uv=uv_w.reshape(-1, 2).T, obs_ok=ok_w.reshape(-1))
     buckets = sba.ObsBuckets(torch.arange(C * K, dtype=torch.int32, device=dev).reshape(C, K).T, ok_w.T)
-    res = sba._bundle_adjust_sparse_jit(prob, buckets, n_iters, False, cam_free, pt_free, 1e-4, n_cg)
+    if mesh is None:
+        res = sba._bundle_adjust_sparse_jit(prob, buckets, n_iters, False, cam_free, pt_free, 1e-4, n_cg)
+    else:
+        res = dist_ba.bundle_adjust_sparse(prob, mesh, buckets=buckets, n_iters=n_iters, fix_first_cam=False,
+                                           cam_free=cam_free, pt_free=pt_free, n_cg=n_cg)
     widx = torch.where(cam_free, vids, V)
     return st._replace(Rs=_set_rows(st.Rs, widx, se3.exp_so3(res.cameras[:, :3])),
                        ts=_set_rows(st.ts, widx, res.cameras[:, 3:]), points=res.points)
@@ -475,13 +489,14 @@ def _retriangulate(st: MapState, tmv, tmu, tmo, intr, chunk: int = 32768) -> Map
 
 
 @f32_matmuls
-def _global_ba_jit(st: MapState, tid, uv, ok, cam_free, intr, n_iters: int, n_cg: int):
+def _global_ba_jit(st: MapState, tid, uv, ok, cam_free, intr, n_iters: int, n_cg: int, mesh=None):
     """Global sparse BA over all registered views (EuclideanBundle role,
-    bundle.cc:450) — segment-consistent observations only."""
+    bundle.cc:450) — segment-consistent observations only; sharded over
+    `mesh` when one is given."""
     tid = tid.long()
     okg = ok & st.registered[:, None] & st.has_point[tid] & (st.seg_of_point[tid] == st.seg_of_view[:, None])
     vids = torch.arange(tid.shape[0], device=tid.device)
-    return _solve_slots(st, vids, tid, uv, okg, cam_free, st.has_point, intr, n_iters, n_cg)
+    return _solve_slots(st, vids, tid, uv, okg, cam_free, st.has_point, intr, n_iters, n_cg, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -578,11 +593,10 @@ def _push_state(rec: SequentialReconstruction, first_view, first_uv, device="cud
 @f32_matmuls
 def global_ba(rec: SequentialReconstruction, tracks: SparseTracks, n_iters: int = 15, n_cg: int = 15, mesh=None,
               device="cuda") -> None:
-    """Host-facing global sparse BA over ALL registered views, on `device`.
-    The JAX package shards it over `mesh` through parallel.dist_ba; that
-    layer is not ported, so a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError("global_ba over a mesh needs parallel.dist_ba, which the port does not have yet")
+    """Host-facing global sparse BA over ALL registered views, on `device`;
+    sharded over `mesh` through parallel.dist_ba when one is given (every
+    rank of it calls this with the same reconstruction)."""
+    _check_mesh(mesh)
     dev = resolve(device)
     V, K = tracks.tid.shape
     ok = (tracks.ok & rec.registered[:, None] & rec.has_point[tracks.tid]
@@ -596,13 +610,24 @@ def global_ba(rec: SequentialReconstruction, tracks: SparseTracks, n_iters: int 
         obs_pt=_upload(tracks.tid.reshape(-1), dev), obs_uv=_upload(tracks.uv.reshape(-1, 2).T, dev),
         obs_ok=ok_d.reshape(-1))
     buckets = sba.ObsBuckets(torch.arange(V * K, dtype=torch.int32, device=dev).reshape(V, K).T, ok_d.T)
-    res = sba.bundle_adjust_sparse(prob, n_iters=n_iters, fix_first_cam=False, cam_free=cam_free,
-                                   pt_free=_upload(rec.has_point, dev), n_cg=n_cg, buckets=buckets)
+    kwargs = dict(n_iters=n_iters, fix_first_cam=False, cam_free=cam_free, pt_free=_upload(rec.has_point, dev),
+                  n_cg=n_cg, buckets=buckets)
+    if mesh is None:
+        res = sba.bundle_adjust_sparse(prob, **kwargs)
+    else:
+        res = dist_ba.bundle_adjust_sparse(prob, mesh, **kwargs)
     upd = np.flatnonzero(_global_cam_free(rec))
     out_c = res.cameras[_upload(upd, dev)]
     rec.Rs[upd] = _host(se3.exp_so3(out_c[:, :3]))
     rec.ts[upd] = _host(out_c[:, 3:])
     rec.points[rec.has_point] = _host(res.points)[rec.has_point]
+
+
+def _check_mesh(mesh) -> None:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh (parallel.mesh.make_mesh), not {type(mesh).__name__}")
 
 
 def _global_cam_free(rec: SequentialReconstruction) -> np.ndarray:
@@ -649,14 +674,12 @@ def reconstruct_sequential(
     registrations if nonzero, and whenever the map has grown by
     `global_growth`). See the module docstring for the round-trip arithmetic.
 
-    `mesh` must be None: the sharded final bundle (parallel.dist_ba) is not
-    ported. When it is, it must come with the re-triangulation and pruning
-    pass that the single-device final bundle runs, which the JAX package's
-    mesh route skips.
+    With a `mesh` (a DeviceMesh on `device`'s type), every rank of it calls
+    this with the same arguments and runs the host loop; the global bundles
+    shard over the mesh (module docstring), and the ranks' `reg_order` are
+    checked to agree at the end.
     """
-    if mesh is not None:
-        raise NotImplementedError("reconstruct_sequential over a mesh needs parallel.dist_ba, which the port does "
-                                  "not have yet")
+    _check_mesh(mesh)
     dev = resolve(device)
     V, K = tracks.tid.shape
     T = tracks.n_tracks
@@ -724,7 +747,8 @@ def reconstruct_sequential(
         cam_free = _upload(_global_cam_free(rec), dev)
         st = _retriangulate(st, tmv, tmu, tmo, intr_d)
         err = _slot_err_jit(st, tid_d, uv_d, ok_d, intr_d)
-        st = _global_ba_jit(st, tid_d, uv_d, ok_d & (err < prune_px), cam_free, intr_d, n_iters=n_iters, n_cg=15)
+        st = _global_ba_jit(st, tid_d, uv_d, ok_d & (err < prune_px), cam_free, intr_d, n_iters=n_iters, n_cg=15,
+                            mesh=mesh)
 
     with trace_span("sfm_scale.sequential"):
         v0 = 1
@@ -796,4 +820,6 @@ def reconstruct_sequential(
             for _ in range(3):
                 bundle_all(final_global_iters)
         _pull_state(st, rec)
+    if mesh is not None:
+        check_replicated(mesh, zlib.crc32(np.asarray(rec.reg_order, np.int64).tobytes()), "reg_order")
     return rec

@@ -53,7 +53,10 @@ def test_port_has_its_files():
                  "rgbd/submap.py", "rgbd/odometry.py", "rgbd/colored_tsdf.py", "rgbd/depth_utils.py",
                  "rgbd/normals.py", "utils/png.py", "utils/io.py", "utils/datasets.py", "utils/tum_export.py",
                  "utils/native.py", "rgbd/warpfield.py", "rgbd/dynafu.py", "flow/motempl.py", "flow/pcaflow.py",
-                 "flow/gpc.py", "flow/extra.py", "ximgproc/__init__.py", "ximgproc/interp.py"):
+                 "flow/gpc.py", "flow/extra.py", "ximgproc/__init__.py", "ximgproc/interp.py",
+                 "parallel/__init__.py", "parallel/mesh.py", "parallel/dist_ba.py", "parallel/ring_match.py",
+                 "parallel/submap_shard.py", "parallel/stage_pipeline.py", "parallel/dist_sfm.py",
+                 "parallel/checkpoint.py"):
         assert need in names
     assert (PORT / "utils/csrc/unfilter.cpp").exists()
     for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu", "transform.cu", "reduce.cu", "histogram.cu", "maps.cuh"):
@@ -65,19 +68,21 @@ def test_port_has_its_files():
                                   "HashKinFu", "LargeKinFu", "odometry.compute", "hash_kinfu_track",
                                   "large_kinfu_track", "rgbd_odometry", "tum_kinfu", "dynafu_track", "DynaFu",
                                   "dense_flow_deepflow", "dense_flow_simpleflow", "dense_flow_sparse_to_dense",
-                                  "dense_flow_rlof", "dense_flow_pcaflow"])
+                                  "dense_flow_rlof", "dense_flow_pcaflow", "dryrun_multichip", "make_mesh"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
     """Asked for "cuda" (their default) on a machine without a card, the
     frontend, keyframe, dense-flow, photometric and both SfM drivers' entry
     points, the hashed-block and large-scale KinFu, the RGB-D odometry, the
-    TUM disk path, DynaFu and every dense-flow method raise instead of
-    running on the CPU. (The TUM loader decodes on the host and has no
-    device path.)"""
+    TUM disk path, DynaFu, every dense-flow method, the multichip dryrun and
+    a mesh on "cuda" raise instead of running on the CPU (a mesh drops
+    neither to gloo nor to the CPU). (The TUM loader decodes on the host and
+    has no device path.)"""
     import numpy as np
     import torch
 
     from opencv_contrib_tpu_torch import entry
     from opencv_contrib_tpu_torch.rgbd import dynafu, kinfu, odometry, submap
+    from opencv_contrib_tpu_torch.parallel import mesh
     from opencv_contrib_tpu_torch.sfm import pipeline, pipeline_scale
     from opencv_contrib_tpu_torch.utils.tum_export import write_tum_sequence
 
@@ -108,7 +113,9 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
             "DynaFu": lambda: dynafu.DynaFu(intr, frame_shape=(32, 48)),
             **{f"dense_flow_{m}": (lambda m=m: entry.dense_flow(img, img, m, levels=2))
                for m in ("deepflow", "simpleflow", "sparse_to_dense", "rlof")},
-            "dense_flow_pcaflow": lambda: entry.dense_flow(img, img, "pcaflow", k=3)}[name]
+            "dense_flow_pcaflow": lambda: entry.dense_flow(img, img, "pcaflow", k=3),
+            "dryrun_multichip": lambda: entry.dryrun_multichip(1),
+            "make_mesh": lambda: mesh.make_mesh(device="cuda")}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

@@ -473,13 +473,14 @@ def test_entry_scene_rule():
 
 
 def test_mesh_raises_and_short_window_runs(monkeypatch):
-    """A mesh raises (the sharded BA is not ported). A window under 3 views
-    runs no windowed BA (the JAX package's `window_vids` returns two values
-    there, and its caller unpacks three) and the run completes; a window of
-    3 runs it."""
+    """A mesh that is not a DeviceMesh raises (the mesh route itself is held
+    by tests/test_torch_parallel_sfm.py). A window under 3 views runs no
+    windowed BA (the JAX package's `window_vids` returns two values there,
+    and its caller unpacks three) and the run completes; a window of 3 runs
+    it."""
     sc = tgen(n_views=24, slots_per_view=32, track_span=8, seed=0, noise_px=0.0)
     tr = tps.from_sequence_scene(sc)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tps.reconstruct_sequential(tr, sc.intr, mesh=object(), device=CPU)
     calls = []
     orig = tps._windowed_ba_jit
@@ -489,7 +490,7 @@ def test_mesh_raises_and_short_window_runs(monkeypatch):
                                          device=CPU)
         assert rec.registered.sum() >= 4
     assert calls and set(calls) == {3}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tps.global_ba(rec, tr, mesh=object(), device=CPU)
 
 
