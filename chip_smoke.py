@@ -137,7 +137,19 @@ Phases, one JSON line each:
       them: EPE, ms and pyrdown / remap launches a pair, DeepFlow and RLOF
       on the plain path, GPC correspondences and motion templates beside
       them; and each part at its CPU tests' size on the card against the
-      CPU.
+      CPU;
+  (r) the distributed layer on a world-size-1 NCCL mesh in this process;
+  (s) the xfeatures2d breadth: knn2 at D = 49, 120 and 200 (512 x 512) and
+      the integral kernel at the new tables (edge-padded VGA frames, an
+      8-map half-resolution cube, an 8-map VGA stack) against their plain
+      versions; `entry.features_x` on `entry.feature_pair()` (480x640, 15
+      degrees, K = 512) for every detector and every descriptor with the
+      counters read around each, the JAX tests' gates at VGA, GMS and LOGOS,
+      TBMR with affine adaptation, PCT with SQFD, template matching in the
+      six modes, LINEMOD detect and CCL with component_stats; the same on
+      the plain path on integer frames; each part at its CPU tests' size on
+      the card against the CPU; ms, device ms, host syncs and launches a
+      path.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -202,6 +214,17 @@ PATH_KERNELS.update({"dist_dense_ba": (), "dist_sparse_ba": (), "dist_global_ba"
                      "dist_sfm_step": ("integral_image",), "dist_submaps": (),
                      "dist_stage_pipeline": ("integral_image", "knn2"), "dist_checkpoint": (),
                      "dryrun_multichip": ()})
+# phase s's paths: features_x with each detector (SURF descriptors, matched by knn2; Star's box maps and
+# Harris-Laplace's blurs and orientation read summed-area tables) and each descriptor (on Fast-Hessian, whose table
+# is the integral kernel's; float descriptors matched by knn2, binary ones by the Hamming product), and the rest
+PATH_KERNELS.update({"xfeat_star": ("integral_image", "knn2"), "xfeat_msd": ("knn2",),
+                     "xfeat_harris_laplace": ("integral_image", "knn2"), "xfeat_harris": ("knn2",),
+                     "xfeat_fast": ("knn2",), "xfeat_daisy": ("integral_image", "knn2"),
+                     "xfeat_brief": ("integral_image",), "xfeat_boxes": ("integral_image",),
+                     "xfeat_freak": ("integral_image",), "xfeat_latch": ("integral_image",),
+                     "xfeat_lucid": ("integral_image", "knn2"), "xfeat_vgg": ("integral_image", "knn2"),
+                     "xfeat_boostdesc": ("integral_image",), "xfeat_gms_logos": (), "xfeat_tbmr": (),
+                     "xfeat_pct": (), "xfeat_template": ("integral_image",), "xfeat_linemod": (), "xfeat_ccl": ()})
 DEVICE_KERNELS = ("knn2_kernel", "scan_rows_kernel", "integral_kernel", "grid_reduce_vec_kernel", "pyrdown_kernel",
                   "remap_kernel", "grid_transform_vec4_kernel", "grid_transform_strided_kernel",
                   "streamed_transform_kernel", "grid_reduce_vec4_kernel", "grid_reduce_strided_kernel",
@@ -444,6 +467,25 @@ DIST_PREFIX = "ncclDevKernel"  # NCCL's device kernels in the profiler's raw eve
 DIST_MARKERS, DIST_WINDOWS = 256, 3
 REMAINDER_CPU_TOL = {"tum_pose": 1e-3, "tum_ate": 1e-3, "dynafu_xi": 1e-3, "dynafu_render": 1e-3,
                      "flow": FLOW_CPU_TOL, "flow_share": 1e-3, "gpc_tie_share": 0.01, "motempl_deg": 1e-3}
+XFEAT_SHAPE, XFEAT_K = (480, 640), 512  # entry.feature_pair()'s VGA pair, K = 512
+XFEAT_DETECTORS = ("star", "msd", "harris_laplace", "harris", "fast")  # each with SURF descriptors
+XFEAT_DESCRIPTORS = ("daisy", "brief", "boxes", "freak", "latch", "lucid", "vgg", "boostdesc")  # on Fast-Hessian
+# tests/test_features_x.py's rotation gates: matches > n and inlier share > rate (3 px under the known rotation)
+XFEAT_GATES = {"freak": (20, 0.6), "latch": (20, 0.8), "vgg": (20, 0.8), "boostdesc": (15, 0.7)}
+XFEAT_KNN2_WIDTHS = (49, 120, 200)  # LUCID, VGG (the default projection), DAISY; Q = T = XFEAT_K
+XFEAT_PAD_RADII = (3, 4, 8)  # the box passes' edge pads: FREAK's sigma 3.6 / 4.2, Harris-Laplace's sigma 7.6
+XFEAT_CUBE = (8, 240, 320)  # a half-resolution 8-map cube (DAISY's cubes of sigma >= 5 are smoothed at this size)
+XFEAT_EXACT_LEVELS = 50  # integer frames 0..50: an edge-padded VGA table (r <= 8) stays below 2**24
+XFEAT_SMALL = (96, 128)  # tests/test_torch_features_x.py's chain size
+XFEAT_TM_CUT = (200, 300, 64)  # template matching: a 64x64 cut of frame 1 at (200, 300)
+XFEAT_LINEMOD_AT = (250, 330)  # the L object of tests/test_rgbd_extras.py placed in a VGA scene
+XFEAT_PREFIX = "xfeat."  # phase s's record_function spans, one a timed call
+XFEAT_REPS = 10  # calls a kernel span times
+XFEAT_PLAIN_TOL = {"kp_equal": 0.98, "valid_agree": 0.95, "bits_agree": 0.99, "float_desc": 1e-3,
+                   "surface_rel": 1e-3}
+XFEAT_CPU_TOL = {"kp_equal": 0.98, "valid_agree": 0.95, "bits_agree": 0.99, "float_desc": 1e-3, "tbmr_px": 1e-2,
+                 "pct": 1e-4, "surface_rel": 1e-4, "linemod_score": 1e-5}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -2007,13 +2049,14 @@ class Smoke(Timer):
             _, wall = self.wall_s(run)
         return self.kineto_rows(prof, wall, SFM_PREFIX, SFM_SPANS)
 
-    def kineto_rows(self, prof, wall: float, prefix: str, names, require: bool = True) -> dict:
+    def kineto_rows(self, prof, wall: float, prefix: str, names, require: bool = True, by_kernel: bool = False) -> dict:
         """A finished profile whose window took `wall` s: device busy time and
         launches, the top device operations, and per span (disjoint, named
         `prefix` + one of `names`; with `require`, each in the window) the
         count, the host ms and the device ms and launches of the kernels whose
         launching op started inside it (op and kernel joined by correlation
-        id, as the profiler's own tree joins them)."""
+        id, as the profiler's own tree joins them); with `by_kernel`, also
+        each span's launches and device ms by kernel name."""
         import bisect
 
         from torch.autograd import DeviceType
@@ -2023,7 +2066,8 @@ class Smoke(Timer):
             name = e.name()
             if e.device_type() == DeviceType.CUDA:
                 if not name.startswith(prefix):  # a span's device-side copy
-                    kernels.append((e.linked_correlation_id(), name, e.duration_ns()))
+                    # a kernel launched by no op (ours, through ctypes) links to nothing: it joins its own launch call
+                    kernels.append((e.linked_correlation_id() or e.correlation_id(), name, e.duration_ns()))
             elif name.startswith(prefix):
                 spans.append((e.start_ns(), e.end_ns(), name[len(prefix):]))
             elif e.linked_correlation_id() == 0 and not e.is_async():  # an op, not a runtime call
@@ -2031,7 +2075,8 @@ class Smoke(Timer):
         spans.sort()
         starts = [sp[0] for sp in spans]
         outside = "(outside the spans)"
-        rows = {n: {"count": 0, "host_ms": 0.0, "device_ms": 0.0, "launches": 0} for n in sorted(names) + [outside]}
+        rows = {n: {"count": 0, "host_ms": 0.0, "device_ms": 0.0, "launches": 0, **({"kernels": {}} if by_kernel else {})}
+                for n in sorted(names) + [outside]}
         for t0, t1, n in spans:
             rows[n]["count"] += 1
             rows[n]["host_ms"] += (t1 - t0) / 1e6
@@ -2042,6 +2087,10 @@ class Smoke(Timer):
             row = rows[spans[k][2] if k >= 0 and t <= spans[k][1] else outside]
             row["device_ms"] += dur / 1e6
             row["launches"] += 1
+            if by_kernel:
+                k_row = row["kernels"].setdefault(name, [0, 0.0])
+                k_row[0] += 1
+                k_row[1] += dur / 1e6
             agg = by_name.setdefault(name, [0, 0])
             agg[0] += 1
             agg[1] += dur
@@ -3371,6 +3420,561 @@ class Smoke(Timer):
         row.update(out)
         return row
 
+    # ---- (s) -----------------------------------------------------------------
+    def xfeatures(self):
+        out, parts = {}, {}
+        self.xfeat_calls = {}  # path -> its call, for one profiler window over them all
+        for name, fn in (("kernels", self.xfeat_kernels), ("paths", self.xfeat_paths), ("gates", self.xfeat_gates),
+                         ("device", self.xfeat_device), ("plain_path", self.xfeat_plain),
+                         ("card_vs_cpu", self.xfeat_card_vs_cpu)):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            parts[name] = time.perf_counter() - t0
+        emit({"phase": "s_xfeatures2d", **out, "phase_parts_s": parts,
+              "tolerance": f"knn2: rtol 1e-5, atol 1e-4, idx agreement >= 0.999; integral tables: max abs err <= "
+                           f"2e-6 * max|table|, equal bits on a rerun; box-blur stacks: 2 x 3 passes x 4 entries x "
+                           f"the float32 spacing of the largest table / the smallest box area; gates: "
+                           f"tests/test_features_x.py's {XFEAT_GATES} and the JAX tests' detector, GMS, LOGOS, "
+                           f"PCT, template and LINEMOD gates; plain path: {XFEAT_PLAIN_TOL}; card vs CPU: "
+                           f"{XFEAT_CPU_TOL}",
+              "timing": "ms: device time a call, from one profiler window of XFEAT_REPS calls a kernel (raw kineto "
+                        "events, kernels joined to record_function spans); wall_ms: CUDA events a call; a path's s: "
+                        "host clock around one synchronised call; device: each path's kernel time and launches, "
+                        "from one profiler window over all paths",
+              "ok": True})
+
+    def xfeat_profile(self, calls: dict, reps: int = 1) -> dict:
+        """Device ms and launches of each call in `calls` (span name -> fn,
+        run `reps` times), all in one profiler window read from the raw
+        kineto events (`kineto_rows`): a window in this late a process drops
+        its first events, so it opens with DIST_MARKERS fills and is taken
+        again, up to DIST_WINDOWS times, when a span kept none of its
+        kernels. Returns the spans' rows, device ms and launches a call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        if self.marker is None:
+            self.marker = torch.empty(16, dtype=torch.uint8, device=self.dev)
+        for fn in calls.values():
+            fn()
+        lost = []
+        for _ in range(DIST_WINDOWS):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(WINDOW_PAD_S)
+                for _ in range(DIST_MARKERS):
+                    self.marker.zero_()
+                t0 = time.perf_counter()
+                for name, fn in calls.items():
+                    with torch.profiler.record_function(XFEAT_PREFIX + name):
+                        for _ in range(reps):
+                            fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                time.sleep(WINDOW_PAD_S)
+            rows = self.kineto_rows(prof, wall, XFEAT_PREFIX, set(calls), require=False, by_kernel=True)["spans"]
+            lost = [n for n in calls if rows[n]["launches"] == 0]
+            if not lost:
+                return {n: {"device_ms": rows[n]["device_ms"] / reps, "launches": rows[n]["launches"] / reps,
+                            "kernels": rows[n]["kernels"]} for n in calls}
+        raise AssertionError(f"torch.profiler kept no kernel of {lost} in {DIST_WINDOWS} windows")
+
+    def xfeat_kernels(self) -> dict:
+        """knn2 at the descriptor widths of the new paths and the integral
+        kernel at their tables, each against its plain version; all timed in
+        one profiler window."""
+        import torch.nn.functional as F
+
+        from opencv_contrib_tpu_torch.ops import filters, integral
+        from opencv_contrib_tpu_torch.ops.cuda import matching as fused
+        from opencv_contrib_tpu_torch.ops.cuda import scan
+        from opencv_contrib_tpu_torch.utils.precision import f32_matmul_precision
+
+        torch = self.torch
+        widths, calls = {}, {}
+        Q = XFEAT_K
+        for D in XFEAT_KNN2_WIDTHS:
+            q, t = self.card(self.gen.normal(size=(Q, D))), self.card(self.gen.normal(size=(Q, D)))
+            with f32_matmul_precision():
+                d, i = fused.knn2(q, t)
+                dp, ip = fused.knn2_plain(q, t)
+                again = fused.knn2(q, t)
+                torch.cuda.synchronize()
+            err = float((d - dp).abs().max())
+            worst = float(((d - dp).abs() / (1e-4 + 1e-5 * dp.abs())).max())
+            agree = float((i == ip).float().mean())
+            check(worst <= 1.0 and agree >= 0.999, f"knn2 {Q}x{Q}x{D}: err/tol {worst}, idx agreement {agree}")
+            check(torch.equal(again[0], d) and torch.equal(again[1], i), f"knn2 {Q}x{Q}x{D}: a rerun differs")
+            calls.update({f"knn2_{D}": lambda q=q, t=t: fused.knn2(q, t),
+                          f"knn2_plain_{D}": lambda q=q, t=t: fused.knn2_plain(q, t),
+                          f"knn2_library_{D}": lambda q=q, t=t: torch.topk(torch.cdist(q, t), 2, dim=1, largest=False)})
+            nbytes, ops = 4 * (2 * Q * D + 3 * Q), 2 * Q * Q * D
+            widths[str(D)] = {"shape": [Q, Q, D], "max_abs_err": err, "err_over_tol": worst, "idx_agree": agree,
+                              "bound_ms": max(nbytes / self.bw, ops / self.flops) * 1e3,
+                              "bound_by": "operations" if ops / self.flops > nbytes / self.bw else "bytes"}
+
+        tables = {}
+        frame = self.card(np.round(self.gen.uniform(0, 255, size=XFEAT_SHAPE)))
+        for r in XFEAT_PAD_RADII:
+            p = F.pad(frame[None, None], (r,) * 4, mode="replicate")[0, 0]
+            ii, ref = integral.integral(p), scan.integral_padded_plain(p)
+            torch.cuda.synchronize()
+            err, top = float((ii - ref).abs().max()), float(ref.abs().max())
+            check(err <= 2e-6 * top and torch.equal(integral.integral(p), ii),
+                  f"integral of the {r}-padded VGA frame: max err {err} (max {top}), a rerun equal")
+            calls[f"integral_r{r}"] = lambda p=p: integral.integral(p)
+            if r == XFEAT_PAD_RADII[1]:  # FREAK's widest pad, beside its plain version and two cumsums
+                calls[f"integral_plain_r{r}"] = lambda p=p: scan.integral_padded_plain(p)
+                calls[f"integral_library_r{r}"] = lambda p=p: F.pad(torch.cumsum(torch.cumsum(p, 0), 1), (1, 0, 1, 0))
+            H, W = p.shape
+            tables[str(r)] = {"table": f"VGA edge-padded by {r}", "shape": [H, W], "max_abs_err": err,
+                              "max_abs": top, "bound_ms": 4 * (H * W + (H + 1) * (W + 1)) / self.bw * 1e3,
+                              "bound_by": "bytes"}
+
+        stacks = {}
+        for shape, sigma in ((XFEAT_CUBE, 4.0), ((8,) + XFEAT_SHAPE, 4.2)):
+            x = self.card(self.gen.uniform(0, 1, size=shape))
+            self.kern.reset_launches()
+            out = filters.fast_gaussian_blur(x, sigma)
+            n = self.kern.launches()["integral_image"]
+            with plain_path():
+                ref = filters.fast_gaussian_blur(x, sigma)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            biggest = float(x.sum(dim=(-2, -1)).max())  # about the largest table entry
+            wl = int(np.floor(np.sqrt(4.0 * sigma * sigma + 1.0)))
+            n_min = wl - 1 if wl % 2 == 0 else wl
+            tol = 2 * 3 * 4 * float(np.spacing(np.float32(biggest * 1.1))) / n_min ** 2
+            check(n == 3 * shape[0] and err <= tol, f"fast_gaussian_blur {shape} sigma {sigma}: {n} integral "
+                                                    f"launches, max err {err} > {tol}")
+            key = "x".join(map(str, shape))
+
+            def plain(x=x, sigma=sigma):
+                with plain_path():
+                    return filters.fast_gaussian_blur(x, sigma)
+
+            calls[f"blur_{key}"] = lambda x=x, sigma=sigma: filters.fast_gaussian_blur(x, sigma)
+            calls[f"blur_plain_{key}"] = plain
+            stacks[key] = {"shape": list(shape), "sigma": sigma, "integral_launches": n, "max_abs_err": err,
+                           "tol": tol}
+
+        prof = self.xfeat_profile(calls, reps=XFEAT_REPS)
+        for D, row in widths.items():
+            k = prof[f"knn2_{D}"]
+            check(k["launches"] == 1 and all(is_ours(name, "knn2_kernel") for name in k["kernels"]),
+                  f"knn2 {D}: device launches a call {k}")
+            row.update(ms=k["device_ms"], launches_per_call=k["launches"],
+                       plain_ms=prof[f"knn2_plain_{D}"]["device_ms"],
+                       library_ms=prof[f"knn2_library_{D}"]["device_ms"],
+                       wall_ms=self.wall_ms(calls[f"knn2_{D}"]))
+        for r, row in tables.items():
+            k = prof[f"integral_r{r}"]
+            check(k["launches"] == 1 and all(is_ours(name, "integral_kernel") for name in k["kernels"]),
+                  f"integral r={r}: device launches a call {k}")
+            row.update(ms=k["device_ms"], launches_per_call=k["launches"])
+            if f"integral_plain_r{r}" in prof:
+                row.update(plain_ms=prof[f"integral_plain_r{r}"]["device_ms"],
+                           library_ms=prof[f"integral_library_r{r}"]["device_ms"],
+                           wall_ms=self.wall_ms(calls[f"integral_r{r}"]))
+        for key, row in stacks.items():
+            row.update(ms=prof[f"blur_{key}"]["device_ms"], launches_per_call=prof[f"blur_{key}"]["launches"],
+                       plain_ms=prof[f"blur_plain_{key}"]["device_ms"])
+        self.kernels["knn2"]["widths"] = {D: {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                                 "bound_by", "max_abs_err")}
+                                          for D, r in widths.items()}
+        return {"knn2_widths": widths, "integral_tables": tables, "box_blur_stacks": stacks}
+
+    @staticmethod
+    def inlier_rate(r, fwd, tol: float = 3.0):
+        """(inlier share, matches) of a features_x result under the known map."""
+        v = r.matches.valid.cpu().numpy()
+        if v.sum() == 0:
+            return 0.0, 0
+        p1 = np.stack([r.k1.x.cpu().numpy(), r.k1.y.cpu().numpy()], 1)
+        mapped = p1 @ fwd[:, :2].T + fwd[:, 2]
+        t = r.matches.train_idx.cpu().numpy().astype(np.int64)
+        err = np.hypot(mapped[:, 0] - r.k2.x.cpu().numpy()[t], mapped[:, 1] - r.k2.y.cpu().numpy()[t])
+        return float((err[v] < tol).mean()), int(v.sum())
+
+    def xfeat_path(self, path: str, fn):
+        """One path: a warm-up call, the counted call and its host syncs; its
+        device time waits for the phase's one profiler window
+        (`xfeat_device`)."""
+        fn()
+        out, s = self.counted(path, fn)
+        syncs = self.count_syncs(fn)
+        self.xfeat_calls[path] = fn
+        return out, {"s": s, "launches": {k: self.launches[path][k] for k in PATH_KERNELS[path]},
+                     "host_syncs": syncs["total"], "host_syncs_in_port": syncs["in_the_port"],
+                     "sync_sites": syncs["top_sites"]}
+
+    def xfeat_device(self) -> dict:
+        """Every path's device ms and launches, and its five costliest
+        kernels (launches, ms), from one profiler window."""
+        prof = self.xfeat_profile(self.xfeat_calls)
+        out = {}
+        for path, row in prof.items():
+            top = sorted(row["kernels"].items(), key=lambda kv: -kv[1][1])[:5]
+            out[path] = {"device_ms": row["device_ms"], "device_launches": row["launches"],
+                         "costliest": {k[:80]: [n, ms] for k, (n, ms) in top}}
+        return out
+
+    def xfeat_jobs(self):
+        return ([(f"xfeat_{d}", d, "surf") for d in XFEAT_DETECTORS]
+                + [(f"xfeat_{d}", "fast_hessian", d) for d in XFEAT_DESCRIPTORS])
+
+    def xfeat_paths(self) -> dict:
+        """entry.features_x on the VGA pair with every detector and every
+        descriptor, the rotation gates, and the descriptors' own JAX-test
+        gates."""
+        from opencv_contrib_tpu_torch.features import describe
+
+        torch, entry = self.torch, self.entry
+        img1, img2, fwd = entry.feature_pair(*XFEAT_SHAPE)
+        self.xfeat_pair = (img1, img2, fwd)
+        a, b = self.card(img1), self.card(img2)
+        runs, results = {}, {}
+        for path, det, desc in self.xfeat_jobs():
+            r, row = self.xfeat_path(path, lambda det=det, desc=desc: entry.features_x(a, b, det, desc, K=XFEAT_K,
+                                                                                       device=self.dev))
+            rate, n = self.inlier_rate(r, fwd)
+            row.update(detector=det, descriptor=desc, kp=[int(r.k1.count()), int(r.k2.count())], matches=n,
+                       inlier_share=rate, width=int(r.d1.shape[1]))
+            check(min(row["kp"]) > 0 and n > 0, f"{path}: keypoints {row['kp']}, matches {n}")
+            if desc in XFEAT_GATES:
+                gn, grate = XFEAT_GATES[desc]
+                check(n > gn and rate > grate, f"{path}: {n} matches at inlier share {rate} (gate {gn}, {grate})")
+            runs[path], results[path] = row, r
+        # the JAX tests' own gates on the descriptors without a rotation gate
+        r = results["xfeat_daisy"]
+        norms = torch.linalg.norm(r.d1.reshape(XFEAT_K, 25, 8), dim=-1)
+        check(float(norms.max()) < 1.0 + 1e-4, f"DAISY: a histogram of norm {float(norms.max())}")
+        r = results["xfeat_lucid"]
+        rows = torch.sort(r.d1[r.k1.valid], dim=1).values
+        check(bool(torch.allclose(rows, torch.arange(49, device=self.dev) / 48.0, atol=1e-6)),
+              "LUCID: a valid row is not a permutation of the ranks")
+        r = results["xfeat_boxes"]
+        packed, signs = describe.binary_boxes_describe(a, r.k1)
+        check(torch.equal(describe.unpack_to_signs(packed, 256) * r.k1.valid[:, None], signs)
+              and torch.equal(signs, r.d1), "boxes: packed words and signs differ")
+        self.xfeat_results = results
+        return {"frames": [2, *XFEAT_SHAPE], "K": XFEAT_K, "angle_deg": 15.0, "runs": runs}
+
+    @staticmethod
+    def blob_image(centers, sigmas, shape):
+        H, W = shape
+        y, x = np.mgrid[0:H, 0:W]
+        img = np.zeros(shape, np.float32)
+        for (cy, cx), sg in zip(centers, sigmas):
+            img += 200.0 * np.exp(-((y - cy) ** 2 + (x - cx) ** 2) / (2 * sg * sg))
+        return img
+
+    def xfeat_gates(self) -> dict:
+        """The JAX tests' detector gates on VGA frames, GMS and LOGOS, TBMR
+        with affine adaptation, PCT, template matching, LINEMOD and CCL, each
+        a counted path."""
+        from opencv_contrib_tpu_torch.features import detect, detect_x, match, pct
+        from opencv_contrib_tpu_torch.features import keypoints as kp_mod
+        from opencv_contrib_tpu_torch.ops import ccl, template_match
+        from opencv_contrib_tpu_torch.rgbd import linemod
+
+        torch = self.torch
+        H, W = XFEAT_SHAPE
+        out = {}
+        centers = [(150, 200), (150, 440), (330, 200), (330, 440)]
+        k = detect_x.star_detector(self.card(self.blob_image(centers, [5] * 4, XFEAT_SHAPE)), max_keypoints=16)
+        got = np.stack([k.y.cpu().numpy(), k.x.cpu().numpy()], 1)[k.valid.cpu().numpy()]
+        dist = [float(np.hypot(got[:, 0] - cy, got[:, 1] - cx).min()) for cy, cx in centers]
+        check(max(dist) < 3.0, f"Star: blob distances {dist}")
+        sq = np.zeros(XFEAT_SHAPE, np.float32)
+        sq[232:248, 312:328] = 200.0
+        k = detect_x.msd_detector(self.card(sq), max_keypoints=16)
+        got = np.stack([k.y.cpu().numpy(), k.x.cpu().numpy()], 1)[k.valid.cpu().numpy()]
+        edge = np.minimum(np.abs(got - [232, 312]), np.abs(got - [247, 327])).min(1)
+        check(len(got) >= 4 and (edge < 8).all(), f"MSD: {len(got)} detections, edge distances {edge}")
+        noise = np.random.default_rng(0).uniform(0, 2, XFEAT_SHAPE).astype(np.float32)
+        scales = [float(detect_x.harris_laplace(self.card(self.blob_image([(240, 320)], [sg], XFEAT_SHAPE) + noise),
+                                                max_keypoints=8).scale[0]) for sg in (3.0, 6.0)]
+        check(scales[1] > scales[0], f"Harris-Laplace: scales {scales} for blobs of sigma 3 and 6")
+        checker = np.random.default_rng(0).uniform(0, 50, XFEAT_SHAPE).astype(np.float32)
+        for i in range(8):
+            for j in range(10):
+                if (i + j) % 2 == 0:
+                    checker[20 + i * 55:75 + i * 55, 20 + j * 60:80 + j * 60] += 150.0
+        kh = detect.harris(self.card(checker), max_keypoints=XFEAT_K)
+        resp = kh.response[kh.valid].cpu().numpy()
+        kf = detect.fast_corners(self.card(checker / 255.0), max_keypoints=XFEAT_K, threshold=0.1)
+        check(int(kh.count()) >= 9 and (np.diff(resp) <= 1e-5 * max(1.0, abs(resp).max())).all()
+              and int(kf.count()) >= 4, f"Harris {int(kh.count())} / FAST {int(kf.count())} on the checkerboard")
+        out["detectors"] = {"star_blob_px": dist, "msd": int(len(got)), "harris_laplace_scales": scales,
+                            "harris": int(kh.count()), "fast": int(kf.count())}
+
+        blobs = self.card(np.round(self.blob_image([(160, 200), (320, 440)], [6, 6], XFEAT_SHAPE)))
+        yy, xx = np.mgrid[0:H, 0:W]
+        ridge = self.card(200.0 * np.exp(-(((yy - 240) / 4.0) ** 2 + ((xx - 320) / 12.0) ** 2) / 2))
+        kr = kp_mod.from_arrays(y=[240.0], x=[320.0], scale=[6.0], device=self.dev)
+
+        def tbmr_path():
+            return detect_x.tbmr(blobs, max_regions=16), detect_x.affine_adapt(ridge, kr)
+
+        (ek, ea), row = self.xfeat_path("xfeat_tbmr", tbmr_path)
+        v = ek.valid.cpu().numpy()
+        c = np.stack([ek.y.cpu().numpy()[v], ek.x.cpu().numpy()[v]], 1)
+        ratio = float(ea.a[0] / ea.b[0])
+        check(v.sum() >= 2 and all(np.hypot(c[:, 0] - cy, c[:, 1] - cx).min() < 4.0 for cy, cx in [(160, 200),
+                                                                                                  (320, 440)])
+              and ratio > 1.5, f"TBMR: {int(v.sum())} regions at {c.tolist()}; affine a/b {ratio}")
+        out["tbmr"] = {**row, "regions": int(v.sum()), "affine_ratio": ratio}
+
+        rng = np.random.default_rng(0)
+        n = 200
+        xy1 = rng.uniform(50, 590, size=(n, 2)).astype(np.float32)
+        xy2 = xy1 + np.array([20.0, 10.0], np.float32)
+        xy2[:40] = rng.uniform(0, 640, size=(40, 2)).astype(np.float32)
+        ones = match.Matches(torch.arange(n, dtype=torch.int32, device=self.dev),
+                             torch.arange(n, dtype=torch.int32, device=self.dev), torch.zeros(n, device=self.dev),
+                             torch.ones(n, dtype=torch.bool, device=self.dev))
+        g = match.gms_filter(ones, self.card(xy1), self.card(xy2), shape1=(640, 640), shape2=(640, 640), grid=10,
+                             tau_factor=3.0).valid.cpu().numpy()
+        check(g[40:].mean() > 0.5 and g[:40].mean() < 0.25, f"GMS gate: kept {g[40:].mean()} / {g[:40].mean()}")
+        r = self.entry.features_x(self.card(self.xfeat_pair[0]), self.card(self.xfeat_pair[1]), "fast_hessian",
+                                  "surf", K=XFEAT_K, device=self.dev)
+        fwd = self.xfeat_pair[2]
+
+        def filters_path():
+            xy1_, xy2_ = r.k1.xy(), r.k2.xy()
+            return (match.gms_filter_auto(r.matches, xy1_, xy2_, shape1=XFEAT_SHAPE, shape2=XFEAT_SHAPE),
+                    match.logos_filter(r.matches, xy1_, xy2_))
+
+        (mg, ml), row = self.xfeat_path("xfeat_gms_logos", filters_path)
+        share = {}
+        for name, m in (("matches", r.matches), ("gms", mg), ("logos", ml)):
+            share[name] = self.inlier_rate(r._replace(matches=m), fwd)
+        check(share["logos"][0] >= share["matches"][0] and share["logos"][1] > 0,
+              f"LOGOS on the VGA pair: {share}")
+        out["gms_logos"] = {**row, "gms_gate_kept": [float(g[40:].mean()), float(g[:40].mean())],
+                            "inlier_share_and_count": share}
+
+        blob_sig = self.card(self.blob_image([(240, 320)], [30], XFEAT_SHAPE) / 200.0)
+        f1, f2 = self.card(self.xfeat_pair[0]), self.card(self.xfeat_pair[1])
+
+        def pct_path():
+            s1, s2, s3 = (pct.compute_signature(x) for x in (f1, f2, blob_sig))
+            return s1, pct.sqfd(s1, s1), pct.sqfd(s1, s2), pct.sqfd(s1, s3)
+
+        (s1, d11, d12, d13), row = self.xfeat_path("xfeat_pct", pct_path)
+        d11, d12, d13 = float(d11), float(d12), float(d13)
+        check(d11 < 1e-5 and d13 > 0.01 and abs(float(s1.weights.sum()) - 1.0) < 1e-5,
+              f"PCT: sqfd self {d11}, pair {d12}, blob {d13}")
+        out["pct"] = {**row, "sqfd_self": d11, "sqfd_pair": d12, "sqfd_blob": d13}
+
+        y0, x0, sz = XFEAT_TM_CUT
+        cut = f1[y0:y0 + sz, x0:x0 + sz].clone()
+
+        def template_path():
+            return {m: template_match.min_max_loc(template_match.match_template(f1, cut, m))
+                    for m in template_match.METHODS}
+
+        locs, row = self.xfeat_path("xfeat_template", template_path)
+        for m, use_max in (("ccorr_normed", True), ("sqdiff", False), ("ccoeff", True), ("ccoeff_normed", True),
+                           ("sqdiff_normed", False)):
+            got = locs[m][3] if use_max else locs[m][2]
+            check(got == (y0, x0), f"template {m}: found at {got}, cut at {(y0, x0)}")
+        out["template"] = {**row, "cut": [y0, x0, sz], "min_max_loc": {m: [v[0], v[1], list(v[2]), list(v[3])]
+                                                                       for m, v in locs.items()}}
+
+        ly, lx = XFEAT_LINEMOD_AT
+        scene = np.random.default_rng(0).uniform(0, 0.05, XFEAT_SHAPE).astype(np.float32)
+        obj = np.zeros((24, 24), np.float32)
+        obj[4:20, 4:8] = 1.0
+        obj[16:20, 4:20] = 1.0
+        other = scene.copy()
+        scene[ly:ly + 24, lx:lx + 24] += obj
+        other[ly:ly + 24, lx:lx + 24] += obj.T[::-1]
+        sc = self.card(scene)
+        q, mag = linemod.quantize_gradients(sc)
+        tmpl = linemod.extract_template(q, mag, (ly, lx), (24, 24), n_features=24)
+        (boxes, scores), row = self.xfeat_path("xfeat_linemod", lambda: linemod.detect(sc, tmpl, thresh=0.9))
+        best = boxes[np.argmax(scores)] if len(scores) else None
+        _, s2 = linemod.detect(self.card(other), tmpl, thresh=0.0)
+        check(best is not None and abs(best[0] - ly) <= 4 and abs(best[1] - lx) <= 4 and s2.max() < scores.max(),
+              f"LINEMOD: best box {best}, rotated object {s2.max()} against {scores.max() if len(scores) else None}")
+        out["linemod"] = {**row, "best_box": [int(v) for v in best], "score": float(scores.max()),
+                          "rotated_score": float(s2.max()), "detections": int(len(scores))}
+
+        mask = f1 > 140.0
+
+        def ccl_path():
+            labels, npass = ccl.connected_components(mask, connectivity=8)
+            return labels, npass, ccl.component_stats(labels, f1, max_components=1024)
+
+        (labels, npass, st), row = self.xfeat_path("xfeat_ccl", ccl_path)
+        hl, hn = ccl.connected_components(mask.cpu(), connectivity=8)
+        hs = ccl.component_stats(hl, f1.cpu(), max_components=1024)
+        same = torch.equal(labels.cpu(), hl) and int(npass) == int(hn)
+        stats_same = all(torch.equal(st[k].cpu(), hs[k]) for k in ("area", "y0", "x0", "y1", "x1", "cid_map"))
+        check(same and stats_same and int(st["valid"].sum()) > 0, f"CCL at VGA: card vs CPU labels {same}, "
+                                                                  f"stats {stats_same}")
+        out["ccl"] = {**row, "components": int(st["valid"].sum()), "passes": int(npass), "equal_to_cpu": True,
+                      "sum_rel_err": float(((st["sum"].cpu() - hs["sum"]).abs().max()
+                                            / hs["sum"].abs().max().clamp(min=1)))}
+        return out
+
+    def xfeat_compare(self, r, ref, tol, binary: bool) -> dict:
+        """Two features_x results on the same frames. Keypoints pair by
+        position (1e-3 px), both ways, so that one keypoint more or less
+        does not shift the rest; the paired keypoints' descriptors agree,
+        and so do their matches (valid alike, and to the same position)."""
+
+        def host(k):
+            return np.stack([k.y.cpu().numpy(), k.x.cpu().numpy()], 1), k.valid.cpu().numpy()
+
+        def pairing(a, b):
+            (pa, va), (pb, vb) = host(a), host(b)
+            ia, ib = np.where(va)[0], np.where(vb)[0]
+            if len(ia) == 0 or len(ib) == 0:
+                return ia, np.full(len(ia), -1)
+            d = np.abs(pa[ia][:, None] - pb[ib][None]).max(-1)
+            j = d.argmin(1)
+            return ia, np.where(d[np.arange(len(ia)), j] <= 1e-3, ib[j], -1)
+
+        kp = []
+        for a, b in ((r.k1, ref.k1), (r.k2, ref.k2)):
+            share = [float((pairing(x, y)[1] >= 0).mean()) if int(x.count()) else float(int(y.count()) == 0)
+                     for x, y in ((a, b), (b, a))]
+            kp.append(min(share))
+        ia, j = pairing(r.k1, ref.k1)
+        ok = j >= 0
+        ia, j = ia[ok], j[ok]
+        d1, e1 = r.d1.cpu().numpy(), ref.d1.cpu().numpy()
+        if binary:
+            desc = float((d1[ia] == e1[j]).mean()) if len(ia) else 1.0
+            desc_ok = desc >= tol["bits_agree"]
+        else:
+            desc = float(np.abs(d1[ia] - e1[j]).max()) if len(ia) else 0.0
+            desc_ok = desc <= tol["float_desc"]
+        mv, mt = r.matches.valid.cpu().numpy(), r.matches.train_idx.cpu().numpy()
+        rv, rt = ref.matches.valid.cpu().numpy(), ref.matches.train_idx.cpu().numpy()
+        p2, q2 = host(r.k2)[0], host(ref.k2)[0]
+        agree = [mv[i] == rv[k] and (not mv[i] or np.abs(p2[mt[i]] - q2[rt[k]]).max() <= 1e-3) for i, k in zip(ia, j)]
+        c = {"kp_paired": kp, "kp": [int(r.k1.count()), int(ref.k1.count())], "desc": desc,
+             "valid_agree": float(np.mean(agree)) if agree else 1.0,
+             "matches": [int(r.matches.valid.sum()), int(ref.matches.valid.sum())]}
+        check(min(kp) >= tol["kp_equal"] and desc_ok and c["valid_agree"] >= tol["valid_agree"]
+              and c["matches"][1] > 0, f"features_x compare {c}")
+        return c
+
+    def xfeat_plain(self) -> dict:
+        """Every features_x path and template matching on integer frames
+        0..XFEAT_EXACT_LEVELS, with the kernels and on the plain path."""
+        from opencv_contrib_tpu_torch.ops import template_match
+
+        entry = self.entry
+        lv = XFEAT_EXACT_LEVELS
+        ex = exact_frames(np.stack(self.xfeat_pair[:2]), lv)
+        a, b = self.card(ex[0]), self.card(ex[1])
+        s = lv / 255.0  # the detectors' absolute thresholds, scaled to the frames
+        params = {"fast_hessian": {"threshold": 20.0 * s * s}, "star": {"response_threshold": 10.0 * s},
+                  "fast": {"threshold": 20.0 * s}}
+        out = {}
+        for path, det, desc in self.xfeat_jobs():
+            run = lambda det=det, desc=desc: entry.features_x(a, b, det, desc, K=XFEAT_K,  # noqa: E731
+                                                              detector_params=params.get(det), device=self.dev)
+            r = run()
+            with plain_path():
+                rp = run()
+            out[path] = self.xfeat_compare(r, rp, XFEAT_PLAIN_TOL, desc in self.entry.BINARY_DESCRIPTORS)
+        y0, x0, sz = XFEAT_TM_CUT
+        cut = a[y0:y0 + sz, x0:x0 + sz].clone()
+        tm = {}
+        for m in template_match.METHODS:
+            r = template_match.match_template(a, cut, m)
+            with plain_path():
+                rp = template_match.match_template(a, cut, m)
+            rel = float((r - rp).abs().max() / (rp.max() - rp.min()))
+            locs = template_match.min_max_loc(r)[2:], template_match.min_max_loc(rp)[2:]
+            check(rel <= XFEAT_PLAIN_TOL["surface_rel"] and locs[0] == locs[1], f"template {m} plain path: {rel} "
+                                                                                f"{locs}")
+            tm[m] = rel
+        out["template_surface_rel"] = tm
+        out["levels"] = lv
+        return out
+
+    def xfeat_card_vs_cpu(self) -> dict:
+        """Each part at its CPU tests' size on the card and on the CPU."""
+        from opencv_contrib_tpu_torch.features import detect_x, match, pct
+        from opencv_contrib_tpu_torch.ops import ccl, template_match
+        from opencv_contrib_tpu_torch.rgbd import linemod
+
+        torch, entry = self.torch, self.entry
+        cpu, tol, out = torch.device("cpu"), XFEAT_CPU_TOL, {}
+        i1, i2, _ = entry.feature_pair(*XFEAT_SMALL)
+        i1, i2 = np.round(i1), np.round(i2)
+        for det, desc in (("fast_hessian", "daisy"), ("harris", "brief"), ("star", "boxes"), ("msd", "lucid"),
+                          ("harris_laplace", "freak"), ("fast", "latch"), ("fast_hessian", "vgg"),
+                          ("fast_hessian", "boostdesc")):
+            prm = {"response_threshold": 5.0} if det == "star" else None
+            rc, rh = (entry.features_x(i1, i2, det, desc, K=48, detector_params=prm, device=d) for d in (self.dev, cpu))
+            out[f"{det}+{desc}"] = self.xfeat_compare(rc, rh, tol, desc in entry.BINARY_DESCRIPTORS)
+        blob = np.round(self.blob_image([(40, 40), (70, 90), (20, 100)], [6, 5, 3], XFEAT_SMALL))
+        ec, eh = (detect_x.tbmr(torch.from_numpy(blob).to(d), max_regions=16) for d in (self.dev, cpu))
+        v = eh.valid.numpy()
+        tb = float(max((ec.y.cpu() - eh.y).abs().numpy()[v].max(), (ec.x.cpu() - eh.x).abs().numpy()[v].max()))
+        check(bool(torch.equal(ec.valid.cpu(), eh.valid)) and tb <= tol["tbmr_px"], f"TBMR card vs CPU {tb}")
+        out["tbmr_px"] = tb
+        sc, sh = (pct.compute_signature(torch.from_numpy(i1).to(d)) for d in (self.dev, cpu))
+        pc = float((sc.centroids.cpu() - sh.centroids).abs().max())
+        check(pc <= tol["pct"], f"PCT card vs CPU {pc}")
+        out["pct"] = pc
+        img = np.round(np.random.default_rng(0).uniform(0, 255, (64, 80))).astype(np.float32)
+        tmv = {}
+        for m in template_match.METHODS:
+            rc, rh = (template_match.match_template(torch.from_numpy(img).to(d), torch.from_numpy(img[20:36, 30:50])
+                                                    .to(d), m) for d in (self.dev, cpu))
+            rel = float((rc.cpu() - rh).abs().max() / (rh.max() - rh.min()))
+            check(rel <= tol["surface_rel"] and template_match.min_max_loc(rc)[2:] == template_match.min_max_loc(rh)[2:],
+                  f"template {m} card vs CPU {rel}")
+            tmv[m] = rel
+        out["template_surface_rel"] = tmv
+        rng = np.random.default_rng(0)
+        scene = rng.uniform(0, 0.05, (96, 96)).astype(np.float32)
+        scene[50:70, 30:34] += 1.0
+        scene[66:70, 30:50] += 1.0
+        lm = []
+        for d in (self.dev, cpu):
+            q, mag = linemod.quantize_gradients(torch.from_numpy(scene).to(d))
+            tmpl = linemod.extract_template(q, mag, (50, 30), (24, 24), n_features=24)
+            lm.append((tmpl, linemod.detect(torch.from_numpy(scene).to(d), tmpl, thresh=0.5)))
+        (tc, (bc, scc)), (th, (bh, sch)) = lm
+        check(torch.equal(tc.offsets.cpu(), th.offsets) and np.array_equal(bc, bh)
+              and np.abs(scc - sch).max() <= tol["linemod_score"], "LINEMOD card vs CPU")
+        out["linemod_score"] = float(np.abs(scc - sch).max())
+        m = rng.uniform(size=(40, 57)) > 0.55
+        vals = rng.normal(size=m.shape).astype(np.float32)
+        res = []
+        for d in (self.dev, cpu):
+            lab, npass = ccl.connected_components(torch.from_numpy(m).to(d), connectivity=8)
+            res.append((lab.cpu(), int(npass), ccl.component_stats(lab, torch.from_numpy(vals).to(d), 64)))
+        (lc, nc, stc), (lh, nh, sth) = res
+        check(torch.equal(lc, lh) and nc == nh and all(torch.equal(stc[k].cpu(), sth[k]) for k in
+                                                      ("area", "y0", "x0", "y1", "x1", "valid", "cid_map")),
+              "CCL card vs CPU")
+        out["ccl_equal"] = True
+        xy1 = rng.uniform(10, 90, (40, 2)).astype(np.float32)
+        xy2 = xy1 + np.array([5.0, -3.0], np.float32)
+        xy2[:5] = rng.uniform(10, 90, (5, 2))
+        masks = []
+        for d in (self.dev, cpu):
+            mm = match.Matches(torch.arange(40, dtype=torch.int32, device=d), torch.arange(40, dtype=torch.int32,
+                                                                                         device=d),
+                               torch.zeros(40, device=d), torch.ones(40, dtype=torch.bool, device=d))
+            p1, p2 = torch.from_numpy(xy1).to(d), torch.from_numpy(xy2).to(d)
+            masks.append((match.logos_filter(mm, p1, p2).valid.cpu(),
+                          match.gms_filter(mm, p1, p2, shape1=(100, 100), shape2=(100, 100), grid=8).valid.cpu()))
+        check(all(torch.equal(x, y) for x, y in zip(*masks)), "GMS / LOGOS card vs CPU")
+        out["gms_logos_equal"] = True
+        return out
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -3385,7 +3989,7 @@ class Smoke(Timer):
                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                          "library_ms": row["library_ms"], "wall_ms": row["wall_ms"],
                          **{k: row[k] for k in ("cold_ms", "library_cold_ms", "bound_over_cold_ms", "frame_ms",
-                                                "frame_library_ms") if k in row}})
+                                                "frame_library_ms", "widths") if k in row}})
         emit({"kernels": line})
 
 
@@ -3399,7 +4003,7 @@ def main() -> int:
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
                   smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
                   smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd,
-                  smoke.remainder, smoke.distributed):
+                  smoke.remainder, smoke.distributed, smoke.xfeatures):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -30,6 +30,12 @@
   an RGB clip (gamma, grayworld white balance, gray, CLAHE, then PSNR,
   SSIM, GMSD, BRISQUE features and the no-reference score against the
   clean clip); `photo_clip()` makes a full-HD clip and its degraded copy.
+- `features_x(img1, img2, detector, descriptor)`: the xfeatures2d breadth
+  on a frame pair: detect with any of the port's detectors, describe with
+  any of its descriptors (float ones matched by squared L2, binary ones by
+  Hamming) and match with the cross-checked ratio test; `feature_pair()`
+  makes a textured VGA frame, the frame rotated by 15 degrees about its
+  centre, and the map between them.
 - `sfm.pipeline.reconstruct_incremental(tracks, intr)`: the incremental SfM
   driver; `sfm_scene()` makes its 100-view x 900-track synthetic scene.
 - `sfm.pipeline_scale.reconstruct_sequential(tracks, intr)`: the sequential
@@ -57,7 +63,8 @@ from opencv_contrib_tpu_torch.ba import bundle
 from opencv_contrib_tpu_torch.core import camera as cam
 from opencv_contrib_tpu_torch.core import se3
 from opencv_contrib_tpu_torch.core.color import rgb_to_gray
-from opencv_contrib_tpu_torch.features import describe, detect, match
+from opencv_contrib_tpu_torch.features import describe, describe_x, detect, detect_x, learned, match
+from opencv_contrib_tpu_torch.features.keypoints import Keypoints
 from opencv_contrib_tpu_torch.flow import dis, extra, pcaflow, tvl1
 from opencv_contrib_tpu_torch.intensity_transform import gamma_correction
 from opencv_contrib_tpu_torch.mvg import resection
@@ -412,6 +419,75 @@ def photometric(degraded, clean, device="cuda") -> Photometric:
         feats.append(quality.brisque_features(out))
     return Photometric(torch.stack(bal), torch.stack(eq), ps, torch.stack(ss), torch.stack(gm), torch.stack(nr),
                        torch.stack(feats))
+
+
+def feature_pair(H: int = 480, W: int = 640, angle_deg: float = 15.0, seed: int = 2):
+    """A textured frame and the frame rotated by angle_deg about its centre:
+    seeded uniform noise on 0..255 blurred by a Gaussian of sigma 1.5, then
+    `warp_affine` (`tests/test_features_x.py::texture_pair` at any size).
+    Returns (img1, img2, fwd) as float32 numpy: fwd (2, 3) maps a point
+    (x, y) of img1 to img2 as fwd[:, :2] @ (x, y) + fwd[:, 2]."""
+    rng = np.random.default_rng(seed)
+    img = filters.fast_gaussian_blur(torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32)), 1.5)
+    th = np.deg2rad(angle_deg)
+    c, s = np.cos(th), np.sin(th)
+    cx, cy = W / 2.0, H / 2.0
+    M = np.array([[c, -s, cx - c * cx + s * cy], [s, c, cy - s * cx - c * cy]], np.float32)  # out -> in
+    img2 = warp_affine(img, torch.from_numpy(M))
+    Rm = np.array([[c, -s], [s, c]], np.float32)
+    t = M[:, 2]
+    fwd = np.concatenate([Rm.T, -(t @ Rm)[:, None]], axis=1).astype(np.float32)  # (xy - t) @ Rm
+    return img.numpy(), img2.numpy(), fwd
+
+
+# each detector and the settings features_x gives it (tests/test_features_x.py's Fast-Hessian threshold; FAST's
+# threshold on 0..255 frames; Star's default of 30 finds no keypoint on feature_pair()'s texture at VGA)
+DETECTORS = {"fast_hessian": (detect.fast_hessian, {"threshold": 20.0}),
+             "star": (detect_x.star_detector, {"response_threshold": 10.0}),
+             "msd": (detect_x.msd_detector, {}), "harris_laplace": (detect_x.harris_laplace, {}),
+             "harris": (detect.harris, {}), "fast": (detect.fast_corners, {"threshold": 20.0})}
+FLOAT_DESCRIPTORS = {"surf": describe.surf_describe, "daisy": describe.daisy_describe,
+                     "lucid": describe_x.lucid_describe, "vgg": learned.vgg_describe}
+BINARY_DESCRIPTORS = {"brief": describe.brief_describe, "boxes": describe.binary_boxes_describe,
+                      "freak": lambda img, k: describe_x.freak_describe(img, k)[:2],
+                      "latch": describe_x.latch_describe, "boostdesc": learned.boostdesc_describe}
+RATIO = 0.95  # tests/test_features_x.py's ratio test
+
+
+class FeaturesX(NamedTuple):
+    k1: Keypoints
+    k2: Keypoints
+    d1: torch.Tensor  # (K, D) float descriptors, or +-1 signs of binary ones
+    d2: torch.Tensor
+    matches: match.Matches
+
+
+@f32_matmuls
+def features_x(img1, img2, detector: str = "fast_hessian", descriptor: str = "surf", K: int = 512,
+               detector_params: dict | None = None, device="cuda") -> FeaturesX:
+    """Detect up to K keypoints in each frame with `detector` (one of
+    DETECTORS, with its settings there updated by detector_params;
+    Fast-Hessian carries the SURF Haar orientation), describe
+    them with `descriptor` (FLOAT_DESCRIPTORS, matched by squared L2, or
+    BINARY_DESCRIPTORS, matched by Hamming on their +-1 signs), and match
+    frame 1 against frame 2 with the cross-checked ratio test at RATIO. The
+    learned descriptors take their default projections
+    (`features.learned.default_projection`, trained once on the CPU)."""
+    if detector not in DETECTORS:
+        raise ValueError(f"features_x: detector must be one of {sorted(DETECTORS)}, got {detector!r}")
+    if descriptor not in FLOAT_DESCRIPTORS and descriptor not in BINARY_DESCRIPTORS:
+        raise ValueError(f"features_x: descriptor must be one of "
+                         f"{sorted([*FLOAT_DESCRIPTORS, *BINARY_DESCRIPTORS])}, got {descriptor!r}")
+    dev = resolve(device)
+    img1, img2 = _f32(img1, dev), _f32(img2, dev)
+    find, params = DETECTORS[detector]
+    params = {**params, **(detector_params or {})}
+    k1, k2 = (find(img, max_keypoints=K, **params) for img in (img1, img2))
+    binary = descriptor in BINARY_DESCRIPTORS
+    fn = (BINARY_DESCRIPTORS if binary else FLOAT_DESCRIPTORS)[descriptor]
+    d1, d2 = (fn(img, k)[1] if binary else fn(img, k) for img, k in ((img1, k1), (img2, k2)))
+    m = match.ratio_test_match(d1, d2, k1.valid, k2.valid, ratio=RATIO, metric="hamming" if binary else "l2")
+    return FeaturesX(k1, k2, d1, d2, m)
 
 
 def sfm_scene(n_views: int = 100, n_points: int = 900, seed: int = 4, noise_px: float = 0.5,

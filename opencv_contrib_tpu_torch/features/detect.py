@@ -1,5 +1,6 @@
-"""Fast-Hessian (SURF-class) detector with Haar orientation — the port of
-opencv_contrib_tpu/features/detect.py::fast_hessian.
+"""Detectors (the port of opencv_contrib_tpu/features/detect.py): the
+Fast-Hessian (SURF-class) detector with Haar orientation, Harris corners and
+FAST segment-test corners.
 
 All layers' box responses are static slices of one edge-padded integral
 image; the 3x3x3 scale-space NMS is `max_pool3d` (its padding is -inf);
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from opencv_contrib_tpu_torch.features.keypoints import Keypoints
+from opencv_contrib_tpu_torch.ops import filters
 from opencv_contrib_tpu_torch.ops import integral as integ
 from opencv_contrib_tpu_torch.ops.image import sample_bilinear_multi
 
@@ -250,3 +252,62 @@ def assign_orientation(ii: torch.Tensor, kps: Keypoints, n_bins: int = 36) -> Ke
                         torch.zeros_like(denom))
     angle = ((peak + 0.5 + delta) / n_bins) * 2 * math.pi - math.pi
     return kps._replace(angle=torch.where(kps.valid, angle, torch.zeros_like(angle)))
+
+
+def _nms3x3(resp: torch.Tensor) -> torch.Tensor:
+    """The maximum of each 3x3 neighbourhood, -inf outside the image."""
+    return F.max_pool2d(resp[None, None], 3, stride=1, padding=1)[0, 0]
+
+
+def _corner_keypoints(resp: torch.Tensor, max_keypoints: int) -> Keypoints:
+    """The top responses of a (H, W) map as unit-scale keypoints."""
+    W = resp.shape[1]
+    top_r, top_i = _topk_2stage(resp.reshape(-1), max_keypoints)
+    valid = torch.isfinite(top_r)
+    zero = torch.zeros_like(top_r)
+    return Keypoints(y=torch.where(valid, (top_i // W).to(torch.float32), zero),
+                     x=torch.where(valid, (top_i % W).to(torch.float32), zero),
+                     scale=torch.ones_like(top_r), angle=zero,
+                     response=torch.where(valid, top_r, zero), valid=valid)
+
+
+def harris(img: torch.Tensor, max_keypoints: int = 512, k: float = 0.04, sigma: float = 1.5,
+           threshold_rel: float = 1e-4) -> Keypoints:
+    """Harris corners: 3x3 maxima of det - k tr^2 of the Gaussian-weighted
+    structure tensor above threshold_rel of the largest, top-k."""
+    gy, gx = filters.gradients(filters.gaussian_blur(img, 1.0))
+    Ixx = filters.gaussian_blur(gx * gx, sigma)
+    Iyy = filters.gaussian_blur(gy * gy, sigma)
+    Ixy = filters.gaussian_blur(gx * gy, sigma)
+    tr = Ixx + Iyy
+    resp = Ixx * Iyy - Ixy * Ixy - k * tr * tr
+    is_max = (resp >= _nms3x3(resp)) & (resp > threshold_rel * torch.max(resp))
+    return _corner_keypoints(torch.where(is_max, resp, -math.inf), max_keypoints)
+
+
+_FAST_RING = [
+    (0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
+    (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3),
+]
+
+
+def fast_corners(img: torch.Tensor, max_keypoints: int = 512, threshold: float = 0.08, arc: int = 9) -> Keypoints:
+    """FAST segment-test corners: >= `arc` contiguous pixels of the 16-pixel
+    ring all brighter (or all darker) than the centre by `threshold`. The
+    ring is 16 shifted copies that WRAP at the borders (`torch.roll`, as the
+    JAX version's `jnp.roll`); the 3-pixel border is masked out."""
+    ring = torch.stack([torch.roll(img, (dy, dx), (0, 1)) for dy, dx in _FAST_RING])
+
+    def has_arc(mask):
+        run = mask
+        for i in range(1, arc):
+            run = run & torch.roll(mask, -i, 0)
+        return torch.any(run, dim=0)
+
+    is_corner = has_arc(ring > img[None] + threshold) | has_arc(ring < img[None] - threshold)
+    resp = torch.where(is_corner, torch.sum(torch.abs(ring - img[None]), dim=0), -math.inf)
+    resp = torch.where(resp >= _nms3x3(resp), resp, -math.inf)
+    H, W = img.shape
+    inside = torch.zeros(H, W, dtype=torch.bool, device=img.device)
+    inside[3:H - 3, 3:W - 3] = True
+    return _corner_keypoints(torch.where(inside, resp, -math.inf), max_keypoints)

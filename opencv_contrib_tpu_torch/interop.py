@@ -5,11 +5,13 @@ Matches, BAProblem, BAResult, the sparse BA's SparseBAProblem,
 SparseBAResult and ObsBuckets, KinFu's TSDFVolume and DepthFrame, the
 hashed-block volume's HashTSDF, the pose graph's PoseGraph, the colored
 volume's ColoredTSDFVolume (which nests a TSDFVolume), the RANSAC's
-RansacResult, the 5k-view driver's device-resident MapState, and DynaFu's
-WarpField), with the same class names, field names and field order in both
+RansacResult, the 5k-view driver's device-resident MapState, DynaFu's
+WarpField, PCT's Signature, TBMR's EllipticKeypoints and LINEMOD's Template),
+with the same class names, field names and field order in both
 packages. `from_numpy` turns such a tuple, its fields read as
 numpy arrays (anything `np.asarray` takes), into this package's tuple of
-tensors; `to_numpy` goes the other way.
+tensors; `to_numpy` goes the other way. A field of such a tuple that holds a
+Python tuple of numbers, as `Template.size` does, crosses as it is.
 
 The host-side SfM state, `sfm.tracks.TracksTensor`,
 `sfm.pipeline.Reconstruction`, and the 5k-view driver's
@@ -27,12 +29,15 @@ import torch
 
 from opencv_contrib_tpu_torch.ba.bundle import BAProblem, BAResult
 from opencv_contrib_tpu_torch.ba.sparse import ObsBuckets, SparseBAProblem, SparseBAResult
+from opencv_contrib_tpu_torch.features.detect_x import EllipticKeypoints
 from opencv_contrib_tpu_torch.features.keypoints import Keypoints
 from opencv_contrib_tpu_torch.features.match import Matches
+from opencv_contrib_tpu_torch.features.pct import Signature
 from opencv_contrib_tpu_torch.mvg.robust import RansacResult
 from opencv_contrib_tpu_torch.rgbd.colored_tsdf import ColoredTSDFVolume
 from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
 from opencv_contrib_tpu_torch.rgbd.hash_tsdf import HashTSDF
+from opencv_contrib_tpu_torch.rgbd.linemod import Template
 from opencv_contrib_tpu_torch.rgbd.posegraph import PoseGraph
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.rgbd.warpfield import WarpField
@@ -40,11 +45,17 @@ from opencv_contrib_tpu_torch.sfm.pipeline_scale import MapState
 
 TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, SparseBAProblem, SparseBAResult,
                                         ObsBuckets, TSDFVolume, DepthFrame, HashTSDF, PoseGraph, ColoredTSDFVolume,
-                                        RansacResult, MapState, WarpField)}
+                                        RansacResult, MapState, WarpField, Signature, EllipticKeypoints,
+                                        Template)}
 
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _is_size(x) -> bool:
+    """A plain tuple of Python numbers (a shape, `Template.size`)."""
+    return type(x) is tuple and all(isinstance(v, (int, float)) and not isinstance(v, bool) for v in x)
 
 
 def from_numpy(tree, device="cpu"):
@@ -57,7 +68,7 @@ def from_numpy(tree, device="cpu"):
             raise TypeError(f"no counterpart for {type(tree).__name__}")
         if cls._fields != tree._fields:
             raise TypeError(f"{cls.__name__}: fields {tree._fields} != {cls._fields}")
-        return cls(*(from_numpy(v, device) for v in tree))
+        return cls(*(v if _is_size(v) else from_numpy(v, device) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(from_numpy(v, device) for v in tree)
     if isinstance(tree, dict):
@@ -68,7 +79,7 @@ def from_numpy(tree, device="cpu"):
 def to_numpy(tree):
     """The inverse of `from_numpy`: tensors -> numpy arrays, structure kept."""
     if _is_namedtuple(tree):
-        return type(tree)(*(to_numpy(v) for v in tree))
+        return type(tree)(*(v if _is_size(v) else to_numpy(v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)
     if isinstance(tree, dict):

@@ -1,8 +1,13 @@
-"""Separable filters, gradients, depthwise 2D correlation, the bilateral,
-guided and 3x3 median filters (the port of the parts of
-opencv_contrib_tpu/ops/filters.py the frontend, KinectFusion, dense flow and
-the photometric / quality path use). Separable filters are shift-adds over a
-reflect-padded image (BORDER_REFLECT_101), as in the JAX version."""
+"""Separable filters, gradients (Sobel, Scharr, Laplacian), depthwise 2D
+correlation, box and Gaussian blurs (the fast one by summed-area tables), the
+bilateral, guided and 3x3 median filters (the port of
+opencv_contrib_tpu/ops/filters.py). Separable filters are shift-adds over a
+reflect-padded image (BORDER_REFLECT_101), as in the JAX version.
+
+`_box_blur_cumsum` reads its box sums from `ops.integral.integral` of the
+edge-padded image, so on a CUDA tensor each box pass is one launch of the
+integral kernel; it calls the function through the module, so a caller that
+swaps `ops.integral.integral_padded` swaps it here too."""
 
 from __future__ import annotations
 
@@ -10,6 +15,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from opencv_contrib_tpu_torch.ops import integral as integ
+from opencv_contrib_tpu_torch.utils.device import constant
 
 
 def reflect_index(n: int, before: int, after: int, device=None) -> torch.Tensor:
@@ -65,34 +73,41 @@ def conv2d(img: torch.Tensor, kernel, border: str = "reflect") -> torch.Tensor:
     return y[0] if img.ndim == 2 else torch.movedim(y, 0, -1)
 
 
-def sep_filter2d(img: torch.Tensor, kr: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
-    """Separable filter: row kernel kr (vertical), column kernel kc
-    (horizontal); correlation orientation, reflect border at any size (a
-    kernel may reach past a small image's side). img (H, W[, C])."""
-    if img.ndim == 3:  # (H, W, C): per channel
-        return torch.stack([sep_filter2d(img[..., c], kr, kc) for c in range(img.shape[-1])], dim=-1)
-    H, W = img.shape
+def _sep_filter_maps(x: torch.Tensor, kr: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
+    """`sep_filter2d` of each map of (N, H, W): the shift-adds of the JAX
+    version, in its order, on all maps at once."""
+    H, W = x.shape[-2:]
     nr, nc = kr.shape[0], kc.shape[0]
     rr = (nr - 1) // 2
     rc = (nc - 1) // 2
-    out = img
+    out = x
     if nr > 1:
         p = reflect_pad(out, rr, nr - 1 - rr, 0, 0)
-        acc = kr[0] * p[0:H, :]
+        acc = kr[0] * p[:, 0:H, :]
         for i in range(1, nr):
-            acc = acc + kr[i] * p[i:i + H, :]
+            acc = acc + kr[i] * p[:, i:i + H, :]
         out = acc
     else:
         out = out * kr[0]
     if nc > 1:
         p = reflect_pad(out, 0, 0, rc, nc - 1 - rc)
-        acc = kc[0] * p[:, 0:W]
+        acc = kc[0] * p[:, :, 0:W]
         for i in range(1, nc):
-            acc = acc + kc[i] * p[:, i:i + W]
+            acc = acc + kc[i] * p[:, :, i:i + W]
         out = acc
     else:
         out = out * kc[0]
     return out
+
+
+def sep_filter2d(img: torch.Tensor, kr: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
+    """Separable filter: row kernel kr (vertical), column kernel kc
+    (horizontal); correlation orientation, reflect border at any size (a
+    kernel may reach past a small image's side). img (H, W[, C]), each
+    channel filtered alike."""
+    if img.ndim == 3:  # (H, W, C)
+        return torch.movedim(_sep_filter_maps(torch.movedim(img, -1, 0), kr, kc), 0, -1)
+    return _sep_filter_maps(img[None], kr, kc)[0]
 
 
 def gaussian_kernel1d(sigma: float, radius: int | None = None, device="cpu") -> torch.Tensor:
@@ -130,8 +145,48 @@ def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int, eps: floa
     return box_filter(a, radius) * I + box_filter(b, radius)
 
 
+def _box_blur_cumsum(img: torch.Tensor, radius: int) -> torch.Tensor:
+    """O(1)-per-pixel box mean of (..., H, W) over a (2r+1)^2 window with a
+    replicated border: box sums of the summed-area table of the edge-padded
+    image, one table a map."""
+    H, W = img.shape[-2:]
+    x = img.to(torch.float32).reshape(-1, 1, H, W)
+    p = F.pad(x, (radius,) * 4, mode="replicate")[:, 0]
+    n = 2 * radius + 1
+    out = []
+    for m in p:
+        ii = integ.integral(m)
+        out.append(ii[n:, n:] - ii[:-n, n:] - ii[n:, :-n] + ii[:-n, :-n])
+    return (torch.stack(out) / (n * n)).reshape(img.shape)
+
+
+def fast_gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Gaussian approximation by three box blurs of the summed-area table,
+    O(1) per pixel whatever sigma; below sigma 3 the separable Gaussian.
+    img (..., H, W): leading dimensions are maps blurred alike (the JAX
+    version's vmap). The two odd box widths mix so that the summed box
+    variance matches sigma^2 (the standard boxesForGauss)."""
+    if sigma < 3.0:
+        if img.ndim == 2:
+            return gaussian_blur(img, sigma)
+        H, W = img.shape[-2:]
+        k = gaussian_kernel1d(sigma, device=img.device)
+        return _sep_filter_maps(img.to(torch.float32).reshape(-1, H, W), k, k).reshape(img.shape)
+    wl = int(math.floor(math.sqrt(4.0 * sigma * sigma + 1.0)))
+    if wl % 2 == 0:
+        wl -= 1
+    wu = wl + 2
+    m = round((12.0 * sigma * sigma - 3 * wl * wl - 12 * wl - 9) / (-4.0 * wl - 4.0))
+    out = img
+    for i in range(3):
+        w = wl if i < m else wu
+        out = _box_blur_cumsum(out, max(1, (w - 1) // 2))
+    return out
+
+
 SOBEL_D = (-1.0, 0.0, 1.0)
 SOBEL_S = (1.0, 2.0, 1.0)
+SCHARR_S = (3.0, 10.0, 3.0)
 
 
 def sobel(img: torch.Tensor, dx: int = 1, dy: int = 0) -> torch.Tensor:
@@ -140,6 +195,18 @@ def sobel(img: torch.Tensor, dx: int = 1, dy: int = 0) -> torch.Tensor:
     kr = torch.tensor(SOBEL_D if dy else SOBEL_S)
     kc = torch.tensor(SOBEL_D if dx else SOBEL_S)
     return sep_filter2d(img, kr, kc)
+
+
+def scharr(img: torch.Tensor, dx: int = 1, dy: int = 0) -> torch.Tensor:
+    """Scharr derivative (dx, dy in {0, 1}), reflect border."""
+    kr = torch.tensor(SOBEL_D if dy else SCHARR_S)
+    kc = torch.tensor(SOBEL_D if dx else SCHARR_S)
+    return sep_filter2d(img, kr, kc)
+
+
+def laplacian(img: torch.Tensor) -> torch.Tensor:
+    """The 4-neighbour Laplacian, reflect border."""
+    return conv2d(img, constant([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], img.device))
 
 
 def gradients(img: torch.Tensor):

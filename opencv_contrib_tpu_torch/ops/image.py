@@ -1,5 +1,7 @@
-"""Sampling, windows, resizing and affine warps (the port of
-opencv_contrib_tpu/ops/image.py). Border: clamp (BORDER_REPLICATE)."""
+"""Sampling, windows, patches, resizing, affine and perspective warps and
+remap (the port of opencv_contrib_tpu/ops/image.py). Border: clamp
+(BORDER_REPLICATE). `remap` is the plain bilinear `cv::remap` of that file,
+not the flow's bounded remap kernel (`ops.cuda.remap`)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,11 @@ def _gather2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Te
     xi = torch.clamp(xi, 0, W - 1).long()
     flat = img.reshape((H * W,) + tuple(img.shape[2:]))
     return flat[yi * W + xi]
+
+
+def sample_nearest(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Nearest sample (round half to even, as `jnp.round`), clamped."""
+    return _gather2d(img, torch.round(y).to(torch.int64), torch.round(x).to(torch.int64))
 
 
 def sample_bilinear(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -91,6 +98,14 @@ def sample_windows(img: torch.Tensor, pts_yx: torch.Tensor, radius: int,
     return out.reshape(pts_yx.shape[0], -1)
 
 
+def sample_bilinear_valid(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
+    """Bilinear sample and an in-bounds mask (True where the 2x2 footprint
+    lies inside the image)."""
+    H, W = img.shape[0], img.shape[1]
+    valid = (y >= 0) & (y <= H - 1) & (x >= 0) & (x <= W - 1)
+    return sample_bilinear(img, y, x), valid
+
+
 def grid_coords(H: int, W: int, device=None, dtype=torch.float32):
     """Pixel-center coordinate grids (y, x), each (H, W)."""
     y = torch.arange(H, dtype=dtype, device=device)[:, None].expand(H, W)
@@ -144,4 +159,44 @@ def warp_affine(img: torch.Tensor, M, out_hw=None) -> torch.Tensor:
     y, x = grid_coords(*out_hw, device=img.device)
     xs = M[0, 0] * x + M[0, 1] * y + M[0, 2]
     ys = M[1, 0] * x + M[1, 1] * y + M[1, 2]
+    return sample_bilinear(img, ys, xs)
+
+
+def warp_perspective(img: torch.Tensor, Hm, out_hw=None) -> torch.Tensor:
+    """Inverse-warp with a 3x3 homography mapping OUTPUT -> INPUT coords."""
+    Hm = torch.as_tensor(Hm, dtype=torch.float32, device=img.device)
+    if out_hw is None:
+        out_hw = img.shape[:2]
+    y, x = grid_coords(*out_hw, device=img.device)
+    d = Hm[2, 0] * x + Hm[2, 1] * y + Hm[2, 2]
+    d = torch.where(torch.abs(d) < 1e-9, 1e-9, d)
+    xs = (Hm[0, 0] * x + Hm[0, 1] * y + Hm[0, 2]) / d
+    ys = (Hm[1, 0] * x + Hm[1, 1] * y + Hm[1, 2]) / d
+    return sample_bilinear(img, ys, xs)
+
+
+def remap(img: torch.Tensor, map_y: torch.Tensor, map_x: torch.Tensor) -> torch.Tensor:
+    """cv::remap: bilinear samples at per-pixel source coordinates, clamped."""
+    return sample_bilinear(img, map_y, map_x)
+
+
+def extract_patches(img: torch.Tensor, centers_yx: torch.Tensor, size: int) -> torch.Tensor:
+    """N bilinear patches (N, size, size) around float centers (N, 2)."""
+    off = torch.arange(size, dtype=torch.float32, device=img.device) - (size - 1) / 2.0
+    ys = centers_yx[:, 0][:, None, None] + off[:, None][None]
+    xs = centers_yx[:, 1][:, None, None] + off[None, :][None]
+    return sample_bilinear(img, ys, xs)
+
+
+def extract_rotated_patches(img: torch.Tensor, centers_yx: torch.Tensor, angles: torch.Tensor, scales: torch.Tensor,
+                            size: int) -> torch.Tensor:
+    """Rotated and scaled patches (N, size, size) for oriented descriptors."""
+    off = torch.arange(size, dtype=torch.float32, device=img.device) - (size - 1) / 2.0
+    ones = torch.ones(size, dtype=torch.float32, device=img.device)
+    gy = off[:, None] * ones[None, :]
+    gx = ones[:, None] * off[None, :]
+    c = torch.cos(angles)[:, None, None] * scales[:, None, None]
+    s = torch.sin(angles)[:, None, None] * scales[:, None, None]
+    xs = centers_yx[:, 1][:, None, None] + c * gx[None] - s * gy[None]
+    ys = centers_yx[:, 0][:, None, None] + s * gx[None] + c * gy[None]
     return sample_bilinear(img, ys, xs)

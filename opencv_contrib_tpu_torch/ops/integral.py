@@ -20,6 +20,12 @@ def integral(img: torch.Tensor) -> torch.Tensor:
     return integral_padded(img.to(torch.float32))
 
 
+def integral_sq(img: torch.Tensor):
+    """(integral, squared integral): cv::integral's sum and sqsum tables."""
+    f = img.to(torch.float32)
+    return integral(f), integral(f * f)
+
+
 def box_sum(ii: torch.Tensor, y0, x0, h, w) -> torch.Tensor:
     """Sum over img[y0:y0+h, x0:x0+w] from ii (H+1, W+1); indices clipped."""
     y0 = torch.as_tensor(y0, dtype=torch.int64, device=ii.device)

@@ -16,6 +16,16 @@ def resolve(device) -> torch.device:
     return d
 
 
+def constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """Host values (a number, list or numpy array) as a tensor of `dtype` on
+    `device`; to a card through pinned memory, so the copy does not make
+    the host wait for the stream."""
+    t = torch.as_tensor(np.asarray(values), dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def to_device(x, device: torch.device) -> torch.Tensor:
     """Host data or a tensor as float32 on `device`; a host array goes
     through pinned memory, so the copy does not synchronise the stream."""

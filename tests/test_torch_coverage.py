@@ -1,0 +1,65 @@
+"""The port carries the public names of the JAX package's files it ports.
+
+For every file of opencv_contrib_tpu/ that has a twin at the same path in
+opencv_contrib_tpu_torch/, each top-level public function and class of the
+JAX file (a name without a leading underscore) must be defined at the top
+level of the twin, unless it is on ALLOWED, the names ROADMAP.md still
+queues. Both sides are read with `ast` only: nothing is imported."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX = ROOT / "opencv_contrib_tpu"
+PORT = ROOT / "opencv_contrib_tpu_torch"
+
+# the names ROADMAP.md's Queue 1 lists as still missing from files the port has
+ALLOWED = {
+    "core/color.py": {"bgr_to_gray", "rgb_to_hsv", "rgb_to_ycrcb", "ycrcb_to_rgb", "rgb_to_lab"},
+    "core/camera.py": {"project_P", "projection_from_KRt", "KRt_from_projection"},
+    "core/se3.py": {"axis_angle_to_quat", "rotation_angle", "rotation_distance"},
+    "utils/sdf_scene.py": {"sdf_rounded_room"},
+    "utils/native.py": {"load_library"},
+}
+
+TWINS = sorted(p.relative_to(JAX).as_posix() for p in JAX.rglob("*.py")
+               if p.name != "__init__.py" and (PORT / p.relative_to(JAX)).exists())
+
+
+def public_names(path: Path) -> set:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) and not n.name.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", TWINS)
+def test_twin_has_the_public_names(rel):
+    missing = public_names(JAX / rel) - public_names(PORT / rel) - ALLOWED.get(rel, set())
+    assert not missing, f"{rel}: the port lacks {sorted(missing)}"
+
+
+@pytest.mark.parametrize("rel", sorted(ALLOWED))
+def test_allowed_names_are_still_missing(rel):
+    """An allowed name exists in the JAX file and not yet in the twin: a
+    ported name leaves the list."""
+    names = ALLOWED[rel]
+    assert names <= public_names(JAX / rel), sorted(names - public_names(JAX / rel))
+    assert not names & public_names(PORT / rel), sorted(names & public_names(PORT / rel))
+
+
+def test_slice_files_are_twins():
+    for rel in ("ops/ccl.py", "ops/morphology.py", "ops/template_match.py", "features/detect_x.py",
+                "features/describe_x.py", "features/pct.py", "features/learned.py", "rgbd/linemod.py",
+                "features/describe.py", "features/detect.py", "features/match.py", "ops/filters.py",
+                "ops/image.py", "ops/integral.py"):
+        assert rel in TWINS, rel
+        assert rel not in ALLOWED, rel
+
+
+def test_the_walk_reads_defs_and_classes(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("def a():\n    def inner():\n        pass\n\nclass B:\n    def m(self):\n        pass\n\n"
+                   "async def c():\n    pass\n\ndef _d():\n    pass\n\nE = 1\n")
+    assert public_names(src) == {"a", "B", "c"}

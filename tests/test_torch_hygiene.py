@@ -56,7 +56,9 @@ def test_port_has_its_files():
                  "flow/gpc.py", "flow/extra.py", "ximgproc/__init__.py", "ximgproc/interp.py",
                  "parallel/__init__.py", "parallel/mesh.py", "parallel/dist_ba.py", "parallel/ring_match.py",
                  "parallel/submap_shard.py", "parallel/stage_pipeline.py", "parallel/dist_sfm.py",
-                 "parallel/checkpoint.py"):
+                 "parallel/checkpoint.py", "ops/ccl.py", "ops/morphology.py", "ops/template_match.py",
+                 "features/detect_x.py", "features/describe_x.py", "features/pct.py", "features/learned.py",
+                 "rgbd/linemod.py"):
         assert need in names
     assert (PORT / "utils/csrc/unfilter.cpp").exists()
     for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu", "transform.cu", "reduce.cu", "histogram.cu", "maps.cuh"):
@@ -68,15 +70,16 @@ def test_port_has_its_files():
                                   "HashKinFu", "LargeKinFu", "odometry.compute", "hash_kinfu_track",
                                   "large_kinfu_track", "rgbd_odometry", "tum_kinfu", "dynafu_track", "DynaFu",
                                   "dense_flow_deepflow", "dense_flow_simpleflow", "dense_flow_sparse_to_dense",
-                                  "dense_flow_rlof", "dense_flow_pcaflow", "dryrun_multichip", "make_mesh"])
+                                  "dense_flow_rlof", "dense_flow_pcaflow", "dryrun_multichip", "make_mesh",
+                                  "features_x"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
     """Asked for "cuda" (their default) on a machine without a card, the
     frontend, keyframe, dense-flow, photometric and both SfM drivers' entry
     points, the hashed-block and large-scale KinFu, the RGB-D odometry, the
-    TUM disk path, DynaFu, every dense-flow method, the multichip dryrun and
-    a mesh on "cuda" raise instead of running on the CPU (a mesh drops
-    neither to gloo nor to the CPU). (The TUM loader decodes on the host and
-    has no device path.)"""
+    TUM disk path, DynaFu, every dense-flow method, the multichip dryrun, a
+    mesh on "cuda" and the xfeatures2d pair path raise instead of running
+    on the CPU (a mesh drops neither to gloo nor to the CPU). (The TUM
+    loader decodes on the host and has no device path.)"""
     import numpy as np
     import torch
 
@@ -115,7 +118,8 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
                for m in ("deepflow", "simpleflow", "sparse_to_dense", "rlof")},
             "dense_flow_pcaflow": lambda: entry.dense_flow(img, img, "pcaflow", k=3),
             "dryrun_multichip": lambda: entry.dryrun_multichip(1),
-            "make_mesh": lambda: mesh.make_mesh(device="cuda")}[name]
+            "make_mesh": lambda: mesh.make_mesh(device="cuda"),
+            "features_x": lambda: entry.features_x(img, img, "harris", "brief", K=8)}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
