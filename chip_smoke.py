@@ -149,7 +149,25 @@ Phases, one JSON line each:
       six modes, LINEMOD detect and CCL with component_stats; the same on
       the plain path on integer frames; each part at its CPU tests' size on
       the card against the CPU; ms, device ms, host syncs and launches a
-      path.
+      path;
+  (t) video and image IO into the photometric path: the JPEG codec built
+      (host C++), its encodes and decodes of a 1080 x 1920 frame at
+      qualities 75 and 90 (4:2:0) and of a gray frame held to the digests
+      the codec gave where PIL confirmed it bit for bit, and palette, 4-bit
+      gray, tRNS and Adam7 PNGs built from raw chunks decoded by both
+      routes against their expansions and against the numpy unfilter;
+      `entry.video_clip()` (8 x 1080 x 1920) written as Y4M and as MJPG AVI
+      into a temporary directory and read back through `VideoReader` onto
+      the card (the JAX tests' mean-error gates, frames/s, decode ms a
+      frame, `yuv420_to_rgb` on the card against the CPU);
+      `entry.video_photometric` on both files with the counters read around
+      each (the photometric path's counts and the denoised frames' BRISQUE
+      features), ms and device ms a frame, host syncs, peak memory, PSNR
+      and the trained BRISQUE scores, each above the clean frame's; the head's
+      held-out severity gate, `dct_denoise` and BM3D raising PSNR at 1080 x
+      1920, BM3D timed there with its peak memory and equal bits on a
+      rerun; each xphoto function and the BRISQUE score at a small size on
+      the card against the CPU.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -485,6 +503,32 @@ XFEAT_PLAIN_TOL = {"kp_equal": 0.98, "valid_agree": 0.95, "bits_agree": 0.99, "f
                    "surface_rel": 1e-3}
 XFEAT_CPU_TOL = {"kp_equal": 0.98, "valid_agree": 0.95, "bits_agree": 0.99, "float_desc": 1e-3, "tbmr_px": 1e-2,
                  "pct": 1e-4, "surface_rel": 1e-4, "linemod_score": 1e-5}
+
+# phase t: video and image IO into the photometric path. The codec's fixtures: an integer-pattern 1080 x 1920 frame
+# (`codec_frame`) encoded at PIL's qualities 75 (utils/io.imwrite) and 90 (the MJPG writer), 4:2:0, and its gray at
+# 75; each (sha256 of the bytes, sha256 of the decoded samples, bytes) as the codec gave them where PIL's encode and
+# decode of the same frame were equal to them bit for bit (tests/test_torch_codec.py holds the codec to PIL)
+JPEG_DIGESTS = {
+    "rgb_q75": ("1c0682c19e6343281dcde2da593635c0d53ce009c7d8888f21254d0c52cc4aad",
+                "1d98bcd51826c7c897bc9b74112ce6a1de39d54f3e70347de4ce694588476d2d", 936350),
+    "rgb_q90": ("05c13849a66d7f0c906bbe4426faa724d7a60d348cdb3db29417e91112d262de",
+                "462c4f1f8e465996a98613ee024cc6248ec749008a933182be7cd9190d986185", 1502079),
+    "gray_q75": ("d116eeab2d47e2c541671ea79afe4c828b182fd907baf3c18d491878fcd25906",
+                 "4869e14ee4bfcdc68944235f4da28ac24d5f5af9c83fd527a77736d264edb48e", 687794)}
+VIDEO_CLIP = PHOTO_CLIP  # entry.video_clip()'s defaults: photo_clip()'s 8 x 1080 x 1920
+VIDEO_CODECS = {"y4m": "video_photometric_y4m", "MJPG": "video_photometric_mjpg"}  # codec -> counted path
+VIDEO_MEAN_ERR = {"y4m": 0.03, "MJPG": 0.08}  # tests/test_io_modules.py:172, :201: the clip read back vs written
+N_VIDEO_TIMED = 2
+VIDEO_PREFIX = "video."  # names no span: the video path is profiled whole
+VIDEO_SMALL = (2, 64, 96)  # the card against the CPU: tests/test_torch_xphoto.py's sizes
+VIDEO_NOISE = {"dct": 0.05, "bm3d": 0.08}  # tests/test_imgproc_modules.py:29, tests/test_breadth5.py:9-22
+VIDEO_CPU_TOL = {"dct": 1e-5, "inpaint": 1e-6, "oil_share_off": 0.01, "wb": 1e-5, "bm3d": 1e-5, "brisque": 0.5,
+                 "yuv": 1e-6}
+# the video path launches what entry.photometric does: gamma once a batch of 8, and PHOTO_PER_FRAME a frame
+# (xphoto.dct_denoise is matrix products), plus the BRISQUE features of the denoised frame that the head scores
+BRISQUE_PER_FRAME = {"grid_transform": 10, "grid_reduce": 10}
+VIDEO_PER_FRAME = {k: n + BRISQUE_PER_FRAME.get(k, 0) for k, n in PHOTO_PER_FRAME.items()}
+PATH_KERNELS.update({path: PATH_KERNELS["photometric"] for path in VIDEO_CODECS.values()})
 
 
 def emit(obj) -> None:
@@ -1903,6 +1947,7 @@ class Smoke(Timer):
             _, t = self.wall_s(lambda: entry.photometric(deg, cln))
             ms.append(t * 1e3 / T)
         peak = torch.cuda.max_memory_allocated()
+        syncs = self.count_syncs(lambda: entry.photometric(deg, cln))
         emit({"phase": "l_photometric", "clip": [T, H, W, 3], "clip_made_s": clip_s, "s_main_path": s,
               "launches": self.launches["photometric"], "launches_per_clip": launches,
               "restoration_gain_db": gain_db,
@@ -1911,7 +1956,7 @@ class Smoke(Timer):
               "plain_path_vs_kernel": vs_plain, "small_card_vs_cpu": vs_cpu,
               "clahe_one_frame_kernel_vs_plain_max_abs": clahe_same_input,
               "ms_per_frame_median": float(np.median(ms)), "ms_per_frame": ms,
-              "host_syncs_per_frame": 1,  # quality.psnr reads the MSE back as a float
+              "host_syncs_run": syncs, "host_syncs_per_frame": syncs["in_the_port"] / T,
               "peak_mem_allocated_gb": peak / 2 ** 30, "peak_mem_of_a_clip_gb": (peak - held) / 2 ** 30,
               "profile_one_frame": self.profile_photo(deg[:1], cln[:1]),
               "tolerance": "balanced 1e-6; equalized mean abs <= 1e-4 and max <= 0.05 (CLAHE on one gray frame, "
@@ -3975,6 +4020,262 @@ class Smoke(Timer):
         out["gms_logos_equal"] = True
         return out
 
+    # ---- (t) -----------------------------------------------------------------
+    def video(self):
+        import tempfile
+
+        out, parts = {}, {}
+        t_all = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="video_") as root:
+            for name, fn in (("codec", self.video_codec), ("io", lambda: self.video_io(root)),
+                             ("path", self.video_path), ("gates", self.video_gates), ("bm3d_1080p", self.video_bm3d),
+                             ("card_vs_cpu", self.video_card_vs_cpu)):
+                t0 = time.perf_counter()
+                out[name] = fn()
+                parts[name] = time.perf_counter() - t0
+        emit({"phase": "t_video", **out, "phase_parts_s": parts, "phase_s": time.perf_counter() - t_all,
+              "tolerance": f"codec: digests equal, PNG routes equal their expansions and the numpy unfilter; clip "
+                           f"mean error {VIDEO_MEAN_ERR}; launches {{'streamed_transform': 1, ...VIDEO_PER_FRAME x "
+                           f"{VIDEO_CLIP[0]}}}; the path's BRISQUE scores above the clean frames'; BRISQUE mean "
+                           f"score rising with each severity; dct_denoise and BM3D "
+                           f"PSNR above the noisy frame's; BM3D rerun bit-equal; card vs CPU {VIDEO_CPU_TOL}",
+              "timing": "ms: host clock around synchronised calls; device ms from the profiler's kernel events; "
+                        "decode ms on the reader's host clock",
+              "ok": True})
+
+    @staticmethod
+    def codec_frame(H: int, W: int) -> np.ndarray:
+        """An RGB uint8 frame of integer arithmetic (the same on every host):
+        a wrapped ramp with a product term, and seeded integer noise."""
+        yy = np.arange(H, dtype=np.int64)[:, None, None]
+        xx = np.arange(W, dtype=np.int64)[None, :, None]
+        base = (xx * np.array([3, 5, 7]) + yy * np.array([2, 1, 4]) + (xx * yy) // 97) % 256
+        noise = np.random.default_rng(17).integers(-12, 13, (H, W, 3))
+        return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+    def video_codec(self) -> dict:
+        import hashlib
+        import tempfile
+
+        from opencv_contrib_tpu_torch.utils import io as tio
+        from opencv_contrib_tpu_torch.utils import jpeg, native, png
+
+        t0 = time.perf_counter()
+        jpeg.codec_lib()
+        build_s = time.perf_counter() - t0
+        f = self.codec_frame(*VIDEO_CLIP[1:])
+        rgb = f.astype(np.uint32)
+        gray = ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+        jp = {}
+        for name, img, q in (("rgb_q75", f, 75), ("rgb_q90", f, 90), ("gray_q75", gray, 75)):
+            t0 = time.perf_counter()
+            data = jpeg.encode(img, q)
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            dec = jpeg.decode(data)
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            got = (hashlib.sha256(data).hexdigest(), hashlib.sha256(dec.tobytes()).hexdigest(), len(data))
+            check(got == JPEG_DIGESTS[name], f"JPEG {name}: {got} != {JPEG_DIGESTS[name]}")
+            err = float(np.abs(dec.astype(np.int16) - img).mean())
+            jp[name] = {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms, "mean_abs_err_levels": err}
+        # PNGs the native decode expands (palette, low-bit gray, tRNS) and an Adam7 file, from raw chunks
+        rng = np.random.default_rng(5)
+        H, W = 37, 53
+        pal = rng.integers(0, 256, (40, 3)).astype(np.uint8)
+        idx = rng.integers(0, 40, (H, W))
+        g4 = rng.integers(0, 16, (H, W))
+        rgb8 = rng.integers(0, 256, (H, W, 3))
+        rgb8[3, :7] = rgb8[0, 0]
+        rgb16 = rng.integers(0, 65536, (H, W, 3))
+        cases = {"palette": (png.encode_raw(idx, 8, 3, palette=pal), pal[idx], idx.astype(np.uint8)),
+                 "gray4": (png.encode_raw(g4, 4, 0), (g4 * 17).astype(np.uint8), (g4 * 17).astype(np.uint8)),
+                 "rgb_trns": (png.encode_raw(rgb8, 8, 2, trns=rgb8[0, 0]),
+                              np.concatenate([rgb8, np.where((rgb8 == rgb8[0, 0]).all(-1), 0, 255)[..., None]], -1)
+                              .astype(np.uint8), rgb8.astype(np.uint8)),
+                 "rgb16_adam7": (png.encode_raw(rgb16, 16, 2, interlace=True), rgb16.astype(np.uint16),
+                                 (rgb16 >> 8).astype(np.uint8))}
+        pngs = {}
+        with tempfile.TemporaryDirectory(prefix="png_") as root:
+            for name, (data, native_ref, pil_ref) in cases.items():
+                path = os.path.join(root, f"{name}.png")
+                with open(path, "wb") as fh:
+                    fh.write(data)
+                check(np.array_equal(png.decode(data), native_ref), f"PNG {name}: the native route's expansion")
+                scale = 65535.0 if native_ref.dtype == np.uint16 else 255.0
+                check(np.array_equal(native.decode_png(path),
+                                     native_ref.astype(np.float32) * (np.float32(1.0) / np.float32(scale))),
+                      f"PNG {name}: decode_png")
+                check(np.array_equal(tio.imread(path), pil_ref.astype(np.float32) / 255.0), f"PNG {name}: imread")
+                with mock.patch.object(png, "unfilter", png.unfilter_numpy):
+                    slow = png.decode_raw(data)
+                check(np.array_equal(png.decode_raw(data).samples, slow.samples), f"PNG {name}: C++ vs numpy unfilter")
+                pngs[name] = {"bytes": len(data), "shape": list(native_ref.shape)}
+        return {"host_codec_build_s": build_s, "jpeg": jp, "png": pngs, "frame": list(f.shape)}
+
+    def video_io(self, root: str) -> dict:
+        from opencv_contrib_tpu_torch.utils import video
+
+        torch, entry = self.torch, self.entry
+        T, H, W = VIDEO_CLIP
+        out, self.video_files = {}, {}
+        self.video_clean, degraded = entry.photo_clip(T, H, W, seed=0)  # what video_clip writes
+        for codec in VIDEO_CODECS:
+            t0 = time.perf_counter()
+            path, clean = entry.video_clip(root, codec, T, H, W, seed=0)
+            write_s = time.perf_counter() - t0
+            check(np.array_equal(clean, self.video_clean), "video_clip's clean clip")
+            self.video_files[codec] = path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with video.VideoReader(path, batch=8, device=self.dev) as rdr:
+                frames = torch.cat(list(rdr))
+                torch.cuda.synchronize()
+                read_s = time.perf_counter() - t0
+                decode_ms = rdr.decode_s * 1e3 / rdr.frames_decoded
+            check(tuple(frames.shape) == (T, H, W, 3) and frames.device.type == self.dev.type, f"{codec} frames")
+            err = float((frames - self.card(degraded)).abs().mean())
+            check(err < VIDEO_MEAN_ERR[codec], f"{codec} clip mean error {err}")
+            out[codec] = {"file_mb": os.path.getsize(path) / 2 ** 20, "write_s": write_s,
+                          "reader_frames_per_s": T / read_s, "decode_ms_per_frame": decode_ms,
+                          "mean_abs_err": err}
+        # the colour conversion on the card against the CPU, on the Y4M file's planes
+        planes = list(zip(*video.Y4MReader(self.video_files["y4m"])))
+        y, u, v = (torch.from_numpy(np.stack(p)) for p in planes)
+        on_card = video.yuv420_to_rgb(y.to(self.dev), u.to(self.dev), v.to(self.dev)).cpu()
+        d = float((on_card - video.yuv420_to_rgb(y, u, v)).abs().max())
+        check(d <= VIDEO_CPU_TOL["yuv"], f"yuv420_to_rgb card vs CPU {d}")
+        out["yuv420_to_rgb_card_vs_cpu_max_abs"] = d
+        return out
+
+    def video_path(self) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+
+        from opencv_contrib_tpu_torch import quality
+        from opencv_contrib_tpu_torch.core.color import rgb_to_gray
+        from opencv_contrib_tpu_torch.quality import brisque_svr
+
+        torch, entry = self.torch, self.entry
+        T = VIDEO_CLIP[0]
+        t0 = time.perf_counter()
+        self.video_model = brisque_svr.train_brisque_model(device=self.dev)
+        train_s = time.perf_counter() - t0
+        cln = self.card(self.video_clean)
+        expect = {"streamed_transform": 1, **{k: v * T for k, v in VIDEO_PER_FRAME.items()}}
+        # the head's score of each clean frame: the path's frames, degraded and denoised, must score worse
+        clean_scores = [brisque_svr.score_features(self.video_model, quality.brisque_features(rgb_to_gray(cln[t])))
+                        for t in range(T)]
+        out = {"brisque_train_s": train_s, "brisque_clean": clean_scores}
+        for codec, pname in VIDEO_CODECS.items():
+            path = self.video_files[codec]
+            run = lambda: entry.video_photometric(path, cln, model=self.video_model, device=self.dev)  # noqa: E731
+            if codec == "y4m":
+                run()  # warm-up: cuBLAS, the BRISQUE tables, the allocator
+            (res, s), peak = self.peak_gb(lambda: self.counted(pname, run))
+            launches = {k: self.launches[pname][k] for k in PATH_KERNELS[pname]}
+            check(launches == expect, f"{pname} launches {launches}, expected {expect}")
+            check(tuple(res.equalized.shape) == VIDEO_CLIP and len(res.brisque) == T, f"{pname} shapes")
+            for k in ("balanced", "equalized", "ssim", "gmsd", "nr_score", "features"):
+                check(bool(torch.isfinite(getattr(res, k)).all()), f"{pname} {k} not finite")
+            check(all(np.isfinite(res.brisque)) and all(np.isfinite(res.psnr)), f"{pname} scores not finite")
+            check(all(b > c for b, c in zip(res.brisque, clean_scores)),
+                  f"{pname} BRISQUE {res.brisque} not above the clean frames' {clean_scores}")
+            ms = [s * 1e3 / T] + [self.wall_s(run)[1] * 1e3 / T for _ in range(N_VIDEO_TIMED - 1)]
+            syncs = self.count_syncs(run)
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, wall = self.wall_s(run)
+            tr = self.kineto_rows(prof, wall, VIDEO_PREFIX, (), require=False)  # raw events: no event tree
+            out[codec] = {"s_main_path": s, "launches": self.launches[pname], "launches_per_clip": launches,
+                          "ms_per_frame": ms, "ms_per_frame_median": float(np.median(ms)),
+                          "device_ms_per_frame": tr["device_busy_s"] * 1e3 / T,
+                          "device_busy_share": tr["device_busy_share"],
+                          "device_launches_per_frame": tr["device_launches"] / T, "top_device": tr["top_device"],
+                          "profile_s": time.perf_counter() - t0,
+                          "decode_ms_per_frame": res.decode_ms, "host_syncs_run": syncs,
+                          "host_syncs_per_frame": syncs["in_the_port"] / T, "peak_mem_of_a_run_gb": peak,
+                          "psnr": res.psnr, "brisque": res.brisque, "ssim": res.ssim.tolist()}
+        return out
+
+    def video_gates(self) -> dict:
+        from opencv_contrib_tpu_torch import quality, xphoto
+        from opencv_contrib_tpu_torch.core.color import rgb_to_gray
+        from opencv_contrib_tpu_torch.quality import brisque_svr as bs
+
+        torch = self.torch
+        # the trained head on held-out images (tests/test_brisque_svr.py:24-29), its features on the card
+        rng = np.random.default_rng(123)
+        sev = {}
+        for kind in ("blur", "noise", "jpeg"):
+            scores = np.mean([[bs.brisque_score(self.video_model, bs.distort(base, kind, k, rng), device=self.dev)
+                               for k in range(5)] for base in [bs.natural_texture(rng) for _ in range(4)]], axis=0)
+            check(bool(np.all(np.diff(scores) > 0)), f"BRISQUE {kind} scores {scores} do not rise with severity")
+            sev[kind] = scores.tolist()
+        # dct_denoise at 1080 x 1920 (tests/test_imgproc_modules.py:29's gate)
+        clean = rgb_to_gray(self.card(self.video_clean[0]))
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        noisy = clean + VIDEO_NOISE["dct"] * torch.randn(clean.shape, generator=gen, device=self.dev)
+        out = xphoto.dct_denoise(noisy, sigma=VIDEO_NOISE["dct"])
+        e_in, e_out = float((noisy - clean).abs().mean()), float((out - clean).abs().mean())
+        check(e_out < e_in, f"dct_denoise at 1080p: mean error {e_out} not below {e_in}")
+        return {"brisque_mean_score_by_severity": sev, "dct_denoise_mean_err": [e_in, e_out],
+                "dct_denoise_psnr_db": [quality.psnr(noisy, clean), quality.psnr(out, clean)]}
+
+    def video_bm3d(self) -> dict:
+        from opencv_contrib_tpu_torch import quality, xphoto
+        from opencv_contrib_tpu_torch.core.color import rgb_to_gray
+
+        torch = self.torch
+        clean = rgb_to_gray(self.card(self.video_clean[0]))
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        sigma = VIDEO_NOISE["bm3d"]
+        noisy = clean + sigma * torch.randn(clean.shape, generator=gen, device=self.dev)
+        xphoto.bm3d(noisy[:256, :256], sigma)  # warm-up: cuBLAS, the sort
+        (first, s1), peak = self.peak_gb(lambda: self.wall_s(lambda: xphoto.bm3d(noisy, sigma)))
+        second, s2 = self.wall_s(lambda: xphoto.bm3d(noisy, sigma))
+        check(bool(torch.equal(first, second)), "BM3D at 1080p: a rerun gave other bits")
+        e_in, e_out = float((noisy - clean).abs().mean()), float((first - clean).abs().mean())
+        p_in, p_out = quality.psnr(noisy, clean), quality.psnr(first, clean)
+        check(p_out > p_in and e_out < e_in, f"BM3D at 1080p: PSNR {p_out} dB from {p_in}")
+        syncs = self.count_syncs(lambda: xphoto.bm3d(noisy, sigma))
+        return {"shape": list(clean.shape), "sigma": sigma, "s": [s1, s2], "peak_mem_gb": peak,
+                "rerun_bit_equal": True, "psnr_db": [p_in, p_out], "mean_err": [e_in, e_out],
+                "host_syncs": syncs}
+
+    def video_card_vs_cpu(self) -> dict:
+        from opencv_contrib_tpu_torch import xphoto
+        from opencv_contrib_tpu_torch.quality import brisque_svr as bs
+
+        torch, cpu, tol = self.torch, self.torch.device("cpu"), VIDEO_CPU_TOL
+        rng = np.random.default_rng(7)
+        T, H, W = VIDEO_SMALL
+        img = np.clip(np.kron(rng.random((H // 6 + 1, W // 6 + 1)), np.ones((6, 6)))[:H, :W]
+                      + rng.normal(0, 0.08, (H, W)), 0, 1).astype(np.float32)
+        rgb = rng.random((H, W, 3)).astype(np.float32)
+        mask = rng.random((H, W)) < 0.2
+
+        def both(fn, *arrays):
+            return [fn(*(torch.from_numpy(a).to(d) for a in arrays)) for d in (self.dev, cpu)]
+
+        def dmax(a, b):
+            return float((a.cpu() - b).abs().max())
+
+        out = {}
+        out["dct"] = dmax(*both(lambda x: xphoto.dct_denoise(x, 0.08), img))
+        out["inpaint"] = dmax(*both(lambda x, m: xphoto.inpaint_diffusion(x, m), img, mask))
+        oc, oh = both(xphoto.oil_painting, img)
+        out["oil_share_off"] = float(((oc.cpu() - oh).abs() > 1e-6).float().mean())
+        wb_model = torch.from_numpy(rng.normal(0, 0.1, (8, 2)).astype(np.float32)) + torch.tensor(
+            [[0.33, 0.33]] + [[0.0, 0.0]] * 7)
+        (bc, ic), (bh, ih) = both(lambda x: xphoto.learning_wb(x, wb_model), rgb)
+        out["wb"] = max(dmax(bc, bh), dmax(ic, ih))
+        out["bm3d"] = dmax(*both(lambda x: xphoto.bm3d(x, 0.08), img))
+        tex = bs.distort(bs.natural_texture(rng), "noise", 2, rng)
+        out["brisque"] = abs(bs.brisque_score(self.video_model, tex, device=self.dev)
+                             - bs.brisque_score(self.video_model, tex, device="cpu"))
+        for k, v in out.items():
+            check(v <= tol[k], f"{k} card vs CPU {v} > {tol[k]}")
+        return out
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -4003,7 +4304,7 @@ def main() -> int:
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
                   smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
                   smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd,
-                  smoke.remainder, smoke.distributed, smoke.xfeatures):
+                  smoke.remainder, smoke.distributed, smoke.xfeatures, smoke.video):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

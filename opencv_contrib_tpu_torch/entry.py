@@ -30,6 +30,11 @@
   an RGB clip (gamma, grayworld white balance, gray, CLAHE, then PSNR,
   SSIM, GMSD, BRISQUE features and the no-reference score against the
   clean clip); `photo_clip()` makes a full-HD clip and its degraded copy.
+- `video_photometric(path, clean)`: the same path on a clip read from disk
+  through `utils.video.VideoReader` (Y4M or MJPG AVI, onto the card), with
+  `xphoto.dct_denoise` between gray and CLAHE and the trained BRISQUE score
+  of every frame; `video_clip(dir, codec)` writes `photo_clip()`'s
+  degraded clip as such a file.
 - `features_x(img1, img2, detector, descriptor)`: the xfeatures2d breadth
   on a frame pair: detect with any of the port's detectors, describe with
   any of its descriptors (float ones matched by squared L2, binary ones by
@@ -53,6 +58,7 @@ they raise. Matrix products run in full f32 inside them.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -71,13 +77,14 @@ from opencv_contrib_tpu_torch.mvg import resection
 from opencv_contrib_tpu_torch.ops import filters
 from opencv_contrib_tpu_torch.ops.histogram import clahe
 from opencv_contrib_tpu_torch.ops.image import warp_affine
+from opencv_contrib_tpu_torch.quality import brisque_svr
 from opencv_contrib_tpu_torch.rgbd import kinfu, odometry, submap
 from opencv_contrib_tpu_torch.rgbd.dynafu import DynaFu
 from opencv_contrib_tpu_torch.rgbd.hash_tsdf import HashTSDF
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_sequence_scene, reconstruct_sequential
 from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
-from opencv_contrib_tpu_torch.utils import datasets, metrics, native
+from opencv_contrib_tpu_torch.utils import datasets, metrics, native, video
 from opencv_contrib_tpu_torch.utils.device import resolve
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
 from opencv_contrib_tpu_torch.utils.synthetic import SequenceScene, generate_scene, generate_sequence_scene
@@ -419,6 +426,79 @@ def photometric(degraded, clean, device="cuda") -> Photometric:
         feats.append(quality.brisque_features(out))
     return Photometric(torch.stack(bal), torch.stack(eq), ps, torch.stack(ss), torch.stack(gm), torch.stack(nr),
                        torch.stack(feats))
+
+
+VIDEO_CODECS = {"y4m": ".y4m", "MJPG": ".avi"}
+VIDEO_DENOISE_SIGMA = 0.01  # photo_clip()'s noise
+_BRISQUE_MODELS: dict = {}  # device -> the default trained head, trained once
+
+
+def video_clip(dir, codec: str = "y4m", T: int = 8, H: int = 1080, W: int = 1920, seed: int = 0):
+    """Write `photo_clip(T, H, W, seed)`'s degraded clip into directory
+    `dir` as Y4M (`codec` "y4m", I420) or MJPG AVI ("MJPG", JPEG quality 90)
+    at 30 frames/s and return (its path, the clean clip)."""
+    if codec not in VIDEO_CODECS:
+        raise ValueError(f"video_clip: codec must be one of {sorted(VIDEO_CODECS)}, got {codec!r}")
+    clean, degraded = photo_clip(T, H, W, seed)
+    path = os.path.join(str(dir), f"photo_clip_{codec.lower()}{VIDEO_CODECS[codec]}")
+    wtr = video.create_video_writer(path, (W, H), 30.0, codec=codec)
+    for frame in degraded:
+        wtr.write(frame)
+    wtr.release()
+    return path, clean
+
+
+class VideoPhotometric(NamedTuple):
+    balanced: torch.Tensor  # (T, H, W, 3) gamma-corrected, grayworld-balanced clip
+    equalized: torch.Tensor  # (T, H, W) its gray frames, denoised, after CLAHE
+    psnr: list  # per frame, Python floats (dB), against the clean clip's gray frames
+    ssim: torch.Tensor  # (T,)
+    gmsd: torch.Tensor  # (T,)
+    nr_score: torch.Tensor  # (T,) no-reference score of the equalized frame
+    features: torch.Tensor  # (T, 36) BRISQUE features of the equalized frame
+    brisque: list  # per frame, Python floats: the trained head's score of the denoised frame, before CLAHE
+    decode_ms: float  # host ms the reader spent a decoded frame
+
+
+@f32_matmuls
+def video_photometric(path, clean, model=None, device="cuda") -> VideoPhotometric:
+    """The photometric path on a clip on disk: `utils.video.VideoReader`
+    (batch 8) reads it onto the device; each batch gets
+    `gamma_correction` (1 / 2.2), each frame `xphoto.grayworld_wb`,
+    `rgb_to_gray`, `xphoto.dct_denoise` (sigma VIDEO_DENOISE_SIGMA),
+    `clahe`, and the scores of `photometric` against `rgb_to_gray(clean[t])`.
+    The trained BRISQUE score (`quality.brisque_svr`) is that of the
+    denoised frame, before CLAHE: CLAHE's local contrast puts the
+    equalized frame's features far outside the head's training range,
+    where every RBF term underflows and the score is 0 whatever the frame.
+    The model is `model`, or the default head trained once on this
+    device."""
+    dev = resolve(device)
+    if model is None:
+        model = _BRISQUE_MODELS.get(str(dev))
+        if model is None:
+            model = _BRISQUE_MODELS[str(dev)] = brisque_svr.train_brisque_model(device=dev)
+    cln = _f32(clean, dev)
+    bal, eq, ps, ss, gm, nr, feats, scores = [], [], [], [], [], [], [], []
+    with video.VideoReader(str(path), batch=8, device=dev) as reader:
+        for deg in reader:
+            lin = gamma_correction(deg, PHOTO_GAMMA)
+            for t in range(deg.shape[0]):
+                wb = xphoto.grayworld_wb(lin[t])
+                g = xphoto.dct_denoise(rgb_to_gray(wb), sigma=VIDEO_DENOISE_SIGMA)
+                out = clahe(g, clip_limit=CLAHE_CLIP, grid=CLAHE_GRID)
+                ref = rgb_to_gray(cln[len(eq)])
+                bal.append(wb)
+                eq.append(out)
+                ps.append(quality.psnr(out, ref))
+                ss.append(quality.ssim(out, ref))
+                gm.append(quality.gmsd(out, ref))
+                nr.append(quality.no_reference_score(out))
+                feats.append(quality.brisque_features(out))
+                scores.append(brisque_svr.score_features(model, quality.brisque_features(g)))
+        decode_ms = reader.decode_s * 1e3 / max(reader.frames_decoded, 1)
+    return VideoPhotometric(torch.stack(bal), torch.stack(eq), ps, torch.stack(ss), torch.stack(gm),
+                            torch.stack(nr), torch.stack(feats), scores, decode_ms)
 
 
 def feature_pair(H: int = 480, W: int = 640, angle_deg: float = 15.0, seed: int = 2):

@@ -1,6 +1,12 @@
 """Carry state between the JAX package and this one as numpy arrays.
 
-The port has no learned weights: its state is the NamedTuples (Keypoints,
+The port's learned state is the trained BRISQUE head and the learning-based
+white balance's regressor. The head, `quality.brisque_svr.BrisqueModel`,
+holds host numpy arrays in both packages and its npz (`save_model`,
+`load_model`) is the same file: it crosses as it is. The regressor,
+`xphoto.fit_wb_model`'s (F, 2) matrix, crosses by `wb_model`.
+
+The rest of the port's state is the NamedTuples (Keypoints,
 Matches, BAProblem, BAResult, the sparse BA's SparseBAProblem,
 SparseBAResult and ObsBuckets, KinFu's TSDFVolume and DepthFrame, the
 hashed-block volume's HashTSDF, the pose graph's PoseGraph, the colored
@@ -47,6 +53,16 @@ TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult,
                                         ObsBuckets, TSDFVolume, DepthFrame, HashTSDF, PoseGraph, ColoredTSDFVolume,
                                         RansacResult, MapState, WarpField, Signature, EllipticKeypoints,
                                         Template)}
+
+
+def wb_model(W, device="cpu") -> torch.Tensor:
+    """A learning-based white-balance model of either package (the (F, 2)
+    matrix of `xphoto.fit_wb_model`: a JAX array, numpy or a tensor) as
+    this package's float32 tensor on `device`."""
+    a = np.asarray(W.detach().cpu() if isinstance(W, torch.Tensor) else W, np.float32)
+    if a.ndim != 2 or a.shape[1] != 2:
+        raise ValueError(f"a white-balance model is (F, 2), got {a.shape}")
+    return torch.from_numpy(a.copy()).to(device)
 
 
 def _is_namedtuple(x) -> bool:

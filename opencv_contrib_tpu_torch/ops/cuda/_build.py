@@ -29,7 +29,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+DEFAULT_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BUILD_ROOT = DEFAULT_ROOT  # utils/cache.enable_compile_cache moves it
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")

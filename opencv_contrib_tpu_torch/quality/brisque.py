@@ -47,12 +47,18 @@ def mscn_coefficients(img: torch.Tensor, sigma: float = 7.0 / 6.0) -> torch.Tens
     return transform.grid_transform(transform.mscn(), img, mu, s2)
 
 
+def _at(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """table[i] for a 0-dim index tensor, as a gather on the device:
+    indexing with a 0-dim tensor reads it back to the host."""
+    return torch.index_select(table, 0, i.reshape(1))[0]
+
+
 def _ggd_params(x: torch.Tensor):
     """Moment-matched generalized-gaussian (alpha, sigma)."""
     gam, ggd, _ = _tables(x.device)
     sigma2, E = reduce.grid_reduce_sums(transform.ggd_moments(), x, div=float(x.numel()))
     rho = sigma2 / torch.clamp(E * E, min=1e-12)
-    alpha = gam[torch.argmin(torch.abs(ggd - rho))]
+    alpha = _at(gam, torch.argmin(torch.abs(ggd - rho)))
     return alpha, torch.sqrt(sigma2)
 
 
@@ -69,7 +75,7 @@ def _aggd_params(x: torch.Tensor):
     gamma_hat = sigma_l / torch.clamp(sigma_r, min=1e-12)
     rho = sq_mean / torch.clamp(E * E, min=1e-12)
     rhat = rho * (gamma_hat ** 3 + 1) * (gamma_hat + 1) / torch.clamp((gamma_hat ** 2 + 1) ** 2, min=1e-12)
-    alpha = gam[torch.argmin(torch.abs(rr - rhat))]
+    alpha = _at(gam, torch.argmin(torch.abs(rr - rhat)))
     const = torch.exp(torch.lgamma(1.0 / alpha) - torch.lgamma(2.0 / alpha))
     return alpha, (sigma_r - sigma_l) * const, sigma_l, sigma_r
 

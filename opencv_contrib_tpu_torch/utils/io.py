@@ -1,12 +1,15 @@
 """Image and array IO — the port of opencv_contrib_tpu/utils/io.py.
 
-Images are read and written by the port's own PNG codec (`utils/png.py`),
-with the same results as the JAX package's PIL-backed functions for PNG
-files: `imread` gives what `np.asarray(Image.open(path))` gives, as float32
-in [0, 1] (a 16-bit gray file over 65535; a 16-bit colour file through its
-high bytes, as PIL opens it), and `gray=True` converts as PIL's "L" mode
-does. Any other format raises `NotImplementedError`: JPEG and the other
-photo formats wait for the image-path item of ROADMAP.md.
+Images are read and written by the port's own codecs, PNG (`utils/png.py`)
+and baseline JPEG (`utils/jpeg.py`), with the same results as the JAX
+package's PIL-backed functions: `imread` gives what
+`np.asarray(Image.open(path))` gives, as float32 in [0, 1] (8-bit samples
+over 255, a 16-bit gray file over 65535, a 16-bit colour file through its
+high bytes, a 1-bit gray file as 0 / 1, a palette file as its indices over
+255, 2- and 4-bit gray scaled to 0-255 as PIL's "L;2" / "L;4" do; tRNS
+ignored), and `gray=True` converts as PIL's "L" mode does. `imwrite` writes
+PNG, or JPEG at PIL's default quality 75 and 4:2:0. Any other format raises
+`NotImplementedError`.
 
 The checkpoint store (named arrays and scalar attributes in an npz file, the
 hdf module's contract) and the bundler-like reconstruction text format are
@@ -20,7 +23,9 @@ from typing import Mapping
 
 import numpy as np
 
-from opencv_contrib_tpu_torch.utils import png
+from opencv_contrib_tpu_torch.utils import jpeg, png
+
+JPEG_EXTS = (".jpg", ".jpeg")
 
 
 def _np(x) -> np.ndarray:
@@ -30,46 +35,78 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _png_path(path: str) -> str:
-    if os.path.splitext(str(path))[1].lower() != ".png":
-        raise NotImplementedError(f"{path}: only PNG is read and written by the port (its own codec, "
-                                  f"utils/png.py); JPEG and other formats wait for ROADMAP.md's image-path item")
-    return path
+def _format(path) -> str:
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext == ".png":
+        return "png"
+    if ext in JPEG_EXTS:
+        return "jpeg"
+    raise NotImplementedError(f"{path}: only PNG and JPEG are read and written by the port (its own codecs, "
+                              f"utils/png.py and utils/jpeg.py)")
 
 
-def _pil_samples(arr: np.ndarray) -> np.ndarray:
-    """The samples PIL gives for a decoded PNG: 16-bit gray stays 16-bit;
-    16-bit colour (RGB, RGBA, gray + alpha) opens as 8-bit, its high bytes."""
-    if arr.dtype == np.uint16 and arr.ndim == 3:
-        return (arr >> 8).astype(np.uint8)
-    return arr
+def _pil_png(raw: png.PNGImage) -> np.ndarray:
+    """The samples PIL gives for a decoded PNG: a palette's indices; 1-bit
+    gray as bool (mode "1"); 2- and 4-bit gray scaled to 0-255; 16-bit gray
+    stays 16-bit; 16-bit colour (RGB, RGBA) opens as 8-bit, its high bytes,
+    and 16-bit gray + alpha as RGBA (PIL's "LA;16B": the gray thrice)."""
+    s = raw.samples
+    if raw.color_type == 0 and raw.depth == 1:
+        return s.astype(bool)
+    if raw.color_type == 0 and raw.depth in (2, 4):
+        return (s * (255 // ((1 << raw.depth) - 1))).astype(np.uint8)
+    if s.dtype == np.uint16 and s.ndim == 3:
+        s = (s >> 8).astype(np.uint8)
+        return s[..., [0, 0, 0, 1]] if raw.color_type == 4 else s
+    return s
 
 
-def _to_gray(arr: np.ndarray) -> np.ndarray:
+def _pil_samples(path) -> tuple:
+    """(the samples np.asarray(Image.open(path)) gives, the PNG palette or
+    None)."""
+    if _format(path) == "jpeg":
+        return jpeg.read(path), None
+    raw = png.read_raw(path)
+    return _pil_png(raw), (raw.palette if raw.color_type == 3 else None)
+
+
+def _l24(rgb: np.ndarray) -> np.ndarray:
+    rgb = rgb[..., :3].astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def _to_gray(arr: np.ndarray, palette=None) -> np.ndarray:
     """PIL's convert("L"): RGB(A) by its L24 rule (299/587/114 in 16-bit
-    fixed point, rounded), gray + alpha by its gray, 16-bit gray clipped to
-    255."""
+    fixed point, rounded), a palette's colours by the same rule, 1-bit as
+    0 / 255, gray + alpha by its gray, 16-bit gray clipped to 255."""
+    if palette is not None:
+        lut = np.zeros(256, np.uint8)
+        lut[:len(palette)] = _l24(palette)
+        return lut[arr]
+    if arr.dtype == bool:
+        return arr.astype(np.uint8) * np.uint8(255)
     if arr.ndim == 2:
         return np.minimum(arr, 255).astype(np.uint8) if arr.dtype == np.uint16 else arr
     if arr.shape[-1] == 2:
         return arr[..., 0]
-    rgb = arr[..., :3].astype(np.uint32)
-    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+    return _l24(arr)
 
 
 def imread(path: str, gray: bool = False) -> np.ndarray:
     """Load an image as float32 in [0, 1] (H, W[, C])."""
-    arr = _pil_samples(png.read(_png_path(path)))
+    arr, palette = _pil_samples(path)
     if gray:
-        arr = _to_gray(arr)
+        arr = _to_gray(arr, palette)
     if arr.dtype == np.uint8:
         return arr.astype(np.float32) / 255.0
-    return arr.astype(np.float32) / 65535.0
+    if arr.dtype == np.uint16:
+        return arr.astype(np.float32) / 65535.0
+    return arr.astype(np.float32)
 
 
 def imread_depth_tum(path: str, scale: float = 5000.0) -> np.ndarray:
     """TUM RGB-D 16-bit PNG depth -> meters (0 = invalid)."""
-    return png.read(_png_path(path)).astype(np.float32) / scale
+    return _pil_samples(path)[0].astype(np.float32) / scale
 
 
 def imwrite(path: str, img):
@@ -77,7 +114,10 @@ def imwrite(path: str, img):
     arr = _np(img)
     if arr.dtype != np.uint8:
         arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
-    png.write(_png_path(path), arr)
+    if _format(path) == "jpeg":
+        jpeg.write(path, arr)
+    else:
+        png.write(path, arr)
 
 
 # ----------------------------------------------------------------------------

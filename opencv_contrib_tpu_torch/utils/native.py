@@ -1,13 +1,17 @@
 """Image decode and the TUM RGB-D sequence loader — the port's counterpart of
 opencv_contrib_tpu/utils/native.py, which binds the C++ runtime of
 native/dataset_loader.cpp (libpng, libjpeg and a threaded prefetch queue).
-The port does not bind that library: it decodes with its own PNG codec
-(`utils/png.py`, whose unfilter is host C++) and prefetches with a thread
-pool.
+The port does not bind that library: it decodes with its own codecs
+(`utils/png.py`, whose unfilter is host C++, and the host C++ baseline
+JPEG codec of `utils/jpeg.py`) and prefetches with a thread pool.
 
-`decode_png` gives the values the native decode gives: 8-bit samples times
-1/255, 16-bit samples times 1/depth_scale (TUM depth in meters) or 1/65535,
-each factor rounded to float32 first, as the C++ computes it.
+`decode_png` gives the values the native decode gives: the samples as
+libpng expands them there (a palette to RGB, 1-, 2- and 4-bit gray to 8
+bits, tRNS to an alpha channel: `png.expand`), 8-bit samples times 1/255,
+16-bit samples times 1/depth_scale (TUM depth in meters) or 1/65535, each
+factor rounded to float32 first, as the C++ computes it. `decode_image`
+takes `.jpg` / `.jpeg` through the JPEG codec, whose samples equal
+libjpeg's, times 1/255.
 
 `TumLoader` yields `(t_rgb, rgb (H, W, 3), t_depth, depth (H, W))`, float32,
 in the order of the associated pairs; its depth is the quotient of the
@@ -36,15 +40,38 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from opencv_contrib_tpu_torch.utils import datasets, png
+from opencv_contrib_tpu_torch.utils import datasets, jpeg, png
 from opencv_contrib_tpu_torch.utils.io import imread_depth_tum
 
 
+def ordered_prefetch(pool: ThreadPoolExecutor, fn, n: int, ahead: int):
+    """Yield fn(0), ..., fn(n - 1) in order, with up to `ahead` calls
+    submitted to `pool` ahead of the consumer. A call's exception is raised
+    at its item. When the generator ends or is closed, the calls not yet
+    started are cancelled and the pool is shut down without waiting."""
+    window, nxt = collections.deque(), 0
+    try:
+        while nxt < n and len(window) < ahead:
+            window.append(pool.submit(fn, nxt))
+            nxt += 1
+        while window:
+            item = window.popleft().result()
+            if nxt < n:
+                window.append(pool.submit(fn, nxt))
+                nxt += 1
+            yield item
+    finally:
+        for f in window:
+            f.cancel()
+        pool.shutdown(wait=False, cancel_futures=True)
+
+
 def available() -> bool:
-    """True when the decoder can run here: its host unfilter builds (or is
-    built) with the host compiler."""
+    """True when the decoders can run here: their host routines build (or
+    are built) with the host compiler."""
     try:
         png.unfilter_lib()
+        jpeg.codec_lib()
     except RuntimeError:
         return False
     return True
@@ -54,7 +81,10 @@ def decode_png(path: str, depth_scale: float = -1.0) -> np.ndarray:
     """Decode a PNG with the port's codec. depth_scale > 0: 16-bit values
     divided by it (TUM depth); otherwise 8-bit -> [0, 1], 16-bit -> [0, 1].
     Returns (H, W) or (H, W, C) float32. A missing or corrupt file raises
-    IOError (OSError); a PNG feature the codec lacks, NotImplementedError."""
+    IOError (OSError). A `.jpg` / `.jpeg` path is decoded as JPEG
+    (`decode_jpeg`), as the native runtime dispatches by extension."""
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        return decode_jpeg(path)
     try:
         samples = png.read(path)
     except ValueError as e:
@@ -66,12 +96,22 @@ def decode_png(path: str, depth_scale: float = -1.0) -> np.ndarray:
     return samples.astype(np.float32) * s
 
 
+def decode_jpeg(path: str) -> np.ndarray:
+    """Decode a baseline JPEG with the port's codec: (H, W) or (H, W, 3)
+    float32, the 8-bit samples times 1/255. A missing or corrupt file
+    raises IOError (OSError); a mode the codec lacks (progressive,
+    arithmetic, lossless, 12-bit, 4 components), NotImplementedError."""
+    try:
+        samples = jpeg.read(path)
+    except ValueError as e:
+        raise IOError(f"JPEG decode failed: {path}: {e}") from e
+    return samples.astype(np.float32) * (np.float32(1.0) / np.float32(255.0))
+
+
 def decode_image(path: str, depth_scale: float = -1.0) -> np.ndarray:
-    """Decode by extension: PNG. JPEG (the SfM photo feeds of the native
-    runtime) waits for ROADMAP.md's image-path item and raises
-    NotImplementedError."""
-    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
-        raise NotImplementedError(f"{path}: JPEG decode is not in the port yet (ROADMAP.md, the image-path item)")
+    """Decode by extension: JPEG (`.jpg`, `.jpeg`: the SfM photo feeds of
+    the native runtime) or PNG (anything else, as the native runtime
+    dispatches)."""
     return decode_png(path, depth_scale)
 
 
@@ -115,23 +155,8 @@ class TumLoader:
 
     def __iter__(self):
         self.close()
-        pool = self._pool = ThreadPoolExecutor(self.n_threads, thread_name_prefix="tum-loader")
-        window = collections.deque()
-        nxt = 0
-        try:
-            while nxt < self.size and len(window) < self.prefetch:
-                window.append(pool.submit(self._frame, nxt))
-                nxt += 1
-            while window:
-                frame = window.popleft().result()  # a decode error is raised here, at its frame
-                if nxt < self.size:
-                    window.append(pool.submit(self._frame, nxt))
-                    nxt += 1
-                yield frame
-        finally:
-            for f in window:
-                f.cancel()
-            pool.shutdown(wait=False, cancel_futures=True)
+        self._pool = ThreadPoolExecutor(self.n_threads, thread_name_prefix="tum-loader")
+        yield from ordered_prefetch(self._pool, self._frame, self.size, self.prefetch)
 
     def close(self):
         """Cancel the decodes not yet started; those running finish on their

@@ -6,18 +6,31 @@ Decode: the signature, then the chunks; every chunk's CRC is checked with
 scanlines are unfiltered by a small host C++ routine
 (`csrc/unfilter.cpp`, built at first use with the host compiler into
 `build/kernels/host-<hash>/` and loaded with ctypes, which releases the GIL
-while it runs). Bit depths 8 and 16 (big-endian samples) and colour types 0
-(gray), 2 (RGB), 4 (gray + alpha) and 6 (RGBA) are read. A palette, a
-depth below 8, Adam7 interlacing and a tRNS transparency chunk raise
-`NotImplementedError` rather than give another image than the file holds.
-If the unfilter cannot be built, decoding raises: nothing falls back.
+while it runs). Every colour type and bit depth of the specification is
+read: gray at 1, 2, 4, 8 and 16 bits, RGB, palette at 1-8 bits, gray +
+alpha, RGBA, with a PLTE and a tRNS chunk, plain or Adam7-interlaced (each
+pass unfiltered on its own and scattered into the image, as libpng's
+`png_read_image` and PIL de-interlace). If the unfilter cannot be built,
+decoding raises: nothing falls back.
+
+`decode_raw` gives the file's samples as they are stored (unpacked, not
+scaled) with the palette and the tRNS values; the two readers of the JAX
+package see them differently, and each twin follows its own:
+- `decode` (`utils.native.decode_png`) expands as libpng does under the
+  native decode's setup (native/dataset_loader.cpp:64-66): a palette to RGB,
+  gray of 1, 2 or 4 bits scaled to 8, and tRNS to an alpha channel (RGBA,
+  or gray + alpha).
+- `utils.io.imread` reads as PIL opens the file: palette indices, 1-bit gray
+  as a bool array, 2- and 4-bit gray scaled to 0-255, tRNS ignored.
 
 `unfilter_numpy` is the same unfilter in numpy, row by row and, for Average
 and Paeth, pixel by pixel: the tests and chip_smoke.py hold the C++ routine
 to it.
 
 Encode: 8- or 16-bit gray, gray + alpha, RGB or RGBA, every row with one
-filter type (`filter` 0-4, Up by default), deflated with `zlib`.
+filter type (`filter` 0-4, Up by default), deflated with `zlib`;
+`encode_raw` writes any colour type and depth, with a PLTE, a tRNS and
+Adam7 interlacing, unfiltered.
 """
 
 from __future__ import annotations
@@ -26,12 +39,16 @@ import ctypes
 import struct
 import zlib
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
-COLOR_TYPE = {v: k for k, v in CHANNELS.items()}
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}  # samples a pixel -> colour type of `encode`
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 FILTERS = ("none", "sub", "up", "average", "paeth")
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "unfilter.cpp"
 _P = ctypes.c_void_p
@@ -117,46 +134,137 @@ def _chunks(data: bytes):
     raise ValueError("PNG: no IEND chunk")
 
 
-def decode(data: bytes) -> np.ndarray:
-    """The samples of a PNG file's bytes: (H, W) for gray, (H, W, C) with C
-    = 2, 3 or 4 otherwise; uint8 or uint16 by the bit depth."""
-    header, idat = None, []
+class PNGImage(NamedTuple):
+    samples: np.ndarray  # (H, W) or (H, W, C): the stored samples, unpacked, unscaled; uint8 or uint16
+    depth: int  # bits a sample: 1, 2, 4, 8 or 16
+    color_type: int  # 0 gray, 2 RGB, 3 palette, 4 gray + alpha, 6 RGBA
+    palette: np.ndarray | None  # (N, 3) uint8, from PLTE
+    trns: np.ndarray | None  # tRNS: the palette's alphas (uint8), or the transparent gray / RGB (uint16)
+
+
+def _unpack(rows: np.ndarray, w: int, C: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (h, rowbytes) as (h, w, C) samples."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * C].reshape(h, w, C)
+    if depth == 16:
+        return np.ascontiguousarray(rows[:, :w * C * 2]).view(">u2").astype(np.uint16).reshape(h, w, C)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[..., None] >> shifts) & np.uint8((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :w * C].reshape(h, w, C)
+
+
+def decode_raw(data: bytes) -> PNGImage:
+    """The stored samples of a PNG file's bytes, its palette and tRNS."""
+    header, idat, palette, trns_body = None, [], None, None
     for ctype, body in _chunks(data):
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif ctype == b"IDAT":
             idat.append(body)
+        elif ctype == b"PLTE":
+            if len(body) % 3 or not 3 <= len(body) <= 768:
+                raise ValueError(f"PNG: bad PLTE chunk of {len(body)} bytes")
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3).copy()
         elif ctype == b"tRNS":
-            raise NotImplementedError("PNG: tRNS transparency is not supported")
-        elif ctype not in (b"IEND", b"PLTE") and ctype[0:1].isupper():
+            trns_body = body
+        elif ctype != b"IEND" and ctype[0:1].isupper():
             raise ValueError(f"PNG: unknown critical chunk {ctype!r}")
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
     W, H, depth, ctype, comp, filt, interlace = header
-    if ctype == 3:
-        raise NotImplementedError("PNG: palette images are not supported")
     if ctype not in CHANNELS:
         raise ValueError(f"PNG: bad colour type {ctype}")
-    if depth not in (8, 16):
-        raise NotImplementedError(f"PNG: bit depth {depth} is not supported (8 and 16 are)")
-    if interlace:
-        raise NotImplementedError("PNG: Adam7 interlacing is not supported")
-    if comp or filt:
-        raise ValueError(f"PNG: compression method {comp} / filter method {filt}")
-    C, nb = CHANNELS[ctype], depth // 8
+    if depth not in DEPTHS[ctype]:
+        raise ValueError(f"PNG: bit depth {depth} is not allowed for colour type {ctype}")
+    if comp or filt or interlace > 1:
+        raise ValueError(f"PNG: compression method {comp} / filter method {filt} / interlace method {interlace}")
+    if ctype == 3 and palette is None:
+        raise ValueError("PNG: a palette image without a PLTE chunk")
+    trns = None
+    if trns_body is not None:  # libpng ignores a tRNS chunk on a type with alpha, as PIL does
+        if ctype == 3:
+            trns = np.frombuffer(trns_body, np.uint8).copy()
+        elif ctype in (0, 2):
+            if len(trns_body) != (2 if ctype == 0 else 6):
+                raise ValueError(f"PNG: bad tRNS chunk of {len(trns_body)} bytes")
+            trns = np.frombuffer(trns_body, ">u2").astype(np.uint16)
+    C = CHANNELS[ctype]
+    bits = C * depth
+    bpp = max(1, bits // 8)
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"PNG: bad image data: {e}") from e
-    rows = unfilter(raw, H, W * C * nb, C * nb)
-    img = rows.view(">u2").astype(np.uint16) if nb == 2 else rows
-    return img.reshape(H, W) if C == 1 else img.reshape(H, W, C)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    if not interlace:
+        img = _unpack(unfilter(raw, H, (W * bits + 7) // 8, bpp), W, C, depth)
+    else:
+        img = np.zeros((H, W, C), dtype)
+        off = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = (W - x0 + dx - 1) // dx, (H - y0 + dy - 1) // dy
+            if pw <= 0 or ph <= 0:
+                continue
+            rb = (pw * bits + 7) // 8
+            n = ph * (rb + 1)
+            if off + n > len(raw):
+                raise ValueError(f"PNG: {len(raw)} bytes of image data, too few for the Adam7 passes")
+            img[y0::dy, x0::dx] = _unpack(unfilter(raw[off:off + n], ph, rb, bpp), pw, C, depth)
+            off += n
+        if off != len(raw):
+            raise ValueError(f"PNG: {len(raw)} bytes of image data, expected {off}")
+    img = img.astype(dtype, copy=False)
+    return PNGImage(img[..., 0] if C == 1 else img, depth, ctype, palette, trns)
+
+
+def expand(raw: PNGImage) -> np.ndarray:
+    """The samples libpng gives with the palette expanded to RGB, gray of
+    1, 2 or 4 bits scaled to 8, and tRNS expanded to an alpha channel
+    (png_set_palette_to_rgb, png_set_expand_gray_1_2_4_to_8,
+    png_set_tRNS_to_alpha)."""
+    s, depth, ctype, trns = raw.samples, raw.depth, raw.color_type, raw.trns
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)  # libpng's palette holds 256 entries, zero past PLTE's
+        pal[:len(raw.palette)] = raw.palette
+        rgb = pal[s]
+        if trns is None:
+            return rgb
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:min(len(trns), 256)] = trns[:256]
+        return np.concatenate([rgb, alpha[s][..., None]], axis=-1)
+    top = 65535 if depth == 16 else 255
+    dtype = np.uint16 if depth == 16 else np.uint8
+    if ctype == 0:
+        out = (s * (255 // ((1 << depth) - 1))).astype(np.uint8) if depth < 8 else s
+        if trns is None:
+            return out
+        key = int(trns[0]) & ((1 << depth) - 1)
+        alpha = np.where(s == key, 0, top).astype(dtype)
+        return np.stack([out, alpha], axis=-1)
+    if ctype == 2 and trns is not None:
+        alpha = np.where((s == trns.astype(s.dtype)).all(-1), 0, top).astype(dtype)
+        return np.concatenate([s, alpha[..., None]], axis=-1)
+    return s
+
+
+def decode(data: bytes) -> np.ndarray:
+    """The samples of a PNG file's bytes as libpng expands them (`expand`):
+    (H, W) for gray, (H, W, C) with C = 2, 3 or 4 otherwise; uint8 or
+    uint16 by the bit depth."""
+    return expand(decode_raw(data))
 
 
 def read(path) -> np.ndarray:
     """`decode` of the file at `path`."""
     with open(path, "rb") as f:
         return decode(f.read())
+
+
+def read_raw(path) -> PNGImage:
+    """`decode_raw` of the file at `path`."""
+    with open(path, "rb") as f:
+        return decode_raw(f.read())
 
 
 def filter_rows(raw: np.ndarray, bpp: int, ftype: int) -> np.ndarray:
@@ -209,6 +317,50 @@ def encode(img, filter: int = 2, level: int = 6) -> bytes:
     ihdr = struct.pack(">IIBBBBB", W, H, 8 * nb, COLOR_TYPE[C], 0, 0, 0)
     body = zlib.compress(filter_rows(raw, C * nb, filter).tobytes(), level)
     return SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", body) + _chunk(b"IEND", b"")
+
+
+def encode_raw(samples, depth: int, color_type: int, palette=None, trns=None, interlace: bool = False,
+               level: int = 6) -> bytes:
+    """PNG bytes of stored samples of any colour type and bit depth
+    ((H, W) or (H, W, C), values below 2**depth), with a PLTE (N x 3 uint8)
+    and a tRNS body (the palette's alphas, or the transparent gray / RGB
+    value) when given, plain or Adam7-interlaced; every row unfiltered."""
+    s = np.asarray(samples)
+    if color_type not in CHANNELS or depth not in DEPTHS[color_type]:
+        raise ValueError(f"PNG: colour type {color_type} at {depth} bits")
+    C = CHANNELS[color_type]
+    s = s.reshape(s.shape[0], s.shape[1], C)
+    H, W = s.shape[:2]
+
+    def rows(img):
+        h, w = img.shape[:2]
+        flat = img.reshape(h, w * C)
+        if depth == 16:
+            body = flat.astype(">u2").view(np.uint8).reshape(h, -1)
+        elif depth == 8:
+            body = flat.astype(np.uint8)
+        else:
+            per = 8 // depth
+            pad = np.zeros((h, -(-w * C // per) * per), np.uint8)
+            pad[:, :w * C] = flat
+            shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+            body = (pad.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
+        return np.concatenate([np.zeros((h, 1), np.uint8), body], axis=1).tobytes()
+
+    if interlace:
+        raw = b"".join(rows(s[y0::dy, x0::dx]) for x0, y0, dx, dy in ADAM7
+                       if W > x0 and H > y0)
+    else:
+        raw = rows(s)
+    chunks = [_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color_type, 0, 0, int(interlace)))]
+    if palette is not None:
+        chunks.append(_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    if trns is not None:
+        body = (np.asarray(trns, np.uint8).tobytes() if color_type == 3
+                else np.asarray(trns, ">u2").reshape(-1).tobytes())
+        chunks.append(_chunk(b"tRNS", body))
+    chunks.append(_chunk(b"IDAT", zlib.compress(raw, level)))
+    return SIGNATURE + b"".join(chunks) + _chunk(b"IEND", b"")
 
 
 def write(path, img, filter: int = 2) -> None:

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of opencv_contrib_tpu_torch/, and
 not chip_smoke.py, imports JAX or the JAX package, nor PIL (the port reads
-and writes PNG with its own codec, utils/png.py).
+and writes PNG and JPEG with its own codecs, utils/png.py and utils/jpeg.py,
+and MJPG video through the latter).
 
 This walks the source with `ast` rather than checking `sys.modules`: the
 test process imports JAX anyway (the parity tests need it, and some Python
@@ -58,9 +59,12 @@ def test_port_has_its_files():
                  "parallel/submap_shard.py", "parallel/stage_pipeline.py", "parallel/dist_sfm.py",
                  "parallel/checkpoint.py", "ops/ccl.py", "ops/morphology.py", "ops/template_match.py",
                  "features/detect_x.py", "features/describe_x.py", "features/pct.py", "features/learned.py",
-                 "rgbd/linemod.py"):
+                 "rgbd/linemod.py", "utils/jpeg.py", "utils/video.py", "utils/cache.py", "utils/datasets2.py",
+                 "utils/datasets3.py", "utils/datasets4.py", "quality/brisque_svr.py", "xphoto/artistic.py",
+                 "xphoto/bm3d.py", "xphoto/denoise.py", "xphoto/inpaint.py", "xphoto/learning_wb.py"):
         assert need in names
-    assert (PORT / "utils/csrc/unfilter.cpp").exists()
+    for src in ("unfilter.cpp", "jpeg.cpp"):
+        assert (PORT / "utils/csrc" / src).exists()
     for cu in ("reduce_vec.cu", "pyrdown.cu", "remap.cu", "transform.cu", "reduce.cu", "histogram.cu", "maps.cuh"):
         assert (PORT / "ops/cuda/csrc" / cu).exists()
     assert (ROOT / "chip_smoke.py").exists()
@@ -71,28 +75,35 @@ def test_port_has_its_files():
                                   "large_kinfu_track", "rgbd_odometry", "tum_kinfu", "dynafu_track", "DynaFu",
                                   "dense_flow_deepflow", "dense_flow_simpleflow", "dense_flow_sparse_to_dense",
                                   "dense_flow_rlof", "dense_flow_pcaflow", "dryrun_multichip", "make_mesh",
-                                  "features_x"])
+                                  "features_x", "video_photometric", "VideoReader", "train_brisque_model"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
     """Asked for "cuda" (their default) on a machine without a card, the
     frontend, keyframe, dense-flow, photometric and both SfM drivers' entry
     points, the hashed-block and large-scale KinFu, the RGB-D odometry, the
     TUM disk path, DynaFu, every dense-flow method, the multichip dryrun, a
-    mesh on "cuda" and the xfeatures2d pair path raise instead of running
-    on the CPU (a mesh drops neither to gloo nor to the CPU). (The TUM
-    loader decodes on the host and has no device path.)"""
+    mesh on "cuda", the xfeatures2d pair path, the video photometric path,
+    a VideoReader onto the card and the BRISQUE head's training raise
+    instead of running on the CPU (a mesh drops neither to gloo nor to the
+    CPU). (The TUM loader decodes on the host and has no device path.)"""
     import numpy as np
     import torch
 
     from opencv_contrib_tpu_torch import entry
     from opencv_contrib_tpu_torch.rgbd import dynafu, kinfu, odometry, submap
     from opencv_contrib_tpu_torch.parallel import mesh
+    from opencv_contrib_tpu_torch.quality import brisque_svr
     from opencv_contrib_tpu_torch.sfm import pipeline, pipeline_scale
+    from opencv_contrib_tpu_torch.utils import video
     from opencv_contrib_tpu_torch.utils.tum_export import write_tum_sequence
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if name == "tum_kinfu":
         root = tmp_path / "tum"
         write_tum_sequence(str(root), np.ones((2, 32, 48), np.float32), [np.eye(4)] * 2)
+    if name in ("video_photometric", "VideoReader"):
+        w = video.Y4MWriter(str(tmp_path / "v.y4m"), (48, 32))
+        w.write(np.zeros((32, 48, 3), np.float32))
+        w.release()
     img = np.zeros((32, 48), np.float32)
     intr = np.array([50.0, 50.0, 24.0, 16.0, 0, 0, 0, 0, 0], np.float32)
     call = {"frontend": lambda: entry.frontend(img, img, K=8),
@@ -119,7 +130,11 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
             "dense_flow_pcaflow": lambda: entry.dense_flow(img, img, "pcaflow", k=3),
             "dryrun_multichip": lambda: entry.dryrun_multichip(1),
             "make_mesh": lambda: mesh.make_mesh(device="cuda"),
-            "features_x": lambda: entry.features_x(img, img, "harris", "brief", K=8)}[name]
+            "features_x": lambda: entry.features_x(img, img, "harris", "brief", K=8),
+            "video_photometric": lambda: entry.video_photometric(str(tmp_path / "v.y4m"),
+                                                                 np.zeros((1, 32, 48, 3), np.float32)),
+            "VideoReader": lambda: video.VideoReader(str(tmp_path / "v.y4m")),
+            "train_brisque_model": lambda: brisque_svr.train_brisque_model(n_images=1)}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
