@@ -9,7 +9,8 @@ PyTorch version on the card, drives the port's main paths through the entry
 points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`,
 `entry.dense_flow`, `entry.photometric`, the two SfM drivers,
 `entry.hash_kinfu_track`, `entry.large_kinfu_track`, `entry.rgbd_odometry`,
-`entry.tum_kinfu`, `entry.dynafu_track`, `entry.dryrun_multichip`), and
+`entry.tum_kinfu`, `entry.dynafu_track`, `entry.dryrun_multichip`,
+`entry.features_x`, `entry.video_photometric`, `entry.ximgproc_frame`), and
 checks their outputs.
 
 Phases, one JSON line each:
@@ -167,7 +168,18 @@ Phases, one JSON line each:
       held-out severity gate, `dct_denoise` and BM3D raising PSNR at 1080 x
       1920, BM3D timed there with its peak memory and equal bits on a
       rerun; each xphoto function and the BRISQUE score at a small size on
-      the card against the CPU.
+      the card against the CPU;
+  (u) image structure (ximgproc, HFS, SWT): every method of
+      `entry.ximgproc_frame` on `entry.structure_frame()` (480 x 640: the JAX
+      tests' fixtures in one frame; graph segmentation and selective search
+      on the frame made at 240 x 320), each counted (one grid_transform, the
+      gray conversion, and no other kernel of ours), rerun bit-equal, with
+      ms, host syncs and peak memory, and one profiler window over all of
+      them (device ms, launches, the five costliest kernels); the learned
+      edge map trained on the card; the JAX tests' gates at VGA (ED lines
+      and circles, Hough, findEllipses, selective search, EdgeBoxes on the
+      learned map, SWT, FGS and the WLS filter); the port's CPU run of each
+      method against the card's.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -529,6 +541,36 @@ VIDEO_CPU_TOL = {"dct": 1e-5, "inpaint": 1e-6, "oil_share_off": 0.01, "wb": 1e-5
 BRISQUE_PER_FRAME = {"grid_transform": 10, "grid_reduce": 10}
 VIDEO_PER_FRAME = {k: n + BRISQUE_PER_FRAME.get(k, 0) for k, n in PHOTO_PER_FRAME.items()}
 PATH_KERNELS.update({path: PATH_KERNELS["photometric"] for path in VIDEO_CODECS.values()})
+
+
+XIMG_SHAPE = (480, 640)  # entry.structure_frame()'s VGA frame
+XIMG_MARKER = "FillFunctor<short>"  # the int16 fills that part phase u's calls in its profile
+# the host union-find of graph segmentation and selective search takes ~8 s a call at VGA on a host core (PERF.md
+# section 4): they run on the same frame made at half the size
+XIMG_CUT = {"graph_segment": (240, 320), "selective_search": (240, 320)}
+# the methods that answer label maps: a rerun on the card must give their bits again
+XIMG_LABELS = {"slic", "seeds", "lsc", "scan_segment", "hfs_segment", "graph_segment", "region_features",
+               "region_adjacency", "canny", "thinning", "niblack_threshold", "stroke_width_map"}
+# the learned edge map's training held card against CPU: both from init_params(seed 0) on the default scenes' first
+# XIMG_TRAIN["n_images"], for XIMG_TRAIN["steps"] Adam steps (the default model's 400 steps on 40 scenes take
+# minutes on the host); the parameters by their largest difference, the VGA frame's maps by theirs
+XIMG_TRAIN = {"n_images": 8, "steps": 20}
+XIMG_TRAIN_TOL = {"params": 2e-5, "map": 1e-6}  # readings 3.2e-6 and 1.5e-7 on the H100 (PERF.md section 6)
+# the card against the port's CPU run: float maps by their largest difference over the CPU's range; masks and label
+# maps by the share of pixels that differ (the card's one-hot sums and the CPU's ordered sums round apart, which
+# can flip a near-tie); host arrays (boxes, lines, circles) by shape and largest difference (px)
+XIMG_CPU_TOL = {"default": {"rel": 1e-4, "px_off": 1e-3, "mask_off": 1e-3, "labels_off": 2e-3, "shape_off": 0.0,
+                             "host_abs": 0.5},
+                # second differences of a blurred frame: the blur's taps (exp on each device) part by an ulp, which
+                # the Hessian amplifies (1.2e-3 of the range on the H100)
+                "ridge_filter": {"rel": 1e-2},
+                # the NMS and the Hough bins: a near-tie flips a pixel or moves a vote to the next bin (the largest
+                # difference is then a whole value: 5.3e-3 and 2.9e-3 of the range on the H100)
+                "structured_edges_lite": {"rel": 2e-2}, "fast_hough_lines": {"rel": 2e-2},
+                # the centres move with the labels that flip at near-ties: one centre of SLIC's 16 (2 of 32
+                # entries) and of LSC's 64 (9 of 640 entries), by 1.8e-4 and 2.9e-4 of the range on the
+                # H100; at most two centres may move, by at most 2e-3 of the range
+                "slic": {"rel": 2e-3, "px_off": 4 / 32}, "lsc": {"rel": 2e-3, "px_off": 20 / 640}}
 
 
 def emit(obj) -> None:
@@ -4276,6 +4318,291 @@ class Smoke(Timer):
             check(v <= tol[k], f"{k} card vs CPU {v} > {tol[k]}")
         return out
 
+    # ---- (u) -----------------------------------------------------------------
+    def ximgproc(self):
+        """Phase u: every method of entry.ximgproc_frame on
+        entry.structure_frame() at VGA on the card (graph segmentation and
+        selective search on the frame at XIMG_CUT), the JAX tests' gates,
+        bit-equal reruns, the learned edge map trained on the card, one
+        profiler window over every method, and the port's CPU run of each
+        against the card's."""
+        from opencv_contrib_tpu_torch.ximgproc import edge_forest
+
+        torch, entry = self.torch, self.entry
+        t_all = time.perf_counter()
+        frames = {shape: entry.structure_frame(*shape) for shape in {XIMG_SHAPE, *XIMG_CUT.values()}}
+        on_card = {shape: (self.card(f.rgb), self.card(f.disparity)) for shape, f in frames.items()}
+        t0 = time.perf_counter()
+        params, train_s = self.wall_s(lambda: edge_forest.train(device=self.dev))
+        edge_forest._DEFAULT_PARAMS[str(self.dev)] = params
+        parts = {"edge_forest_train": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        train_check = self.ximg_train_check(edge_forest, self.card(frames[XIMG_SHAPE].rgb))
+        parts["edge_forest_train_vs_cpu"] = time.perf_counter() - t0
+
+        def call(m, dev=None):
+            shape = XIMG_CUT.get(m, XIMG_SHAPE)
+            if dev is None:
+                rgb, disp = on_card[shape]
+                return entry.ximgproc_frame(rgb, m, device=self.dev, disparity=disp)
+            f = frames[shape]
+            return entry.ximgproc_frame(f.rgb, m, device=dev, disparity=f.disparity)
+
+        t0 = time.perf_counter()
+        runs, outs = {}, {}
+        for m in entry.METHODS:
+            self.kern.reset_launches()
+            (out, s1), peak = self.peak_gb(lambda: self.wall_s(lambda: call(m)))
+            launches = {k: v for k, v in self.kern.launches().items() if v}
+            check(launches == {"grid_transform": 1}, f"ximgproc {m}: kernel launches {launches}, expected the "
+                                                     f"gray conversion's one grid_transform")
+            with self.sync_log() as got:
+                again, s2 = self.wall_s(lambda: call(m))
+            syncs = self.sync_summary(got)
+            same = self.ximg_equal(out, again)
+            check(same or m not in XIMG_LABELS, f"ximgproc {m}: a rerun gave another label map")
+            outs[m] = out
+            runs[m] = {"shape": list(XIMG_CUT.get(m, XIMG_SHAPE)), "ms_first": s1 * 1e3, "ms": s2 * 1e3,
+                       "peak_mem_gb": peak, "host_syncs": syncs["total"], "host_syncs_in_port": syncs["in_the_port"],
+                       "sync_sites": syncs["top_sites"], "rerun_bit_equal": same, "grid_transform_launches": 1}
+        parts["card_runs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prof = self.ximg_profile({m: (lambda m=m: call(m)) for m in entry.METHODS})
+        for m, row in prof.items():
+            top = sorted(row["kernels"].items(), key=lambda kv: -kv[1][1])[:5]
+            runs[m].update(device_ms=row["device_ms"], device_launches=row["launches"],
+                           costliest={k[:80]: [n, ms] for k, (n, ms) in top})
+        parts["profile"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gates = self.ximg_gates(outs, frames)
+        parts["gates"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        edge_forest._DEFAULT_PARAMS["cpu"] = {k: v.cpu() for k, v in params.items()}  # the card's model on the CPU
+        cpu, beyond = {}, {}
+        for m in entry.METHODS:
+            d = self.ximg_diff(outs[m], call(m, dev="cpu"))
+            tol = {**XIMG_CPU_TOL["default"], **XIMG_CPU_TOL.get(m, {})}
+            cpu[m] = {k: v for k, v in d.items() if v}
+            if any(d[k] > tol[k] for k in d):
+                beyond[m] = cpu[m]
+        parts["card_vs_cpu"] = time.perf_counter() - t0
+        if any(train_check[k] > XIMG_TRAIN_TOL[k] for k in XIMG_TRAIN_TOL):
+            beyond["edge_forest_train"] = train_check
+        ok = not beyond
+        emit({"phase": "u_ximgproc", "ok": ok, "card_vs_cpu_beyond_tolerance": beyond, "frame": list(XIMG_SHAPE),
+              "cut": {m: list(s) for m, s in XIMG_CUT.items()},
+              "edge_forest_train_s": train_s, "edge_forest_train_vs_cpu": train_check, "methods": runs, "gates": gates, "card_vs_cpu": cpu,
+              "rerun_bit_equal_all": all(r["rerun_bit_equal"] for r in runs.values()),
+              "phase_parts_s": parts, "phase_s": time.perf_counter() - t_all,
+              "tolerance": f"launches: one grid_transform (the gray conversion) a call, no other kernel of ours; "
+                           f"label maps {sorted(XIMG_LABELS)} bit-equal on a rerun; gates: the JAX tests' at VGA "
+                           f"(ximg_gates); card vs CPU: {XIMG_CPU_TOL}; training card vs CPU {XIMG_TRAIN} "
+                           f"within {XIMG_TRAIN_TOL}",
+              "timing": "ms: host clock around a synchronised warm call (ms_first: the first call); device_ms and "
+                        "device_launches: one profiler window over every method (raw kineto events, kernels joined "
+                        "to record_function spans); peak_mem_gb: the first call's peak above what was held"})
+        check(ok, f"ximgproc card vs CPU beyond tolerance: {beyond}")
+
+    def ximg_train_check(self, edge_forest, rgb) -> dict:
+        """The edge MLP trained on the card and on the CPU from the same
+        initial draws and scenes (XIMG_TRAIN): the largest difference of the
+        parameters and of the maps they give on the frame's gray."""
+        from opencv_contrib_tpu_torch.core.color import rgb_to_gray
+
+        torch = self.torch
+        card = edge_forest.train(device=self.dev, **XIMG_TRAIN)
+        host = edge_forest.train(device="cpu", **XIMG_TRAIN)
+        gray = rgb_to_gray(rgb)
+        maps = [edge_forest.structured_edges(gray, card).cpu(), edge_forest.structured_edges(gray.cpu(), host)]
+        return {"params": max(float((card[k].cpu() - host[k]).abs().max()) for k in host),
+                "moved": min(float((host[k] - v).abs().max()) for k, v in edge_forest.init_params(
+                    host["W1"].shape[0], host["W1"].shape[1]).items()),
+                "map": float((maps[0] - maps[1]).abs().max())}
+
+    def ximg_profile(self, calls: dict) -> dict:
+        """Device ms, launches and kernels of each call in `calls`, from one
+        profiler window of device activity only: the calls run in order on
+        one stream, each after two int16 fills (XIMG_MARKER) that no call
+        launches, so the kernels between two groups of fills are one call's.
+        Recording the host's ops too cost ~50 s for phase u's ~300,000
+        launches on the H100); the window opens with DIST_MARKERS uint8
+        fills, as every late window here does (a trace drops its first
+        events). Returns {name: {device_ms, launches, kernels}}."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        if self.marker is None:
+            self.marker = torch.empty(16, dtype=torch.uint8, device=self.dev)
+        sep = torch.empty(16, dtype=torch.int16, device=self.dev)
+        names = list(calls)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(WINDOW_PAD_S)
+            for _ in range(DIST_MARKERS):
+                self.marker.zero_()
+            for name in names:
+                sep.zero_()
+                sep.zero_()
+                calls[name]()
+            sep.zero_()
+            torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
+        events = sorted((e.start_ns(), e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA)
+        rows, cur, prev_sep = [], None, False
+        for _, name, dur in events:
+            if XIMG_MARKER in name:
+                if not prev_sep:
+                    cur = {"device_ms": 0.0, "launches": 0, "kernels": {}}
+                    rows.append(cur)
+                prev_sep = True
+                continue
+            prev_sep = False
+            if cur is None or FLUSH_KERNEL in name:
+                continue
+            cur["device_ms"] += dur / 1e6
+            cur["launches"] += 1
+            k = cur["kernels"].setdefault(name, [0, 0.0])
+            k[0] += 1
+            k[1] += dur / 1e6
+        check(len(rows) == len(names) + 1, f"profile: {len(rows)} marker groups for {len(names)} calls")
+        return dict(zip(names, rows))
+
+    @staticmethod
+    def _leaves(x):
+        return list(x) if isinstance(x, tuple) else [x]
+
+    def ximg_equal(self, a, b) -> bool:
+        """Two results of one method hold the same bits."""
+        for u, v in zip(self._leaves(a), self._leaves(b)):
+            if isinstance(u, self.torch.Tensor):
+                if not self.torch.equal(u, v):
+                    return False
+            elif not np.array_equal(np.asarray(u), np.asarray(v)):
+                return False
+        return True
+
+    def ximg_diff(self, card, host) -> dict:
+        """How a card result parts from the CPU's: float tensors by their
+        largest difference relative to the CPU's range (`rel`) and the share
+        of entries that differ by more than 1e-4 of it (`px_off`), boolean masks
+        by the share of pixels that differ (`mask_off`), integer label maps by
+        the share of pixels whose labels differ (`labels_off`), host arrays
+        (boxes, lines, circles, regions) by whether their shapes agree
+        (`shape_off`) and their largest difference (`host_abs`)."""
+        torch = self.torch
+        out = {"rel": 0.0, "px_off": 0.0, "mask_off": 0.0, "labels_off": 0.0, "shape_off": 0.0, "host_abs": 0.0}
+        for u, v in zip(self._leaves(card), self._leaves(host)):
+            if isinstance(u, torch.Tensor):
+                u = u.cpu()
+                if u.dtype == torch.bool:
+                    out["mask_off"] = max(out["mask_off"], float((u != v).float().mean()))
+                elif u.is_floating_point():
+                    scale = max(float(v.max() - v.min()) if v.numel() else 0.0, 1e-6)
+                    d = (u - v).abs()
+                    out["rel"] = max(out["rel"], float(d.max()) / scale if u.numel() else 0.0)
+                    out["px_off"] = max(out["px_off"], float((d > 1e-4 * scale).float().mean()) if u.numel() else 0.0)
+                else:
+                    out["labels_off"] = max(out["labels_off"], float((u != v).float().mean()))
+            else:
+                u, v = np.asarray(u), np.asarray(v)
+                if u.shape != v.shape:
+                    out["shape_off"] = 1.0
+                elif u.ndim == 2 and u.dtype.kind in "iu" and u.shape[0] > 16:
+                    out["labels_off"] = max(out["labels_off"], float((u != v).mean()))
+                elif u.size:
+                    out["host_abs"] = max(out["host_abs"], float(np.abs(u.astype(np.float64) - v).max()))
+        return out
+
+    def ximg_gates(self, outs, frames) -> dict:
+        """The JAX tests' gates on the VGA frame (selective search on the cut
+        frame): ED lines, ED circles, Hough lines, findEllipses, selective
+        search, EdgeBoxes on the learned map, SWT, FGS and the WLS filter."""
+        from opencv_contrib_tpu_torch.core.color import rgb_to_gray
+
+        f = frames[XIMG_SHAPE]
+        L = f.layout
+        out = {}
+        # ED lines: the band edge and both sides of the bar (tests/test_ximgproc2.py::test_ed_lines_finds_segments)
+        lines = outs["ed_lines"]
+        dy, dx = np.abs(lines[:, 2] - lines[:, 0]), np.abs(lines[:, 3] - lines[:, 1])
+        horiz = (dx > 5 * dy) & (np.abs((lines[:, 0] + lines[:, 2]) / 2 - (L["band"] - 0.5)) < 2.0)
+        ly0, lx0, ly1, lx1 = L["line"]
+        xm = (lines[:, 1] + lines[:, 3]) / 2
+        vert = [(dy > 5 * dx) & (np.abs(xm - x) < 2.0) & (lines[:, 4] < 1.0) for x in (lx0 - 0.5, lx1 + 0.5)]
+        check(horiz.any() and all(v.any() for v in vert), f"ED lines: the band edge {horiz.any()}, the bar's sides "
+                                                          f"{[bool(v.any()) for v in vert]} in {lines.tolist()}")
+        out["ed_lines"] = {"n": int(lines.shape[0]), "band_edge": lines[horiz][0].tolist(),
+                           "bar_sides": [lines[v][0].tolist() for v in vert]}
+        # ED circles: the disc found, no large circle on the band edge or the bar (the JAX test's line)
+        circ = outs["ed_circles"]
+        cy, cx, r = L["circle"]
+        near = np.hypot(circ[:, 0] - cy, circ[:, 1] - cx) < 2
+        best = circ[near][np.argmin(np.abs(circ[near, 2] - r))] if near.any() else None
+        on_line = (((np.abs(circ[:, 1] - (lx0 + lx1) / 2) < 3) & (circ[:, 0] > ly0) & (circ[:, 0] < ly1))
+                   | (np.abs(circ[:, 0] - L["band"]) < 3)) & (circ[:, 2] > 20)
+        check(best is not None and abs(best[2] - r) < 2 and not on_line.any(), f"ED circles {circ.tolist()}")
+        out["ed_circles"] = {"n": int(circ.shape[0]), "disc": best.tolist()}
+        # Hough: the band edge is the accumulator's peak (tests/test_ximgproc.py::test_hough_finds_line)
+        acc, th, rho = (v.cpu().numpy() for v in outs["fast_hough_lines"])
+        ai, ri = np.unravel_index(acc.argmax(), acc.shape)
+        bin_w = rho[1] - rho[0]
+        check(abs(th[ai] - np.pi / 2) < 0.1 and abs(rho[ri] - L["band"]) <= bin_w,
+              f"Hough peak theta {th[ai]}, rho {rho[ri]} (band at {L['band']}, bin {bin_w})")
+        out["hough_lines"] = {"theta": float(th[ai]), "rho": float(rho[ri]), "votes": float(acc.max())}
+        # findEllipses (tests/test_ximgproc3.py::TestFindEllipses)
+        ells, scores = (v.cpu().numpy() for v in outs["find_ellipses"])
+        ecx, ecy, ea, eb = L["ellipse"]
+        e = ells[scores.argmax()]
+        check(scores.max() > 0.5 and abs(e[0] - ecx) < 3 and abs(e[1] - ecy) < 3 and abs(max(e[2:4]) - ea) < 4
+              and abs(min(e[2:4]) - eb) < 4, f"findEllipses {ells.tolist()} scores {scores.tolist()}")
+        out["find_ellipses"] = {"ellipse": e.tolist(), "score": float(scores.max())}
+        # selective search covers the object (tests/test_ximgproc2.py::test_selective_search_covers_object)
+        gt = np.array(frames[XIMG_CUT["selective_search"]].layout["box"])
+        best_iou = 0.0
+        for p in outs["selective_search"]:
+            y0, x0, y1, x1 = max(p[0], gt[0]), max(p[1], gt[1]), min(p[2], gt[2]), min(p[3], gt[3])
+            inter = max(y1 - y0 + 1, 0) * max(x1 - x0 + 1, 0)
+            union = (p[2] - p[0] + 1) * (p[3] - p[1] + 1) + (gt[2] - gt[0] + 1) * (gt[3] - gt[1] + 1) - inter
+            best_iou = max(best_iou, inter / union)
+        check(best_iou > 0.5, f"selective search: best IoU {best_iou}")
+        out["selective_search"] = {"proposals": len(outs["selective_search"]), "best_iou": best_iou}
+        # EdgeBoxes on the learned map prefers the tight box (tests/test_ximgproc2.py::test_edge_boxes_prefers_...)
+        s = outs["edge_boxes"]
+        check(s[0] > s[1] and s[0] > s[2], f"EdgeBoxes scores {s.tolist()} (tight, empty, inside)")
+        out["edge_boxes"] = s.tolist()
+        # SWT groups the glyph bars into one line (tests/test_text.py::test_detect_groups_letters_into_line)
+        boxes, letters = outs["detect_text"]
+        gy0, gy1, gxs, stroke = L["glyphs"]
+        check(boxes.shape[0] >= 1 and letters.shape[0] >= 3, f"SWT boxes {boxes.tolist()}, letters {letters.shape}")
+        b = boxes[np.argmax(boxes[:, 3] - boxes[:, 1])]
+        check(b[0] <= gy0 + 2 and b[2] >= gy1 - 4 and b[1] <= gxs[0] + 3 and b[3] >= gxs[-1] - 2,
+              f"SWT word box {b.tolist()} against the glyphs {L['text']}")
+        out["detect_text"] = {"box": b.tolist(), "letters": int(letters.shape[0])}
+        # FGS and the WLS filter smooth but keep the edge (tests/test_ximgproc3.py::TestFGS, TestDisparityWLS)
+        gray = rgb_to_gray(self.card(f.rgb)).cpu().numpy()
+        fgs = outs["fast_global_smoother"].cpu().numpy()
+        band = L["band"]
+        flat = (slice(200, 280), slice(150, 500))  # a patch of the upper band with no element
+        step_in, step_out = (float(x[band + 10:band + 20, :300].mean() - x[band - 20:band - 10, :300].mean())
+                             for x in (gray, fgs))
+        check(fgs[flat].std() < 0.5 * gray[flat].std() and step_out > 0.8 * step_in,
+              f"FGS: flat std {fgs[flat].std()} of {gray[flat].std()}, step {step_out} of {step_in}")
+        wls, conf = (v.cpu().numpy() for v in outs["disparity_wls_filter"])
+        dl = f.disparity[0]
+        holes = dl == 0
+        upper = np.zeros_like(holes)
+        upper[:band - 10] = True
+        err_holes = float(np.abs(wls[holes & upper] - 8.0).max())
+        wls_step = float(wls[band + 10:band + 20].mean() - wls[band - 20:band - 10].mean())
+        check(err_holes < 0.5 and wls[flat].std() < 0.1 and wls_step > 3.0,
+              f"WLS: hole error {err_holes}, flat std {wls[flat].std()}, step {wls_step}")
+        out["fgs"] = {"flat_std": [float(gray[flat].std()), float(fgs[flat].std())], "step": [step_in, step_out]}
+        out["wls"] = {"hole_err_upper_band": err_holes, "flat_std": float(wls[flat].std()), "step": wls_step,
+                      "conf_mean": float(conf.mean())}
+        return out
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -4304,7 +4631,7 @@ def main() -> int:
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
                   smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
                   smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd,
-                  smoke.remainder, smoke.distributed, smoke.xfeatures, smoke.video):
+                  smoke.remainder, smoke.distributed, smoke.xfeatures, smoke.video, smoke.ximgproc):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -41,6 +41,12 @@
   Hamming) and match with the cross-checked ratio test; `feature_pair()`
   makes a textured VGA frame, the frame rotated by 15 degrees about its
   centre, and the map between them.
+- `ximgproc_frame(img, method)`: one image-structure method (ximgproc, HFS,
+  SWT: edge-aware smoothing of images and disparity, superpixels,
+  segmentations and proposals, the learned edge map, lines, circles,
+  ellipses, MSER, text boxes) on a frame, with the settings of the JAX test
+  that gates it (`METHODS`); `structure_frame()` makes a VGA frame holding
+  those tests' fixtures, with a disparity pair.
 - `sfm.pipeline.reconstruct_incremental(tracks, intr)`: the incremental SfM
   driver; `sfm_scene()` makes its 100-view x 900-track synthetic scene.
 - `sfm.pipeline_scale.reconstruct_sequential(tracks, intr)`: the sequential
@@ -64,7 +70,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from opencv_contrib_tpu_torch import quality, xphoto
+from opencv_contrib_tpu_torch import hfs, quality, ximgproc, xphoto  # noqa: I001
 from opencv_contrib_tpu_torch.ba import bundle
 from opencv_contrib_tpu_torch.core import camera as cam
 from opencv_contrib_tpu_torch.core import se3
@@ -85,9 +91,11 @@ from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_sequence_scene, reconstruct_sequential
 from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
 from opencv_contrib_tpu_torch.utils import datasets, metrics, native, video
-from opencv_contrib_tpu_torch.utils.device import resolve
+from opencv_contrib_tpu_torch.utils.device import constant, resolve
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
 from opencv_contrib_tpu_torch.utils.synthetic import SequenceScene, generate_scene, generate_sequence_scene
+from opencv_contrib_tpu_torch.text import swt
+from opencv_contrib_tpu_torch.ximgproc import edge_forest, hough_mser
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -568,6 +576,247 @@ def features_x(img1, img2, detector: str = "fast_hessian", descriptor: str = "su
     d1, d2 = (fn(img, k)[1] if binary else fn(img, k) for img, k in ((img1, k1), (img2, k2)))
     m = match.ratio_test_match(d1, d2, k1.valid, k2.valid, ratio=RATIO, metric="hamming" if binary else "l2")
     return FeaturesX(k1, k2, d1, d2, m)
+
+
+STRUCTURE_SHAPE = (480, 640)
+
+
+def structure_layout(H: int = 480, W: int = 640) -> dict:
+    """Where `structure_frame` puts each element, in pixels, at any size
+    (the VGA layout scaled by H / 480 and W / 640):
+    - band: the row y where the dark upper band (0.1) meets the striped
+      lower band (0.8), a straight step edge across the whole frame;
+    - box: the bright (0.95) rectangular object [y0, x0, y1, x1], inclusive;
+    - ellipse: the bright ring's (cx, cy, a, b), a along x (the JAX test's
+      ring: its size and tent profile 1 - 4 |r - 1|);
+    - circle: the bright (0.9) disc's (cy, cx, r) (the ED circles test's);
+    - line: the bright (0.95) vertical bar [y0, x0, y1, x1] whose ends fade
+      out over `fade` rows, so each of its sides is a straight edge of its
+      own;
+    - plate: the white text plate [y0, x0, y1, x1] in the lower band, and
+      glyphs: the dark bars' (y0, y1, x0s, stroke), the JAX text test's
+      'letters' (36 rows tall, 3 wide, 20 apart), their word box text;
+    - empty: a patch of the upper band with no edge (the EdgeBoxes test's
+      empty box).
+    The ring, the disc and the glyphs keep the JAX tests' sizes, which the
+    detectors' settings fix (Canny's thresholds on the ring's slope,
+    hough_circles' radii 8-24, SWT's max_width)."""
+    sy, sx = H / 480.0, W / 640.0
+    s = min(sy, sx)
+    band = int(round(300 * sy))
+    glyph_x = [int(round(x * sx)) for x in (420, 440, 460, 480)]
+    stroke = max(1, int(round(3 * s)))
+    gy0, gy1 = int(round(360 * sy)), int(round(396 * sy))
+    return {"band": band,
+            "box": [int(round(60 * sy)), int(round(40 * sx)), int(round(155 * sy)), int(round(135 * sx))],
+            "ellipse": (260.0 * sx, 150.0 * sy, 30.0 * s, 18.0 * s),
+            "circle": (150.0 * sy, 420.0 * sx, 15.0 * s),
+            "line": [int(round(40 * sy)), int(round(560 * sx)), int(round(259 * sy)), int(round(565 * sx))],
+            "fade": max(2, int(round(40 * sy))),
+            "plate": [int(round(330 * sy)), int(round(380 * sx)), int(round(439 * sy)), int(round(619 * sx))],
+            "glyphs": (gy0, gy1, glyph_x, stroke),
+            "text": [gy0, glyph_x[0], gy1 - 1, glyph_x[-1] + stroke - 1],
+            "empty": [int(round(175 * sy)), int(round(40 * sx)), int(round(270 * sy)), int(round(135 * sx))]}
+
+
+class StructureFrame(NamedTuple):
+    rgb: np.ndarray  # (H, W, 3) float32 in [0, 1]
+    disparity: np.ndarray  # (2, H, W) float32: left (holes 0) and right, positive magnitudes in pixels
+    layout: dict  # structure_layout(H, W)
+
+
+def structure_frame(H: int = 480, W: int = 640, seed: int = 0) -> StructureFrame:
+    """An RGB frame for the image-structure path (`ximgproc_frame`), float32
+    in [0, 1], with a disparity pair: the JAX tests' fixtures of
+    tests/test_ximgproc*.py, tests/test_text.py and the HFS test placed in
+    one VGA frame (`structure_layout` gives every element's place):
+    piecewise-constant regions (a dark upper band, a bright lower band of
+    0.03 stripes) with N(0, 0.01) texture, the bright rectangular object of the
+    selective-search and EdgeBoxes tests, a straight band edge and a
+    vertical bar with faded ends (ED lines, Hough), a disc (ED circles,
+    Hough circles), the ellipse ring of the findEllipses test, and a white
+    plate with the text test's four dark glyph bars. The colour is a tint
+    of the gray scene (the object and the plate keep their colour's gray).
+
+    The disparity is piecewise constant: 8 px in the upper band, 14 px on
+    the object, 20 px on the disc, and 12 to 30 px down the lower band (a
+    floor), the right map forward-warped from the left (nearer wins); the
+    left map has 12 square holes of 0. Returns StructureFrame(rgb,
+    disparity, layout), numpy."""
+    L = structure_layout(H, W)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    band = L["band"]
+    g = np.where(yy < band, 0.1, 0.8 + 0.03 * np.sin(2 * np.pi * xx / 6.0)).astype(np.float32)
+    y0, x0, y1, x1 = L["box"]
+    g[y0:y1 + 1, x0:x1 + 1] = 0.95
+    cx, cy, a, b = L["ellipse"]
+    ring = np.clip(1.0 - np.abs(((xx - cx) / a) ** 2 + ((yy - cy) / b) ** 2 - 1.0) * 4.0, 0, 1)
+    g = np.maximum(g, ring.astype(np.float32))
+    ccy, ccx, r = L["circle"]
+    disc = (yy - ccy) ** 2 + (xx - ccx) ** 2 <= r * r
+    g[disc] = 0.9
+    ly0, lx0, ly1, lx1 = L["line"]
+    fade = L["fade"]
+    t = np.clip(np.minimum(yy - ly0, ly1 - yy) / fade, 0.0, 1.0)
+    on_bar = (xx >= lx0) & (xx <= lx1) & (yy >= ly0) & (yy <= ly1)
+    g = np.where(on_bar, 0.1 + 0.85 * t, g).astype(np.float32)
+    py0, px0, py1, px1 = L["plate"]
+    g[py0:py1 + 1, px0:px1 + 1] = 1.0
+    gy0, gy1, gxs, stroke = L["glyphs"]
+    for gx in gxs:
+        g[gy0:gy1, gx:gx + stroke] = 0.0
+    g = np.clip(g + rng.normal(0, 0.01, g.shape).astype(np.float32), 0.0, 1.0)
+    tint = np.array([1.0, 0.97, 0.9], np.float32)
+    rgb = np.clip(g[..., None] * tint / np.float32(tint @ np.array([0.299, 0.587, 0.114], np.float32)), 0, 1)
+
+    dl = np.where(yy < band, 8.0, 12.0 + 18.0 * (yy - band) / max(H - band, 1)).astype(np.float32)
+    dl[y0:y1 + 1, x0:x1 + 1] = 14.0
+    dl[disc] = 20.0
+    dr = np.zeros_like(dl)
+    for yi in range(H):  # forward warp x -> x - d, the nearer (larger d) winning
+        xs = np.round(np.arange(W) - dl[yi]).astype(np.int64)
+        ok = xs >= 0
+        order = np.argsort(dl[yi][ok], kind="stable")
+        dr[yi, xs[ok][order]] = dl[yi][ok][order]
+    hs = max(2, int(round(8 * min(H / 480.0, W / 640.0))))
+    for hy, hx in zip(rng.integers(0, H - hs, 12), rng.integers(0, W - hs, 12)):
+        dl[hy:hy + hs, hx:hx + hs] = 0.0
+    return StructureFrame(rgb.astype(np.float32), np.stack([dl, dr]), L)
+
+
+class _XFrame(NamedTuple):
+    """What an ximgproc_frame method reads: the frame on the device."""
+    gray: torch.Tensor
+    rgb: torch.Tensor
+    disparity: torch.Tensor | None
+    layout: dict
+
+
+def _ellipse_points(layout: dict, n: int, device) -> torch.Tensor:
+    cx, cy, a, b = layout["ellipse"]
+    t = torch.arange(n, dtype=torch.float32, device=device) * (2 * np.pi / n)
+    return torch.stack([cy + b * torch.sin(t), cx + a * torch.cos(t)], 1)  # (n, 2) y, x
+
+
+def _ellipse_conic(layout: dict, device) -> torch.Tensor:
+    cx, cy, a, b = layout["ellipse"]
+    # (x - cx)^2 / a^2 + (y - cy)^2 / b^2 - 1 = 0
+    return constant([1 / a ** 2, 0.0, 1 / b ** 2, -2 * cx / a ** 2, -2 * cy / b ** 2,
+                     cx ** 2 / a ** 2 + cy ** 2 / b ** 2 - 1.0], device)
+
+
+def _needs_disparity(f: _XFrame) -> torch.Tensor:
+    if f.disparity is None:
+        raise ValueError("ximgproc_frame: this method filters a disparity pair: pass disparity=(2, H, W)")
+    return f.disparity
+
+
+def _edge_box_candidates(layout: dict) -> np.ndarray:
+    """The EdgeBoxes test's three boxes: tight around the object's edges,
+    the layout's empty patch, strictly inside the object."""
+    y0, x0, y1, x1 = layout["box"]
+    h, w = y1 - y0, x1 - x0
+    return np.array([[y0 - 2, x0 - 2, y1 + 2, x1 + 2], layout["empty"],
+                     [y0 + h // 3, x0 + w // 3, y1 - h // 3, x1 - w // 3]])
+
+
+def _color_template(f: _XFrame) -> torch.Tensor:
+    """The colour-match test's template: a patch of the frame (the object's
+    upper-left corner with the band around it)."""
+    y0, x0, _, _ = f.layout["box"]
+    h = max(4, (f.layout["box"][2] - y0) // 3)
+    return f.rgb[y0 - h // 2:y0 + h // 2, x0 - h // 2:x0 + h // 2].clone()
+
+
+# each method: (call on the frame, the settings of the JAX test that gates it)
+METHODS = {
+    "anisotropic_diffusion": (lambda f, **k: ximgproc.anisotropic_diffusion(f.gray, **k), {"n_iters": 30}),
+    "rolling_guidance_filter": (lambda f, **k: ximgproc.rolling_guidance_filter(f.gray, **k),
+                                {"sigma_s": 2.0, "sigma_r": 0.2}),
+    "dt_filter": (lambda f, **k: ximgproc.dt_filter(f.gray, f.gray, **k), {"sigma_s": 10.0, "sigma_r": 0.15}),
+    "niblack_threshold": (lambda f, **k: ximgproc.niblack_threshold(f.gray, **k), {"block_radius": 5}),
+    "ridge_filter": (lambda f, **k: ximgproc.ridge_filter(f.gray, **k), {"sigma": 1.5}),
+    "fast_global_smoother": (lambda f, **k: ximgproc.fast_global_smoother(f.gray, f.gray, **k),
+                             {"lam": 64.0, "sigma_color": 0.1}),
+    "disparity_wls_filter": (lambda f, **k: ximgproc.disparity_wls_filter(*_needs_disparity(f), f.gray, **k), {}),
+    "l0_smooth": (lambda f, **k: ximgproc.l0_smooth(f.gray, **k), {"lam": 0.02}),
+    "bilateral_texture_filter": (lambda f, **k: ximgproc.bilateral_texture_filter(f.gray, **k), {"fr": 2}),
+    "joint_bilateral_filter": (lambda f, **k: ximgproc.joint_bilateral_filter(f.gray, f.gray, **k),
+                               {"sigma_s": 2.0, "sigma_r": 0.2, "radius": 3}),
+    "weighted_median_filter": (lambda f, **k: ximgproc.weighted_median_filter(f.gray, f.gray, **k),
+                               {"radius": 3, "n_bins": 8}),
+    "deriche_gradient_x": (lambda f, **k: ximgproc.deriche_gradient_x(f.gray, **k), {"alpha": 1.5}),
+    "deriche_gradient_y": (lambda f, **k: ximgproc.deriche_gradient_y(f.gray, **k), {"alpha": 1.0}),
+    "paillou_gradient_x": (lambda f, **k: ximgproc.paillou_gradient_x(f.gray, **k), {"alpha": 1.0, "omega": 0.2}),
+    "paillou_gradient_y": (lambda f, **k: ximgproc.paillou_gradient_y(f.gray, **k), {"alpha": 1.0, "omega": 0.2}),
+    "edge_preserving_filter": (lambda f, **k: ximgproc.edge_preserving_filter(f.gray, **k),
+                               {"radius": 3, "threshold": 0.3}),
+    "adaptive_manifold_filter": (lambda f, **k: ximgproc.adaptive_manifold_filter(f.gray, f.gray, **k),
+                                 {"sigma_s": 8.0, "sigma_r": 0.3}),
+    "fast_bilateral_solver": (lambda f, **k: ximgproc.fast_bilateral_solver(f.gray, f.gray, torch.ones_like(f.gray),
+                                                                            **k), {"lam": 4.0, "radius": 2}),
+    "fourier_descriptors": (lambda f, **k: ximgproc.fourier_descriptors(_ellipse_points(f.layout, 64, f.gray.device),
+                                                                        **k), {}),
+    "radon_transform": (lambda f, **k: ximgproc.radon_transform(f.gray, **k), {"n_angles": 24}),
+    "peilin_normalization": (lambda f, **k: ximgproc.peilin_normalization(f.gray, **k), {}),
+    "color_match_template": (lambda f, **k: ximgproc.color_match_template(f.rgb, _color_template(f), **k), {}),
+    "covariance_estimation": (lambda f, **k: ximgproc.covariance_estimation(f.gray, **k), {"window": 5}),
+    "erode_fast": (lambda f, **k: ximgproc.erode_fast(f.gray, **k), {"radius_y": 3, "radius_x": 3}),
+    "dilate_fast": (lambda f, **k: ximgproc.dilate_fast(f.gray, **k), {"radius_y": 3, "radius_x": 3}),
+    "scan_segment": (lambda f, **k: ximgproc.scan_segment(f.gray, **k), {"n_superpixels": 32, "n_iters": 4}),
+    "find_ellipses": (lambda f, **k: ximgproc.find_ellipses(f.gray, **k), {"max_ellipses": 4, "min_pts": 20}),
+    "conic_to_ellipse": (lambda f, **k: ximgproc.conic_to_ellipse(_ellipse_conic(f.layout, f.gray.device), **k), {}),
+    "slic": (lambda f, **k: ximgproc.slic(f.gray, **k), {"grid": 4, "compactness": 0.5}),
+    "hfs_segment": (lambda f, **k: hfs.hfs_segment(f.gray, **k), {"grid": 8, "seg_thresh1": 0.3, "seg_thresh2": 0.6}),
+    "region_features": (lambda f, **k: hfs.region_features(f.gray, ximgproc.slic(f.gray, grid=8)[0], 64, **k), {}),
+    "region_adjacency": (lambda f, **k: hfs.region_adjacency(f.gray, ximgproc.slic(f.gray, grid=8)[0], 64, **k), {}),
+    "seeds": (lambda f, **k: ximgproc.seeds(f.gray, **k), {"grid": 8, "n_iters": 12}),
+    "lsc": (lambda f, **k: ximgproc.lsc(f.gray, **k), {"grid": 8}),
+    "graph_segment": (lambda f, **k: ximgproc.graph_segment(f.gray, **k), {"k": 0.5}),
+    "selective_search": (lambda f, **k: ximgproc.selective_search(f.gray, **k), {"base_k": 0.5, "max_proposals": 48}),
+    "edge_boxes": (lambda f, **k: ximgproc.edge_boxes(
+        f.gray, _edge_box_candidates(f.layout), edge_map=edge_forest.structured_edges(f.gray), **k), {}),
+    "structured_edges_lite": (lambda f, **k: ximgproc.structured_edges_lite(f.gray, **k), {}),
+    "fast_hough_lines": (lambda f, **k: ximgproc.fast_hough_lines(ximgproc.canny(f.gray), **k), {}),
+    "thinning": (lambda f, **k: ximgproc.thinning(f.gray > 0.85, **k), {"n_iters": 10}),
+    "structured_edges": (lambda f, **k: edge_forest.structured_edges(f.gray, **k), {}),
+    "edges_nms": (lambda f, **k: edge_forest.edges_nms(edge_forest.structured_edges(f.gray), f.gray, **k), {}),
+    "stroke_width_map": (lambda f, **k: swt.stroke_width_map(f.gray, **k), {"max_width": 16}),
+    "detect_text": (lambda f, **k: swt.detect_text(f.gray, **k), {"max_width": 16}),
+    "ed_lines": (lambda f, **k: ximgproc.ed_lines(f.gray, **k), {"min_length": 20}),
+    "ed_circles": (lambda f, **k: ximgproc.ed_circles(f.gray, **k), {"min_points": 16}),
+    "canny": (lambda f, **k: ximgproc.canny(f.gray, **k), {}),
+    "hough_circles_accumulator": (lambda f, **k: hough_mser.hough_circles_accumulator(f.gray, **k), {}),
+    "hough_circles": (lambda f, **k: ximgproc.hough_circles(f.gray, **k), {}),
+    "mser": (lambda f, **k: ximgproc.mser(f.gray, **k), {}),
+}
+
+
+@f32_matmuls
+def ximgproc_frame(img, method: str, device="cuda", disparity=None):
+    """One image-structure method on a frame: `method` one of METHODS, with
+    its settings there (the JAX test's that gates it). img (H, W, 3) RGB in
+    [0, 1] (gray by `core.color.rgb_to_gray`, one grid_transform launch) or
+    (H, W) gray; disparity (2, H, W), the left and right maps, for
+    "disparity_wls_filter". `structure_layout(H, W)` places the inputs that
+    a method takes besides the frame: the EdgeBoxes candidates, the colour
+    template, the Fourier contour and the conic. The learned edge map's model trains on
+    the device on first use. Tensors stay on `device`; the methods that
+    the JAX package answers in numpy (boxes, proposals, lines, circles,
+    regions, segment maps) answer in numpy."""
+    if method not in METHODS:
+        raise ValueError(f"ximgproc_frame: method must be one of {sorted(METHODS)}, got {method!r}")
+    dev = resolve(device)
+    x = _f32(img, dev)
+    if x.ndim == 3:
+        rgb, gray = x, rgb_to_gray(x)
+    else:
+        rgb, gray = x[..., None].expand(*x.shape, 3), x
+    H, W = gray.shape
+    disp = _f32(disparity, dev) if disparity is not None else None
+    fn, settings = METHODS[method]
+    return fn(_XFrame(gray, rgb, disp, structure_layout(H, W)), **settings)
 
 
 def sfm_scene(n_views: int = 100, n_points: int = 900, seed: int = 4, noise_px: float = 0.5,

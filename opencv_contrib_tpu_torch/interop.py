@@ -1,10 +1,12 @@
 """Carry state between the JAX package and this one as numpy arrays.
 
-The port's learned state is the trained BRISQUE head and the learning-based
-white balance's regressor. The head, `quality.brisque_svr.BrisqueModel`,
+The port's learned state is the trained BRISQUE head, the learning-based
+white balance's regressor and the learned edge map's MLP. The head, `quality.brisque_svr.BrisqueModel`,
 holds host numpy arrays in both packages and its npz (`save_model`,
 `load_model`) is the same file: it crosses as it is. The regressor,
-`xphoto.fit_wb_model`'s (F, 2) matrix, crosses by `wb_model`.
+`xphoto.fit_wb_model`'s (F, 2) matrix, crosses by `wb_model`. The edge
+map's MLP, `ximgproc.edge_forest.train`'s {"W1", "b1", "W2", "b2"}, crosses
+by `edge_forest_params`.
 
 The rest of the port's state is the NamedTuples (Keypoints,
 Matches, BAProblem, BAResult, the sparse BA's SparseBAProblem,
@@ -63,6 +65,28 @@ def wb_model(W, device="cpu") -> torch.Tensor:
     if a.ndim != 2 or a.shape[1] != 2:
         raise ValueError(f"a white-balance model is (F, 2), got {a.shape}")
     return torch.from_numpy(a.copy()).to(device)
+
+
+EDGE_FOREST_KEYS = ("W1", "b1", "W2", "b2")
+
+
+def edge_forest_params(params_np, device="cpu") -> dict:
+    """The learned edge map's parameters of either package (a dict of JAX
+    arrays, numpy or tensors under W1 (D, hidden), b1 (hidden,), W2
+    (hidden, 1), b2 (1,)) as this package's dict of float32 tensors on
+    `device`, for `ximgproc.edge_forest.structured_edges` or as `train`'s
+    initial parameters."""
+    if set(params_np) != set(EDGE_FOREST_KEYS):
+        raise ValueError(f"edge forest parameters are {EDGE_FOREST_KEYS}, got {sorted(params_np)}")
+    out = {}
+    for k in EDGE_FOREST_KEYS:
+        v = params_np[k]
+        out[k] = torch.from_numpy(np.array(v.detach().cpu() if isinstance(v, torch.Tensor) else v,
+                                           np.float32)).to(device)
+    D, hidden = out["W1"].shape
+    if out["b1"].shape != (hidden,) or out["W2"].shape != (hidden, 1) or out["b2"].shape != (1,):
+        raise ValueError(f"edge forest shapes {[tuple(out[k].shape) for k in EDGE_FOREST_KEYS]}")
+    return out
 
 
 def _is_namedtuple(x) -> bool:

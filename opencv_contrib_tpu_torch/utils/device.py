@@ -34,3 +34,11 @@ def to_device(x, device: torch.device) -> torch.Tensor:
     if d.device.type == "cpu" and device.type == "cuda":
         return d.pin_memory().to(device, non_blocking=True)
     return d.to(device)
+
+
+def as_float(x) -> torch.Tensor:
+    """x as float32: a tensor stays on its device; host data (numpy, lists)
+    becomes a CPU tensor, so a host array runs the plain CPU path."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32))

@@ -55,7 +55,11 @@ def test_slice_files_are_twins():
                 "features/describe.py", "features/detect.py", "features/match.py", "ops/filters.py",
                 "ops/image.py", "ops/integral.py", "utils/cache.py", "utils/video.py", "utils/datasets2.py",
                 "utils/datasets3.py", "utils/datasets4.py", "quality/brisque_svr.py", "xphoto/artistic.py",
-                "xphoto/bm3d.py", "xphoto/denoise.py", "xphoto/inpaint.py", "xphoto/learning_wb.py"):
+                "xphoto/bm3d.py", "xphoto/denoise.py", "xphoto/inpaint.py", "xphoto/learning_wb.py",
+                "ximgproc/filters_x.py", "ximgproc/filters_x2.py", "ximgproc/transforms_x.py", "ximgproc/fourier.py",
+                "ximgproc/slic.py", "hfs/segment.py", "ximgproc/superpixels_x.py", "ximgproc/segmentation.py",
+                "ximgproc/edges.py", "ximgproc/edge_forest.py", "text/swt.py", "ximgproc/edline.py",
+                "ximgproc/hough_mser.py"):
         assert rel in TWINS, rel
         assert rel not in ALLOWED, rel
 
