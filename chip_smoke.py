@@ -10,8 +10,8 @@ points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`,
 `entry.dense_flow`, `entry.photometric`, the two SfM drivers,
 `entry.hash_kinfu_track`, `entry.large_kinfu_track`, `entry.rgbd_odometry`,
 `entry.tum_kinfu`, `entry.dynafu_track`, `entry.dryrun_multichip`,
-`entry.features_x`, `entry.video_photometric`, `entry.ximgproc_frame`), and
-checks their outputs.
+`entry.features_x`, `entry.video_photometric`, `entry.ximgproc_frame`,
+`entry.geometry_x`), and checks their outputs.
 
 Phases, one JSON line each:
   (a) build and launch checks at small ragged shapes;
@@ -179,7 +179,16 @@ Phases, one JSON line each:
       edge map trained on the card; the JAX tests' gates at VGA (ED lines
       and circles, Hough, findEllipses, selective search, EdgeBoxes on the
       learned map, SWT, FGS and the WLS filter); the port's CPU run of each
-      method against the card's.
+      method against the card's;
+  (v) geometry and calibration: every method of `entry.geometry_x` on
+      `entry.geometry_scene()` (480 x 640: stereo at 64 disparities, Gray
+      code, PSP / FTP / FAPS and the DCT unwrap, reg's five models, ArUco /
+      ChArUco, the random pattern, omnidir calibration and undistortion,
+      RAPID, PPF with ICP, cloud ICP), each counted (knn2 on the random
+      pattern, pyrdown on the reg models, no other kernel of ours), rerun
+      bit-equal, with ms, host syncs and peak memory, and one profiler
+      window over all of them; the JAX tests' gates at VGA; the port's CPU
+      run of each method, in a process of its own, against the card's.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -571,6 +580,276 @@ XIMG_CPU_TOL = {"default": {"rel": 1e-4, "px_off": 1e-3, "mask_off": 1e-3, "labe
                 # entries) and of LSC's 64 (9 of 640 entries), by 1.8e-4 and 2.9e-4 of the range on the
                 # H100; at most two centres may move, by at most 2e-3 of the range
                 "slic": {"rel": 2e-3, "px_off": 4 / 32}, "lsc": {"rel": 2e-3, "px_off": 20 / 640}}
+
+
+# phase v: entry.geometry_x's methods (entry.GEOMETRY, checked) at VGA; the random pattern matches by knn2, the reg
+# models build their pyramids by pyrdown (levels - 1 launches an image); the rest launch no kernel of ours
+GEO_SHAPE = (480, 640)  # entry.geometry_scene()'s frame
+GEO_REG = ("shift", "euclidean", "similarity", "affine", "projective")
+GEO_METHODS = ("block_match", "sgm_match", "quasi_dense_stereo", "lr_consistency", "graycode", "psp", "ftp", "faps",
+               "unwrap_phase_dct", *(f"reg_{m}" for m in GEO_REG), "detect_markers", "interpolate_charuco_corners",
+               "estimate_pose_single_markers", "find_correspondences", "calibrate_omni", "calibrate_omni_fix_xi",
+               "undistort_image_omni", "rapid_track", "ppf", "cloud_icp")
+GEO_LAUNCHES = {"find_correspondences": {"knn2": 2}, **{f"reg_{m}": {"pyrdown": 4} for m in GEO_REG}}
+PATH_KERNELS.update({f"geometry_{m}": tuple(GEO_LAUNCHES.get(m, {})) for m in GEO_METHODS})
+GEO_CPU_THREADS = 4  # the CPU run's torch threads (a process of its own, beside the card's runs)
+# the card against the port's CPU run (geometry_diff): the stereo maps by the share of pixels that differ
+# (`off`), phases through angle(exp(i (a - b))) in rad, the unwrap and the omni undistortion by their largest
+# difference over their range (the undistortion's sample coordinates, ~600 px, round apart by ~1e-7 of them, which
+# the random pattern's slopes of up to ~0.3 a pixel carry into the samples: 1.2e-5 of the range on the H100,
+# PERF.md section 6; the bound is phase u's for float maps), the parameters, points and poses by their largest difference
+GEO_CPU_TOL = {"disparity_off": 5e-3, "phase_rad": 1e-4, "unwrap_rel": 2e-4, "reg_abs": 1e-4, "corner_px": 1e-3,
+               "pose_abs": 1e-4, "points_px": 1e-3, "omni_px": 0.01, "omni_rms_rel": 1e-4, "image_rel": 1e-4,
+               "ppf_pose_abs": 1e-4, "icp_err_abs": 1e-6}
+
+
+# ---- phase v: geometry and calibration ---------------------------------------------------------------------------
+
+
+def _geo_host(x):
+    """A geometry_x result with its tensors as numpy (tuples, lists kept)."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_geo_host(v) for v in x)
+    return x
+
+
+def _geo_equal(a, b) -> bool:
+    """Two results of one method hold the same bits."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_geo_equal(u, v) for u, v in zip(a, b))
+    if hasattr(a, "detach"):
+        import torch
+
+        return bool(torch.equal(a, b))
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and a.dtype == b.dtype and bool(np.array_equal(a, b))
+    return a == b
+
+
+def _same_draws(robust, torch):
+    """robust.sample_indices drawing from one CPU generator of seed 0, moved
+    to the data's device: the card and the CPU see the same samples
+    wherever they hold the same state."""
+    draw, gen = robust.sample_indices, torch.Generator().manual_seed(0)
+
+    def same(generator, n_points, mask, n_hypotheses, sample_size):
+        return draw(gen, n_points, mask.cpu(), n_hypotheses, sample_size).to(mask.device)
+
+    return mock.patch.object(robust, "sample_indices", same)
+
+
+def geometry_cpu_outputs(shape, threads: int) -> dict:
+    """Every entry.geometry_x method on entry.geometry_scene(*shape) on the
+    CPU, as numpy (phase v's CPU run, in a process of its own); the random
+    pattern on `_same_draws`."""
+    import torch
+
+    from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.mvg import robust
+
+    torch.set_num_threads(threads)
+    scene = entry.geometry_scene(*shape)
+    out = {}
+    for m in GEO_METHODS:
+        if m == "find_correspondences":
+            with _same_draws(robust, torch):
+                out[m] = _geo_host(entry.geometry_x(scene, m, device="cpu"))
+        else:
+            out[m] = _geo_host(entry.geometry_x(scene, m, device="cpu"))
+    return out
+
+
+def _wrapped(a, b) -> float:
+    return float(np.abs(np.angle(np.exp(1j * (np.asarray(a, np.float64) - b)))).max())
+
+
+def _omni_reprojected(res, scene):
+    """calibrate_omni's result reprojected: the board through every view's
+    pose and the calibrated K and xi (numpy, float64)."""
+    K, xi, Rs, ts, _ = res
+    out = []
+    for obj, R, t in zip(scene.omni_obj, Rs, ts):
+        Xc = obj.astype(np.float64) @ np.asarray(R, np.float64).T + t
+        s = Xc / np.linalg.norm(Xc, axis=-1, keepdims=True)
+        d = s[:, 2] + xi
+        out.append(np.stack([K[0, 0] * s[:, 0] / d + K[0, 2], K[1, 1] * s[:, 1] / d + K[1, 2]], -1))
+    return np.stack(out)
+
+
+def geometry_diff(method: str, card, host, scene) -> dict:
+    """How the card's result of one method (numpy, `_geo_host`) parts from
+    the CPU's, in the terms of GEO_CPU_TOL; returns the readings, each
+    beside its bound, and whether all hold."""
+    tol = GEO_CPU_TOL
+    r = {}
+    if method in ("block_match", "sgm_match", "quasi_dense_stereo", "lr_consistency"):
+        for i, (u, v) in enumerate(zip(card, host)):
+            r[f"off_{i}"] = (float((np.abs(u.astype(np.float64) - v) > 1e-3).mean()), tol["disparity_off"])
+    elif method == "graycode":
+        r["differ"] = (float(sum((u != v).mean() for u, v in zip(card, host))), 0.0)
+    elif method in ("psp", "ftp", "faps"):
+        u, v = (card[0], host[0]) if method == "psp" else (card, host)
+        r["rad"] = (_wrapped(u, v), tol["phase_rad"])
+        if method == "psp":
+            r["amp_abs"] = (float(np.abs(card[1] - host[1]).max()), 1e-5)
+    elif method == "unwrap_phase_dct":
+        r["rel"] = (float(np.abs((card - card.mean()) - (host - host.mean())).max() / np.ptp(host)), tol["unwrap_rel"])
+    elif method.startswith("reg_"):
+        r["abs"] = (float(np.abs(card - host).max()), tol["reg_abs"])
+    elif method == "detect_markers":
+        r["ids_differ"] = (float(card[0] != host[0]), 0.0)
+        r["corner_px"] = (max((float(np.abs(u - v).max()) for u, v in zip(card[1], host[1])), default=0.0),
+                          tol["corner_px"])
+    elif method == "interpolate_charuco_corners":
+        r["ids_differ"] = (float(card[0] != host[0]), 0.0)
+        r["corner_px"] = (float(np.abs(card[1] - host[1]).max()), tol["corner_px"])
+    elif method == "estimate_pose_single_markers":
+        r["ids_differ"] = (float(card[0] != host[0]), 0.0)
+        r["pose_abs"] = (max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                             for p, q in zip(card[1], host[1]) for a, b in zip(p, q)), tol["pose_abs"])
+    elif method == "find_correspondences":
+        r["n_differ"] = (float(card[2] != host[2]), 0.0)
+        r["points_px"] = (float(np.abs(card[1] - host[1]).max()) if card[2] == host[2] else float("inf"),
+                          tol["points_px"])
+    elif method.startswith("calibrate_omni"):
+        r["reproj_px"] = (float(np.abs(_omni_reprojected(card, scene) - _omni_reprojected(host, scene)).max()),
+                          tol["omni_px"])
+        r["rms_rel"] = (abs(card[4] - host[4]) / host[4], tol["omni_rms_rel"])
+    elif method == "undistort_image_omni":
+        r["rel"] = (float(np.abs(card - host).max() / np.ptp(host)), tol["image_rel"])
+    elif method == "rapid_track":
+        r["pose_abs"] = (max(float(np.abs(card[0] - host[0]).max()), float(np.abs(card[1] - host[1]).max())),
+                         tol["pose_abs"])
+    elif method == "ppf":
+        r["refined_abs"] = (float(np.abs(card[2] - host[2]).max()), tol["ppf_pose_abs"])
+        r["votes"] = ([float(card[1]), float(host[1])], None)
+    elif method == "cloud_icp":
+        r["pose_abs"] = (float(np.abs(card[0] - host[0]).max()), tol["ppf_pose_abs"])
+        r["err_abs"] = (abs(card[1] - host[1]), tol["icp_err_abs"])
+    ok = all(bound is None or val <= bound for val, bound in r.values())
+    return {"ok": ok, **{k: v[0] for k, v in r.items()}}
+
+
+def geometry_gates(scene, outs: dict) -> dict:
+    """The JAX tests' gates, brought to the scene's size, on each result in
+    `outs` (method -> geometry_x's result on `scene`); raises, naming every
+    miss, after checking all. Returns the gated numbers."""
+    import torch
+
+    from opencv_contrib_tpu_torch import entry, reg
+    from opencv_contrib_tpu_torch.core import se3
+
+    H, W = scene.left.shape
+    gt = scene.disparity
+    # stereo: away from the box's disparity edges (8 px) and the columns whose right match rolls around
+    edge = np.zeros((H, W), bool)
+    y0, x0, y1, x1 = scene.stereo_box
+    edge[max(y0 - 8, 0):y1 + 9, max(x0 - 8 - entry.GEO_STEREO_DISP[1], 0):x1 + 9] = True
+    interior = np.zeros((H, W), bool)
+    interior[8:-8, 64 + 16:-16] = True
+    far = interior & ~edge
+    g, missed = {}, {}
+
+    def host(x):
+        return _geo_host(x)
+
+    for m, out in outs.items():
+        o = host(out)
+        if m == "block_match":  # tests/test_bgsegm_stereo.py::test_block_match_constant_disparity
+            d, v = o
+            g[m] = {"valid": float(v[far].mean()), "err_px": float(np.abs(d[far & v] - gt[far & v]).mean())}
+            ok = g[m]["valid"] > 0.6 and g[m]["err_px"] < 0.5
+        elif m == "sgm_match":  # test_sgm_constant_disparity
+            g[m] = {"err_px": float(np.abs(o[0][far] - gt[far]).mean())}
+            ok = g[m]["err_px"] < 0.6
+        elif m == "quasi_dense_stereo":  # tests/test_breadth5.py::TestQuasiDense
+            d, v = o
+            inner = np.zeros((H, W), bool)
+            inner[4:-4, 64 + 12:-4] = True
+            g[m] = {"cover": float((v & inner).sum() / inner.sum()),
+                    "good": float((np.abs(d[v & far] - gt[v & far]) <= 1.0).mean())}
+            ok = g[m]["cover"] > 0.8 and g[m]["good"] > 0.9
+        elif m == "lr_consistency":  # test_lr_consistency: the block-matched pair consistent away from edges
+            g[m] = {"consistent": float(o[2][far].mean())}
+            ok = g[m]["consistent"] > 0.9
+        elif m == "graycode":  # tests/test_breadth2.py's decode tests: col x, row y
+            col, row, valid = o
+            ok = (np.array_equal(col, np.broadcast_to(np.arange(W), (H, W)))
+                  and np.array_equal(row, np.broadcast_to(np.arange(H)[:, None], (H, W))) and bool(valid.all()))
+            g[m] = {"exact": ok}
+        elif m == "psp":  # test_psp_phase_recovery
+            expected = 2 * np.pi * 40 * np.arange(W) / W
+            g[m] = {"err_rad": _wrapped(o[0], expected[None]), "amp_min": float(o[1].min())}
+            ok = g[m]["err_rad"] < 0.05 and g[m]["amp_min"] > 0.4
+        elif m in ("ftp", "faps", "unwrap_phase_dct"):  # TestSinusoidalFtpFaps; TestPhaseUnwrapping
+            d = (o + scene.fringe_true)[12:-12, 12:-12]
+            if m == "unwrap_phase_dct":
+                g[m] = {"std": float(d.std())}
+                ok = g[m]["std"] < 0.05
+            else:
+                d = np.angle(np.exp(1j * d))
+                g[m] = {"err_rad": float(np.abs(np.angle(np.exp(1j * (d - np.median(d))))).mean())}
+                ok = g[m]["err_rad"] < 0.05
+        elif m.startswith("reg_"):  # tests/test_imgproc_modules.py::TestReg: 0.02 for the shift, else 0.03
+            model = m[4:]
+            i = reg.MODELS.index(model)
+            warped = reg.warp_with_params(model, torch.from_numpy(o), torch.from_numpy(scene.reg_mov[i])).numpy()
+            b = int(0.1 * min(H, W))
+            g[m] = {"err": float(np.abs(warped[b:-b, b:-b] - scene.reg_ref[b:-b, b:-b]).mean()), "p": o.tolist()}
+            ok = g[m]["err"] < (0.02 if model == "shift" else 0.03)
+        elif m == "detect_markers":  # tests/test_breadth6.py::TestCharuco: >= 6 of the board's markers
+            g[m] = {"ids": sorted(o[0])}
+            ok = len(set(o[0]) & set(scene.board_ids)) >= 6
+        elif m == "interpolate_charuco_corners":  # the 16 interior corners within 3 px of the lattice
+            rel = o[1] - np.array(scene.board_origin, np.float32)
+            err = float(np.abs(rel - np.round(rel / scene.square_px) * scene.square_px).max()) if len(o[0]) else 1e9
+            g[m] = {"corners": len(o[0]), "lattice_px": err}
+            ok = len(o[0]) == 16 and err < 3.0
+        elif m == "estimate_pose_single_markers":  # test_pose_estimation: rotation 0.05 rad, translation 0.02 m
+            ids, poses = o
+            z = entry.GEO_FOCAL * entry.GEO_MARKER_M / scene.marker_span_px
+            rot = max(float(se3.rotation_angle(torch.from_numpy(np.asarray(R)))) for R, _ in poses)
+            tz = max(abs(float(t[2]) - z) for _, t in poses)
+            g[m] = {"markers": len(poses), "rot_rad": rot, "tz_err_m": tz}
+            ok = len(poses) >= 6 and rot < 0.05 and tz < 0.02
+        elif m == "find_correspondences":  # tests/test_breadth8.py::TestRandomPattern::test_shifted_view
+            obj, ip, n = o
+            dx = ip[:, 0] - obj[:, 0] / (0.20 / W)
+            dy = ip[:, 1] - obj[:, 1] / (0.16 / H)
+            g[m] = {"n": n, "dx": float(np.median(dx)), "dy": float(np.median(dy))}
+            ok = n >= 15 and abs(g[m]["dx"] - 7) < 1.0 and abs(g[m]["dy"] - 4) < 1.0
+        elif m.startswith("calibrate_omni"):  # TestOmniCalibrate
+            K, xi, _, _, rms = o
+            f = float(scene.omni_K[0, 0])
+            g[m] = {"rms_px": rms, "f": float(K[0, 0]), "xi": xi}
+            ok = rms < 0.3 and abs(K[0, 0] - f) / f < 0.05 and abs(xi - scene.omni_xi) < (
+                1e-6 if m.endswith("fix_xi") else 0.1)
+        elif m == "undistort_image_omni":  # tests/test_breadth3.py::test_undistort_image_runs
+            ok = o.shape == (H, W) and bool(np.isfinite(o).all())
+            g[m] = {"finite": ok}
+        elif m == "rapid_track":  # tests/test_detect_breadth.py::TestRapid
+            e0 = float(np.linalg.norm(scene.rapid_t0 - scene.rapid_t))
+            g[m] = {"err0_m": e0, "err_m": float(np.linalg.norm(o[1] - scene.rapid_t)), "used": float(o[2])}
+            ok = g[m]["err_m"] < 0.6 * e0 and g[m]["used"] > 0.5
+        elif m in ("ppf", "cloud_icp"):  # tests/test_surface_matching.py: TestPPF; TestCloudICP
+            T_gt = scene.cloud_T_ppf if m == "ppf" else scene.cloud_T_icp
+            T_est = o[2] if m == "ppf" else o[0]
+            d = se3.log_se3(se3.inverse(torch.from_numpy(T_gt)) @ torch.from_numpy(np.asarray(T_est))).numpy()
+            if m == "ppf":
+                g[m] = {"votes": float(o[1]), "rot": float(np.linalg.norm(d[:3])),
+                        "trans": float(np.linalg.norm(d[3:]))}
+                ok = g[m]["votes"] > 10 and g[m]["rot"] < 0.05 and g[m]["trans"] < 0.05
+            else:
+                g[m] = {"twist": float(np.linalg.norm(d)), "err": float(o[1])}
+                ok = g[m]["twist"] < 0.02 and g[m]["err"] < 1e-4
+        else:
+            raise KeyError(m)
+        if not ok:
+            missed[m] = g[m]
+    check(not missed, f"geometry gates missed: {missed}")
+    return g
 
 
 def emit(obj) -> None:
@@ -4603,6 +4882,95 @@ class Smoke(Timer):
                       "conf_mean": float(conf.mean())}
         return out
 
+    # ---- (v) -----------------------------------------------------------------
+    def geometry(self):
+        """Phase v: every method of entry.geometry_x on entry.geometry_scene()
+        at VGA on the card: counted (GEO_LAUNCHES: knn2 on the random
+        pattern, pyrdown on the reg models, no kernel of ours elsewhere),
+        timed, its host syncs and peak memory, rerun bit-equal; one profiler
+        window over every method (device ms, launches); the JAX tests'
+        gates at VGA (`geometry_gates`); the port's CPU run of each method,
+        made in a process of its own while the card runs, against the
+        card's (`geometry_diff`, GEO_CPU_TOL; the random pattern on both
+        from one CPU generator's draws)."""
+        import concurrent.futures
+        import multiprocessing
+
+        from opencv_contrib_tpu_torch.mvg import robust
+
+        torch, entry = self.torch, self.entry
+        check(tuple(entry.GEOMETRY) == GEO_METHODS, f"entry.GEOMETRY {tuple(entry.GEOMETRY)} != GEO_METHODS")
+        t_all = time.perf_counter()
+        pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            cpu_job = pool.submit(geometry_cpu_outputs, GEO_SHAPE, GEO_CPU_THREADS)
+            scene = entry.geometry_scene(*GEO_SHAPE)
+            on_card = scene._replace(**{k: self.card(v) for k, v in scene._asdict().items()
+                                        if isinstance(v, np.ndarray) and v.dtype.kind == "f"
+                                        and k not in entry.GEO_HOST_FIELDS})
+            parts = {"scene": time.perf_counter() - t_all}
+
+            def call(m):
+                return entry.geometry_x(on_card, m, device=self.dev)
+
+            t0 = time.perf_counter()
+            runs, outs = {}, {}
+            for m in GEO_METHODS:
+                (out, s1), peak = self.peak_gb(lambda: self.counted(f"geometry_{m}", lambda: call(m)))
+                launches = {k: v for k, v in self.launches[f"geometry_{m}"].items() if v}
+                check(launches == GEO_LAUNCHES.get(m, {}), f"geometry {m}: kernel launches {launches}, expected "
+                                                           f"{GEO_LAUNCHES.get(m, {})}")
+                with self.sync_log() as got:
+                    again, s2 = self.wall_s(lambda: call(m))
+                syncs = self.sync_summary(got)
+                same = _geo_equal(out, again)
+                outs[m] = out
+                runs[m] = {"ms_first": s1 * 1e3, "ms": s2 * 1e3, "peak_mem_gb": peak, "host_syncs": syncs["total"],
+                           "host_syncs_in_port": syncs["in_the_port"], "sync_sites": syncs["top_sites"],
+                           "rerun_bit_equal": same, "kernel_launches": launches}
+            parts["card_runs"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prof = self.ximg_profile({m: (lambda m=m: call(m)) for m in GEO_METHODS})
+            for m, row in prof.items():
+                top = sorted(row["kernels"].items(), key=lambda kv: -kv[1][1])[:3]
+                runs[m].update(device_ms=row["device_ms"], device_launches=row["launches"],
+                               costliest={k[:60]: [n, ms] for k, (n, ms) in top})
+            parts["profile"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            try:
+                gates, gates_missed = geometry_gates(scene, outs), None
+            except AssertionError as e:  # reported with the phase's readings, then raised
+                gates, gates_missed = None, str(e)
+            parts["gates"] = time.perf_counter() - t0
+            with _same_draws(robust, torch):  # the random pattern again, on the CPU run's draws
+                same_draws = _geo_host(call("find_correspondences"))
+            t0 = time.perf_counter()
+            host = cpu_job.result(timeout=600)
+            parts["cpu_wait"] = time.perf_counter() - t0
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        cpu, beyond = {}, {}
+        for m in GEO_METHODS:
+            card = same_draws if m == "find_correspondences" else _geo_host(outs[m])
+            cpu[m] = geometry_diff(m, card, host[m], scene)
+            if not cpu[m]["ok"]:
+                beyond[m] = cpu[m]
+        not_equal = sorted(m for m, r in runs.items() if not r["rerun_bit_equal"])
+        ok = not beyond and not not_equal and not gates_missed
+        emit({"phase": "v_geometry", "ok": ok, "card_vs_cpu_beyond_tolerance": beyond,
+              "rerun_not_bit_equal": not_equal, "gates_missed": gates_missed, "frame": list(GEO_SHAPE),
+              "methods": runs, "gates": gates,
+              "card_vs_cpu": cpu, "phase_parts_s": parts, "phase_s": time.perf_counter() - t_all,
+              "tolerance": f"launches: {GEO_LAUNCHES} a call, no other kernel of ours; every result bit-equal on a "
+                           f"rerun; gates: the JAX tests' at VGA (geometry_gates); card vs CPU: {GEO_CPU_TOL} "
+                           f"(geometry_diff)",
+              "timing": "ms: host clock around a synchronised warm call (ms_first: the first call, counted); "
+                        "device_ms and device_launches: one profiler window over every method (raw kineto "
+                        "events); peak_mem_gb: the first call's peak above what was held; the CPU run went on "
+                        f"in a process of its own ({GEO_CPU_THREADS} threads) while these ran"})
+        check(ok, f"geometry: card vs CPU beyond tolerance {beyond}, reruns not bit-equal {not_equal}, gates "
+                  f"{gates_missed}")
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -4631,7 +4999,7 @@ def main() -> int:
     for phase in (smoke.build, smoke.knn2, smoke.scan, smoke.frontend, smoke.tick, smoke.profile,
                   smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
                   smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd,
-                  smoke.remainder, smoke.distributed, smoke.xfeatures, smoke.video, smoke.ximgproc):
+                  smoke.remainder, smoke.distributed, smoke.xfeatures, smoke.video, smoke.ximgproc, smoke.geometry):
         phase()
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,5 +1,5 @@
-"""SO(3) / SE(3) operations on stacked tensors — the port of the parts of
-opencv_contrib_tpu/core/se3.py the keyframe tick and KinectFusion use.
+"""SO(3) / SE(3) operations on stacked tensors — the port of
+opencv_contrib_tpu/core/se3.py.
 Singularities are handled with `torch.where` and safe denominators, as in
 the JAX version."""
 
@@ -217,6 +217,13 @@ def quat_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
     return xyz * scale[..., None]
 
 
+def axis_angle_to_quat(w: torch.Tensor) -> torch.Tensor:
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)
+    half = 0.5 * theta
+    k = torch.where(theta < _EPS, torch.full_like(theta, 0.5), torch.sin(half) / torch.clamp(theta, min=_EPS))
+    return torch.cat([torch.cos(half), w * k], dim=-1)
+
+
 def project_to_so3(M: torch.Tensor) -> torch.Tensor:
     """Nearest rotation via SVD (handles reflections)."""
     U, _, Vh = torch.linalg.svd(M)
@@ -224,3 +231,13 @@ def project_to_so3(M: torch.Tensor) -> torch.Tensor:
     one = torch.ones_like(det)[..., None]
     D = torch.cat([one, one, det[..., None]], dim=-1)
     return (U * D[..., None, :]) @ Vh
+
+
+def rotation_angle(R: torch.Tensor) -> torch.Tensor:
+    """Geodesic rotation angle of (..., 3, 3) in radians."""
+    tr = torch.diagonal(R, dim1=-2, dim2=-1).sum(-1)
+    return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+
+
+def rotation_distance(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    return rotation_angle(torch.swapaxes(R1, -1, -2) @ R2)

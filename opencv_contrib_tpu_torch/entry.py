@@ -47,6 +47,13 @@
   ellipses, MSER, text boxes) on a frame, with the settings of the JAX test
   that gates it (`METHODS`); `structure_frame()` makes a VGA frame holding
   those tests' fixtures, with a disparity pair.
+- `geometry_x(scene, method)`: one geometry / calibration method beside
+  the SfM stack (stereo BM / SGM / quasi-dense and the left-right check,
+  Gray code, PSP, FTP, FAPS and the DCT unwrap, reg's five models, ArUco /
+  ChArUco, the random-pattern corner finder, omnidir calibration and
+  undistortion, RAPID, PPF with ICP, cloud ICP) with the settings of the
+  JAX test that gates it (`GEOMETRY`); `geometry_scene()` makes those
+  tests' fixtures at VGA, each with its ground truth.
 - `sfm.pipeline.reconstruct_incremental(tracks, intr)`: the incremental SfM
   driver; `sfm_scene()` makes its 100-view x 900-track synthetic scene.
 - `sfm.pipeline_scale.reconstruct_sequential(tracks, intr)`: the sequential
@@ -70,8 +77,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from opencv_contrib_tpu_torch import hfs, quality, ximgproc, xphoto  # noqa: I001
+from opencv_contrib_tpu_torch import (aruco, ccalib, hfs, phase_unwrapping, quality, rapid, reg, stereo,  # noqa: I001
+                                      structured_light, surface_matching, ximgproc, xphoto)
+from opencv_contrib_tpu_torch.aruco import charuco
 from opencv_contrib_tpu_torch.ba import bundle
+from opencv_contrib_tpu_torch.ccalib import omnidir
 from opencv_contrib_tpu_torch.core import camera as cam
 from opencv_contrib_tpu_torch.core import se3
 from opencv_contrib_tpu_torch.core.color import rgb_to_gray
@@ -90,6 +100,7 @@ from opencv_contrib_tpu_torch.rgbd.hash_tsdf import HashTSDF
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_sequence_scene, reconstruct_sequential
 from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
+from opencv_contrib_tpu_torch.structured_light import sinusoidal
 from opencv_contrib_tpu_torch.utils import datasets, metrics, native, video
 from opencv_contrib_tpu_torch.utils.device import constant, resolve
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
@@ -817,6 +828,381 @@ def ximgproc_frame(img, method: str, device="cuda", disparity=None):
     disp = _f32(disparity, dev) if disparity is not None else None
     fn, settings = METHODS[method]
     return fn(_XFrame(gray, rgb, disp, structure_layout(H, W)), **settings)
+
+
+# ---- geometry and calibration beside the SfM stack ----------------------------------------------------------
+
+
+class GeometryScene(NamedTuple):
+    """The fixtures of `geometry_x` (numpy, float32 unless stated), each
+    with its ground truth. H, W = left.shape.
+
+    - Stereo (tests/test_bgsegm_stereo.py::_stereo_pair's recipe): `left`
+      a Gaussian-blurred (sigma 1) uniform texture; `right` the left image
+      rolled by -8 px (x_r = x_l - d), with the box's pixels pasted 24 px
+      left of their place instead; `disparity` the true left disparity: 8,
+      24 on `stereo_box` [y0, x0, y1, x1] (inclusive).
+    - Gray code: `graycode` (40, H, W), the 10 column and 9 row bits of a
+      W x H projector and their inverses, white and black, seen directly
+      with a gain U(0.4, 0.8), an offset U(0, 0.2) and N(0, 0.01) noise per
+      pixel: the decoded column is x and the row y at every pixel.
+    - `psp` (4, H, W): 4-step fringes of 40 periods across the width; the
+      wrapped phase is angle(exp(i 2 pi 40 x / W)).
+    - `fringe` (3, H, W): tests/test_breadth2.py::TestSinusoidalFtpFaps'
+      scene at this size (48 periods across the width, the Gaussian bump
+      scaled with the frame), 3 shifts of 2 pi / 3; `fringe_true` (H, W)
+      its phase: the FTP / FAPS phase is -fringe_true + a constant.
+    - reg: `reg_ref` a Gaussian-blurred (sigma 2) uniform texture times 3;
+      `reg_mov` (5, H, W), the reference warped by each of `reg.MODELS`'
+      motions (`reg_motion`, (5, 3, 3) output -> input pixel maps): a 2, 3
+      px shift, a 0.05 rad rotation about the centre with a (1.0, -1.5)
+      shift (tests/test_imgproc_modules.py::TestReg), a 1.02 scale with a
+      0.03 rad rotation, the JAX test's affine about the centre, and a
+      projective map of the same size.
+    - ArUco: `charuco` a 5 x 5 ChArUco board of `square_px` squares (80 at
+      VGA, scaled with the frame) with `dictionary` (12 4-bit markers,
+      uint8, the JAX test's), white around, its top-left corner at
+      `board_origin` (y, x); `board_ids`, `board_centers` as
+      `aruco.charuco.draw_charuco_board` returns them. The 16 interior
+      corners lie on origin + square_px k; each marker faces the camera
+      K = [[500, 0, W / 2], [0, 500, H / 2], [0, 0, 1]]: a marker of side
+      0.06 m spans `marker_span_px` (59 at VGA) between its corner pixels,
+      so R = I and t_z = 500 * 0.06 / marker_span_px.
+    - ccalib: `pattern` = `ccalib.generate_pattern((H, W))` and
+      `pattern_view`, it rolled by (4, 7): the view's pixels are the
+      pattern's moved by (x, y) = (7, 4). `omni_obj` (6, 48, 3), the 8 x 6
+      board of tests/test_breadth8.py::TestOmniCalibrate, and `omni_img`
+      (6, 48, 2) its projections through `omni_K` (f = 600 W / 640, c the
+      centre) and `omni_xi` 0.9 with N(0, 0.1 px) noise.
+    - RAPID (tests/test_detect_breadth.py::TestRapid at 120 x 160, K and
+      the search length scaled to the frame): `rapid_img` the cube's front
+      face rendered at `rapid_t` with R = I through `rapid_K`; the track
+      starts from `rapid_t0`; `rapid_vertices` (4, 3), `rapid_edges`
+      (4, 2) int.
+    - Surface matching: `cloud` (N, 3) and `cloud_normals`, the box cloud of
+      tests/test_surface_matching.py with 500 points a face at VGA;
+      `cloud_T_ppf` the pose of the scene PPF finds (the JAX test's) and
+      `cloud_T_icp` the small misalignment of TestCloudICP."""
+    left: np.ndarray
+    right: np.ndarray
+    disparity: np.ndarray
+    stereo_box: list
+    graycode: np.ndarray
+    psp: np.ndarray
+    fringe: np.ndarray
+    fringe_true: np.ndarray
+    reg_ref: np.ndarray
+    reg_mov: np.ndarray
+    reg_motion: np.ndarray
+    charuco: np.ndarray
+    square_px: int
+    marker_span_px: int
+    dictionary: np.ndarray
+    board_origin: tuple
+    board_ids: list
+    board_centers: np.ndarray
+    pattern: np.ndarray
+    pattern_view: np.ndarray
+    omni_obj: np.ndarray
+    omni_img: np.ndarray
+    omni_K: np.ndarray
+    omni_xi: float
+    rapid_img: np.ndarray
+    rapid_K: np.ndarray
+    rapid_t: np.ndarray
+    rapid_t0: np.ndarray
+    rapid_vertices: np.ndarray
+    rapid_edges: np.ndarray
+    cloud: np.ndarray
+    cloud_normals: np.ndarray
+    cloud_T_ppf: np.ndarray
+    cloud_T_icp: np.ndarray
+
+
+GEO_STEREO_DISP = (8, 24)  # background, box
+GEO_SQUARES = (5, 5)  # the ChArUco board's squares
+GEO_MARKER_M = 0.06  # the pose method's marker side in metres
+GEO_FOCAL = 500.0  # the ArUco camera's focal length in pixels (at any frame size)
+
+
+def _box_cloud(n_per_face: int = 36, size=(1.0, 0.6, 0.4)):
+    """Points + outward normals sampled on a box surface
+    (tests/test_surface_matching.py::_box_cloud)."""
+    rng = np.random.default_rng(0)
+    pts, nrms = [], []
+    faces = [(np.array([1.0, 0, 0]), size[0] / 2), (np.array([-1.0, 0, 0]), size[0] / 2),
+             (np.array([0, 1.0, 0]), size[1] / 2), (np.array([0, -1.0, 0]), size[1] / 2),
+             (np.array([0, 0, 1.0]), size[2] / 2), (np.array([0, 0, -1.0]), size[2] / 2)]
+    dims = np.array(size)
+    for n, off in faces:
+        free = np.flatnonzero(n == 0)
+        for _ in range(n_per_face):
+            p = n * off
+            for f in free:
+                p[f] = rng.uniform(-dims[f] / 2, dims[f] / 2)
+            pts.append(p)
+            nrms.append(n)
+    return np.array(pts, np.float32), np.array(nrms, np.float32)
+
+
+def _render_square(K: np.ndarray, t: np.ndarray, shape, s: float = 0.5) -> np.ndarray:
+    """tests/test_detect_breadth.py::_render_wire_cube at R = I: the cube's
+    front face as a bright square with analytic partial-pixel coverage, so
+    the intensity step sits at the true subpixel boundary."""
+    verts = np.array([[-s, -s, 0], [s, -s, 0], [s, s, 0], [-s, s, 0]], np.float32) + t
+    uv = verts[:, :2] / verts[:, 2:] * np.diag(K)[:2] + K[:2, 2]
+    y0, y1 = uv[:, 1].min(), uv[:, 1].max()
+    x0, x1 = uv[:, 0].min(), uv[:, 0].max()
+    ys = np.arange(shape[0])[:, None]
+    xs = np.arange(shape[1])[None, :]
+    cov_y = np.clip(np.minimum(y1, ys + 0.5) - np.maximum(y0, ys - 0.5), 0, 1)
+    cov_x = np.clip(np.minimum(x1, xs + 0.5) - np.maximum(x0, xs - 0.5), 0, 1)
+    return (cov_y * cov_x).astype(np.float32)
+
+
+def _reg_motions(H: int, W: int) -> np.ndarray:
+    """reg_motion: (5, 3, 3) output -> input pixel maps (x, y, 1), in
+    reg.MODELS order, each about the frame's centre but the shift."""
+    cy, cx = H / 2.0, W / 2.0
+
+    def about_centre(A, t):
+        c = np.array([cx, cy])
+        M = np.eye(3)
+        M[:2, :2] = A
+        M[:2, 2] = c - A @ c + np.asarray(t)
+        return M
+
+    def rot(a, s=1.0):
+        return s * np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+
+    proj = about_centre(np.eye(2), (1.0, -1.0))
+    proj[2, :2] = (2e-5, -1.5e-5)
+    proj[2, 2] = 1.0 - proj[2, 0] * cx - proj[2, 1] * cy  # 1 at the centre
+    return np.stack([about_centre(np.eye(2), (2.0, 3.0)), about_centre(rot(0.05), (1.0, -1.5)),
+                     about_centre(rot(0.03, 1.02), (1.5, -1.0)),
+                     about_centre(np.array([[1.03, 0.02], [-0.01, 0.97]]), (-2.0, 1.0)), proj]).astype(np.float32)
+
+
+def geometry_scene(H: int = 480, W: int = 640, seed: int = 0) -> GeometryScene:
+    """The fixtures of `geometry_x` at H x W: the JAX tests' fixtures of the
+    stereo, structured-light, phase-unwrapping, reg, ArUco / ChArUco,
+    ccalib, RAPID and surface-matching modules, brought to the frame size
+    (`GeometryScene` gives each with its ground truth). The cloud has
+    500 points a face at 480 rows, scaled with H (at least 36)."""
+    from opencv_contrib_tpu_torch.aruco import charuco, markers
+    from opencv_contrib_tpu_torch.ccalib import omnidir, random_pattern
+    from opencv_contrib_tpu_torch.ops.image import warp_perspective
+
+    rng = np.random.default_rng(seed)
+    sy, sx = H / 480.0, W / 640.0
+    blur = lambda a, s: filters.gaussian_blur(torch.from_numpy(a), s).numpy()  # noqa: E731
+
+    # stereo: the background at 8 px, the box at 24 px
+    d_bg, d_box = GEO_STEREO_DISP
+    left = blur(rng.uniform(0, 1, (H, W)).astype(np.float32), 1.0)
+    right = np.roll(left, -d_bg, axis=1)
+    box = [int(round(160 * sy)), int(round(280 * sx)), int(round(319 * sy)), int(round(439 * sx))]
+    by0, bx0, by1, bx1 = box
+    right[by0:by1 + 1, bx0 - d_box:bx1 + 1 - d_box] = left[by0:by1 + 1, bx0:bx1 + 1]
+    disparity = np.full((H, W), float(d_bg), np.float32)
+    disparity[by0:by1 + 1, bx0:bx1 + 1] = d_box
+
+    # gray code seen directly by the camera; PSP (4 steps, 40 periods)
+    pats = structured_light.generate_graycode_patterns(W, H)[0].numpy()
+    gain = rng.uniform(0.4, 0.8, (H, W)).astype(np.float32)
+    offs = rng.uniform(0.0, 0.2, (H, W)).astype(np.float32)
+    graycode = (pats * gain + offs + rng.normal(0, 0.01, pats.shape)).astype(np.float32)
+    psp = structured_light.generate_psp_patterns(W, H, n_periods=40, n_shifts=4).numpy()
+
+    # the FTP / FAPS scene
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    obj = 1.2 * np.exp(-(((yy - H / 2) / (30.0 * H / 128)) ** 2 + ((xx - W / 2) / (40.0 * W / 160)) ** 2))
+    true = 2 * np.pi * 48 * xx / W + obj
+    fringe = np.stack([0.5 + 0.45 * np.cos(true + 2 * np.pi * k / 3) for k in range(3)]).astype(np.float32)
+
+    # reg: the blurred texture and its five warps
+    reg_ref = blur(rng.uniform(size=(H, W)).astype(np.float32), 2.0) * 3
+    motion = _reg_motions(H, W)
+    reg_mov = np.stack([warp_perspective(torch.from_numpy(reg_ref), torch.from_numpy(M)).numpy() for M in motion])
+
+    # ChArUco
+    dictionary = markers.generate_dictionary(n_markers=12, bits=4)
+    square = int(round(80 * min(sy, sx)))
+    board, ids, centers = charuco.draw_charuco_board(dictionary, squares=GEO_SQUARES, square_px=square)
+    origin = ((H - board.shape[0]) // 2, (W - board.shape[1]) // 2)
+    frame = np.ones((H, W), np.float32)
+    frame[origin[0]:origin[0] + board.shape[0], origin[1]:origin[1] + board.shape[1]] = board
+
+    # ccalib: the random pattern and its shifted view; omnidir board views
+    pattern = random_pattern.generate_pattern((H, W))
+    f_omni = 600.0 * sx
+    omni_K = np.array([[f_omni, 0, W / 2], [0, f_omni, H / 2], [0, 0, 1]], np.float32)
+    gyb, gxb = np.meshgrid(np.arange(6), np.arange(8), indexing="ij")
+    bpts = np.stack([gxb.ravel() * 0.08, gyb.ravel() * 0.08, np.zeros(48)], 1).astype(np.float32)
+    bpts -= bpts.mean(0)
+    omni_img = []
+    for _ in range(6):
+        w = 0.3 * rng.standard_normal(3).astype(np.float32)
+        R = se3.exp_so3(torch.from_numpy(w))
+        t = np.array([0.02, -0.01, 0.0], np.float32) + 0.08 * rng.standard_normal(3).astype(np.float32)
+        t[2] = abs(t[2]) + 0.3
+        px = omnidir.project_points_omni(torch.from_numpy(bpts), R, torch.from_numpy(t),
+                                         torch.from_numpy(omni_K), 0.9).numpy()
+        omni_img.append(px + 0.1 * rng.standard_normal(px.shape).astype(np.float32))
+
+    # RAPID
+    rapid_K = np.array([[120.0 * 4 * sx, 0, W / 2], [0, 120.0 * 4 * sy, H / 2], [0, 0, 1]], np.float32)
+    rapid_t = np.array([0.0, 0.0, 3.0], np.float32)
+    verts = np.array([[-0.5, -0.5, 0], [0.5, -0.5, 0], [0.5, 0.5, 0], [-0.5, 0.5, 0]], np.float32)
+
+    # surface matching
+    cloud, normals = _box_cloud(n_per_face=max(36, int(round(500 * sy))))
+    T_ppf = se3.exp_se3(torch.tensor([0.2, 0.4, -0.1, 0.3, -0.2, 0.5])).numpy()
+    T_icp = se3.exp_se3(torch.tensor([0.05, -0.04, 0.06, 0.05, 0.03, -0.04])).numpy()
+    return GeometryScene(
+        left=left, right=right, disparity=disparity, stereo_box=box, graycode=graycode, psp=psp,
+        fringe=fringe, fringe_true=true.astype(np.float32), reg_ref=reg_ref, reg_mov=reg_mov.astype(np.float32),
+        reg_motion=motion, charuco=frame, square_px=square, marker_span_px=int(0.75 * square) // 6 * 6 - 1,
+        dictionary=dictionary, board_origin=origin, board_ids=ids,
+        board_centers=centers, pattern=pattern, pattern_view=np.roll(pattern, (4, 7), (0, 1)),
+        omni_obj=np.stack([bpts] * 6), omni_img=np.stack(omni_img).astype(np.float32), omni_K=omni_K,
+        omni_xi=0.9, rapid_img=_render_square(rapid_K, rapid_t, (H, W)), rapid_K=rapid_K, rapid_t=rapid_t,
+        rapid_t0=rapid_t + np.array([0.05, -0.04, 0.1], np.float32), rapid_vertices=verts,
+        rapid_edges=np.array([[0, 1], [1, 2], [2, 3], [3, 0]]), cloud=cloud, cloud_normals=normals,
+        cloud_T_ppf=T_ppf.astype(np.float32), cloud_T_icp=T_icp.astype(np.float32))
+
+
+GEO_HOST_FIELDS = {"disparity", "stereo_box", "fringe_true", "reg_motion", "board_centers", "omni_xi", "square_px",
+             "marker_span_px"}  # truths, host args
+
+
+class _GScene:
+    """A GeometryScene's float arrays on the device (each moved on first
+    use), its ground truths and host arguments as they are."""
+
+    def __init__(self, scene: GeometryScene, dev: torch.device):
+        self.scene, self.dev, self._on = scene, dev, {}
+
+    def __getattr__(self, name):
+        v = getattr(self.scene, name)
+        if name in GEO_HOST_FIELDS:
+            return v
+        if isinstance(v, torch.Tensor) or (isinstance(v, np.ndarray) and v.dtype.kind == "f"):
+            if name not in self._on:
+                self._on[name] = _f32(v, self.dev)
+            return self._on[name]
+        return v
+
+
+def _lr_check(g: _GScene, **k):
+    """Left-right check of the block-matched pair: the right view's
+    disparity is block_match on the mirrored, swapped pair, mirrored back."""
+    dl, _ = stereo.block_match(g.left, g.right, **k)
+    dr, _ = stereo.block_match(torch.flip(g.right, (1,)), torch.flip(g.left, (1,)), **k)
+    return dl, torch.flip(dr, (1,)), stereo.lr_consistency(dl, torch.flip(dr, (1,)))
+
+
+def _graycode(g: _GScene, **k):
+    ncb, nrb = int(np.ceil(np.log2(g.graycode.shape[2]))), int(np.ceil(np.log2(g.graycode.shape[1])))
+    return structured_light.decode_graycode(g.graycode, ncb, nrb, **k)
+
+
+def _reg(model: str):
+    i = reg.MODELS.index(model)
+    return lambda g, **k: reg.register_pyramid(g.reg_ref, g.reg_mov[i], model=model, **k)
+
+
+def _charuco(g: _GScene, **k):
+    ids, corners = aruco.detect_markers(g.charuco, g.dictionary)
+    return charuco.interpolate_charuco_corners(ids, corners, g.board_ids, g.board_centers, square_px=g.square_px,
+                                               **k)
+
+
+def _marker_poses(g: _GScene, marker_length: float):
+    H, W = g.charuco.shape
+    K = constant([[GEO_FOCAL, 0, W / 2], [0, GEO_FOCAL, H / 2], [0, 0, 1]], g.dev)
+    ids, corners = aruco.detect_markers(g.charuco, g.dictionary)
+    return ids, charuco.estimate_pose_single_markers(corners, marker_length, K)
+
+
+def _omni(g: _GScene, **k):
+    return omnidir.calibrate_omni(list(g.omni_obj), list(g.omni_img), tuple(g.charuco.shape), **k)
+
+
+def _rapid(g: _GScene, n_iters: int, search_len: float):
+    """track with the search length of the JAX test's 160-px-wide frame
+    scaled to the scene's width."""
+    return rapid.track(g.rapid_img, g.rapid_K, torch.eye(3, device=g.dev), g.rapid_t0, g.rapid_vertices,
+                       g.rapid_edges, n_iters=n_iters, search_len=search_len * g.rapid_img.shape[1] / 160)
+
+
+def _scene_cloud(g: _GScene, T: torch.Tensor):
+    R, t = T[:3, :3], T[:3, 3]
+    return g.cloud @ R.T + t, g.cloud_normals @ R.T
+
+
+def _ppf(g: _GScene, sampling_step: int, scene_step: int):
+    """train_model, ppf_match, then register_model_to_scene from its pose
+    (tests/test_surface_matching.py::TestPPF)."""
+    model = surface_matching.train_model(g.cloud, g.cloud_normals, sampling_step=sampling_step)
+    pts, nrm = _scene_cloud(g, g.cloud_T_ppf)
+    T, votes = surface_matching.ppf_match(model, pts, nrm, scene_step=scene_step)
+    T_ref, err = surface_matching.register_model_to_scene(g.cloud, pts, nrm, T_init=T)
+    return T, votes, T_ref, err
+
+
+def _cloud_icp(g: _GScene):
+    pts, nrm = _scene_cloud(g, g.cloud_T_icp)
+    return surface_matching.register_model_to_scene(g.cloud, pts, nrm)
+
+
+# each method: (call on the scene, the settings of the JAX test that gates it, brought to VGA)
+GEOMETRY = {
+    "block_match": (lambda g, **k: stereo.block_match(g.left, g.right, **k), {"max_disp": 64}),
+    "sgm_match": (lambda g, **k: stereo.sgm_match(g.left, g.right, **k), {"max_disp": 64}),
+    "quasi_dense_stereo": (lambda g, **k: stereo.quasi_dense_stereo(g.left, g.right, **k),
+                           {"max_disp": 64, "seed_stride": 8, "n_sweeps": 48}),
+    "lr_consistency": (_lr_check, {"max_disp": 64}),
+    "graycode": (_graycode, {}),
+    "psp": (lambda g, **k: structured_light.compute_psp_phase(g.psp, **k), {}),
+    "ftp": (lambda g, **k: sinusoidal.compute_ftp_phase(g.fringe[0], sinusoidal.compute_shadow_mask(g.fringe), **k),
+            {}),
+    "faps": (lambda g, **k: sinusoidal.compute_faps_phase(g.fringe, **k), {}),
+    "unwrap_phase_dct": (lambda g, **k: phase_unwrapping.unwrap_phase_dct(sinusoidal.compute_faps_phase(g.fringe),
+                                                                          **k), {}),
+    **{f"reg_{m}": (_reg(m), {"levels": 3, "iters": 20}) for m in reg.MODELS},
+    "detect_markers": (lambda g, **k: aruco.detect_markers(g.charuco, g.dictionary, **k), {}),
+    "interpolate_charuco_corners": (_charuco, {"squares": GEO_SQUARES}),
+    "estimate_pose_single_markers": (_marker_poses, {"marker_length": GEO_MARKER_M}),
+    "find_correspondences": (lambda g, **k: ccalib.find_correspondences(g.pattern, g.pattern_view, **k),
+                             {"max_keypoints": 512}),
+    "calibrate_omni": (_omni, {"outer_iters": 60}),
+    "calibrate_omni_fix_xi": (_omni, {"outer_iters": 60, "xi0": 0.9, "fix_xi": True}),
+    "undistort_image_omni": (lambda g, **k: ccalib.undistort_image_omni(g.pattern, g.omni_K, **k), {"xi": 0.7}),
+    "rapid_track": (_rapid, {"n_iters": 5, "search_len": 10.0}),
+    "ppf": (_ppf, {"sampling_step": 3, "scene_step": 3}),
+    "cloud_icp": (_cloud_icp, {}),
+}
+
+
+@f32_matmuls
+def geometry_x(scene: GeometryScene, method: str, device="cuda"):
+    """One geometry / calibration method beside the SfM stack (stereo BM /
+    SGM / quasi-dense and the left-right check, Gray code, PSP, FTP, FAPS and
+    the DCT unwrap, reg's five models, ArUco / ChArUco detection, corners and
+    marker poses, the random-pattern corner finder, omnidir calibration and
+    undistortion, RAPID, PPF with ICP and cloud ICP) on `scene` (a
+    `geometry_scene()`; its float arrays may already be tensors on the
+    device), with the settings of the JAX test that gates it, brought to the
+    scene's size (`GEOMETRY`). Tensors stay on `device`; where the JAX
+    package answers in numpy (marker ids and corners, ChArUco corners,
+    marker poses, the random pattern's points, calibrate_omni's result) the
+    answer is numpy."""
+    if method not in GEOMETRY:
+        raise ValueError(f"geometry_x: method must be one of {sorted(GEOMETRY)}, got {method!r}")
+    dev = resolve(device)
+    fn, settings = GEOMETRY[method]
+    return fn(_GScene(scene, dev), **settings)
 
 
 def sfm_scene(n_views: int = 100, n_points: int = 900, seed: int = 4, noise_px: float = 0.5,

@@ -6,7 +6,9 @@ holds host numpy arrays in both packages and its npz (`save_model`,
 `load_model`) is the same file: it crosses as it is. The regressor,
 `xphoto.fit_wb_model`'s (F, 2) matrix, crosses by `wb_model`. The edge
 map's MLP, `ximgproc.edge_forest.train`'s {"W1", "b1", "W2", "b2"}, crosses
-by `edge_forest_params`.
+by `edge_forest_params`. A trained point-pair-feature model
+(`surface_matching.PPFModel`) crosses by `ppf_model`; the omnidir and
+registration parameters are plain arrays and need no converter.
 
 The rest of the port's state is the NamedTuples (Keypoints,
 Matches, BAProblem, BAResult, the sparse BA's SparseBAProblem,
@@ -50,6 +52,7 @@ from opencv_contrib_tpu_torch.rgbd.posegraph import PoseGraph
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.rgbd.warpfield import WarpField
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import MapState
+from opencv_contrib_tpu_torch.surface_matching.ppf import PPFModel
 
 TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, SparseBAProblem, SparseBAResult,
                                         ObsBuckets, TSDFVolume, DepthFrame, HashTSDF, PoseGraph, ColoredTSDFVolume,
@@ -87,6 +90,28 @@ def edge_forest_params(params_np, device="cpu") -> dict:
     if out["b1"].shape != (hidden,) or out["W2"].shape != (hidden, 1) or out["b2"].shape != (1,):
         raise ValueError(f"edge forest shapes {[tuple(out[k].shape) for k in EDGE_FOREST_KEYS]}")
     return out
+
+
+def ppf_model(model_np, device="cpu") -> PPFModel:
+    """A trained point-pair-feature model of either package
+    (`surface_matching.train_model`'s PPFModel: its fields as JAX arrays,
+    numpy, Python numbers or tensors) as this package's PPFModel on
+    `device`: points, normals and alpha float32, keys and ref_idx int32,
+    dist_step, angle_step and diameter 0-dim float32 (the twin keeps
+    angle_step a Python float; its float32 rounding is the one the twin's
+    quantizer divides by)."""
+    if tuple(getattr(model_np, "_fields", ())) != PPFModel._fields:
+        raise TypeError(f"a PPF model has the fields {PPFModel._fields}, got {type(model_np).__name__}")
+
+    def arr(v, dtype):
+        a = np.array(v.detach().cpu() if isinstance(v, torch.Tensor) else v, dtype)
+        return torch.from_numpy(a).to(device)
+
+    m = model_np
+    return PPFModel(points=arr(m.points, np.float32), normals=arr(m.normals, np.float32),
+                    keys=arr(m.keys, np.int32), ref_idx=arr(m.ref_idx, np.int32), alpha=arr(m.alpha, np.float32),
+                    dist_step=arr(m.dist_step, np.float32), angle_step=arr(m.angle_step, np.float32),
+                    diameter=arr(m.diameter, np.float32))
 
 
 def _is_namedtuple(x) -> bool:

@@ -19,7 +19,6 @@ PORT = ROOT / "opencv_contrib_tpu_torch"
 ALLOWED = {
     "core/color.py": {"bgr_to_gray", "rgb_to_hsv", "rgb_to_ycrcb", "ycrcb_to_rgb", "rgb_to_lab"},
     "core/camera.py": {"project_P", "projection_from_KRt", "KRt_from_projection"},
-    "core/se3.py": {"axis_angle_to_quat", "rotation_angle", "rotation_distance"},
     "utils/sdf_scene.py": {"sdf_rounded_room"},
     "utils/native.py": {"load_library"},
 }
@@ -59,9 +58,34 @@ def test_slice_files_are_twins():
                 "ximgproc/filters_x.py", "ximgproc/filters_x2.py", "ximgproc/transforms_x.py", "ximgproc/fourier.py",
                 "ximgproc/slic.py", "hfs/segment.py", "ximgproc/superpixels_x.py", "ximgproc/segmentation.py",
                 "ximgproc/edges.py", "ximgproc/edge_forest.py", "text/swt.py", "ximgproc/edline.py",
-                "ximgproc/hough_mser.py"):
+                "ximgproc/hough_mser.py", "phase_unwrapping/unwrap.py", "structured_light/graycode.py",
+                "structured_light/sinusoidal.py", "stereo/matching.py", "stereo/quasi_dense.py", "reg/mapper.py",
+                "surface_matching/icp3d.py", "surface_matching/ppf.py", "rapid/tracker.py", "aruco/markers.py",
+                "aruco/charuco.py", "ccalib/omnidir.py", "ccalib/random_pattern.py", "core/se3.py"):
         assert rel in TWINS, rel
         assert rel not in ALLOWED, rel
+
+
+def exported(path: Path) -> list:
+    """A package __init__'s __all__, read with `ast`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for n in tree.body:
+        if isinstance(n, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in n.targets):
+            return [ast.literal_eval(e) for e in n.value.elts]
+    return []
+
+
+# packages ported whole, whose __init__ keeps its twin's exports (earlier slices' packages that are ported in part,
+# such as text/, export what they hold)
+WHOLE_PACKAGES = ("phase_unwrapping", "structured_light", "stereo", "reg", "surface_matching", "rapid", "aruco",
+                  "ccalib")
+
+
+@pytest.mark.parametrize("pkg", WHOLE_PACKAGES)
+def test_package_exports_the_twins_names(pkg):
+    """The package's __init__ exports at least its twin's __all__."""
+    missing = set(exported(JAX / pkg / "__init__.py")) - set(exported(PORT / pkg / "__init__.py"))
+    assert not missing, f"{pkg}: the port's __all__ lacks {sorted(missing)}"
 
 
 def test_the_walk_reads_defs_and_classes(tmp_path):
