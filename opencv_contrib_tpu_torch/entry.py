@@ -54,6 +54,16 @@
   undistortion, RAPID, PPF with ICP, cloud ICP) with the settings of the
   JAX test that gates it (`GEOMETRY`); `geometry_scene()` makes those
   tests' fixtures at VGA, each with its ground truth.
+- `track_x(scene, method)`: one tracker or filter of the tracking module
+  (MOSSE, KCF, CSRT, DSST, the scaled CSRT / KCF, the Kalman filters,
+  MedianFlow, TLD, MIL, Boosting, the MultiTracker, TrackerByMatching, the
+  twist, the Siamese tracker trained in the repo) with the settings of the
+  JAX test that gates it (`TRACKING`); `tracking_scene()` makes a VGA clip
+  holding each of those tests' own fixtures.
+- `stabilize_clip(clip)`: the videostab path (stabilize, RANSAC motion,
+  the L1 path, deblurring, both inpainters, wobble suppression) on
+  `shaky_clip()`'s frames; `superres_clip()`: BTV super-resolution of 4
+  low-res frames with known and with DIS flows.
 - `sfm.pipeline.reconstruct_incremental(tracks, intr)`: the incremental SfM
   driver; `sfm_scene()` makes its 100-view x 900-track synthetic scene.
 - `sfm.pipeline_scale.reconstruct_sequential(tracks, intr)`: the sequential
@@ -102,7 +112,7 @@ from opencv_contrib_tpu_torch.sfm.pipeline_scale import SparseTracks, from_seque
 from opencv_contrib_tpu_torch.sfm.tracks import TracksTensor
 from opencv_contrib_tpu_torch.structured_light import sinusoidal
 from opencv_contrib_tpu_torch.utils import datasets, metrics, native, video
-from opencv_contrib_tpu_torch.utils.device import constant, resolve
+from opencv_contrib_tpu_torch.utils.device import constant, resolve, to_device
 from opencv_contrib_tpu_torch.utils.precision import f32_matmuls
 from opencv_contrib_tpu_torch.utils.synthetic import SequenceScene, generate_scene, generate_sequence_scene
 from opencv_contrib_tpu_torch.text import swt
@@ -1280,3 +1290,536 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     out["mean_px"] = rec.reprojection_mean_px(tracks, device=device)
     gate(out["registered"] >= 36 and out["mean_px"] < 2.0, "the sequential reconstruction's gates")
     return out
+
+
+# ---- tracking, videostab, superres ----------------------------------------------------------------------------
+
+
+class TrackingScene(NamedTuple):
+    """The fixtures of `track_x` (numpy float32 unless stated), the JAX
+    tests' (tests/test_tracking.py, test_tracking_extra.py,
+    test_breadth11.py::TestSiam) in one clip. H, W = frames.shape[1:].
+
+    - `frames` (T, H, W): a Gaussian-blurred (sigma 2) U(0, 0.3) background
+      with three 21 x 21 textures (blurred U(0.5, 1), sigma 1) pasted at the
+      rounded `centers` (T, 3, 2) (y, x), and the Siamese test's 12 x 12
+      U(0.5, 1) object at the integer `siam_centers` (T, 2) from (360, 120)
+      at (3, 4) a frame. A is tests/test_tracking.py::_target_sequence()
+      itself: its 128 x 128 background (numpy seed 0) laid into the frame
+      with its corner at (60, 60) and its texture from (100, 100) at (2, 3)
+      px a frame, on for the clip's length; B runs from (320, 420) at
+      (1.5, -2), C from (150, 450) at (2, 2.5) (positions scaled with the
+      frame, motions not).
+    - `vanish` (H, W): the last frame without A (MOSSE's PSR drop).
+    - `zoom` (Z, H, W), `zoom_kcf` and `zoom_const`: the DSST tests' 64 x
+      64 U(0.2, 1) texture (numpy seed 0, their first draw) resized (linear)
+      to `zoom_sizes` / `zoom_kcf_sizes` / 32 (24 -> 48 and 28 -> 48 over 20
+      frames, 32 over 12) at the frame centre on a 0.1 background.
+    - `kf_z` (30, 2): the KF test's noisy positions of (0, 0) at (1, 0.5) a
+      step (its seed-0 noise); `ukf_z` (60, 2) and `ukf_truth` (60, 4): the
+      UKF test's range-bearing run (its seed-0 noise).
+    - `twist_uv` (N, 2), `twist_depths` (N,), `twist_K` (3, 3), `twist_duv`
+      (N, 2) and `twist_xi` (6,): points at depths 2-4 seen by f = 500 at
+      the frame centre, their velocities under the twist (float64
+      interaction matrix).
+    - `boxes`: a list of T (k, 4) (y0, x0, y1, x1) detections: A, B, C every
+      frame and a fourth box on frames 10-14 (a track spawned, then killed
+      after 5 misses)."""
+    frames: np.ndarray
+    centers: np.ndarray
+    siam_centers: np.ndarray
+    vanish: np.ndarray
+    zoom: np.ndarray
+    zoom_sizes: np.ndarray
+    zoom_kcf: np.ndarray
+    zoom_kcf_sizes: np.ndarray
+    zoom_const: np.ndarray
+    kf_z: np.ndarray
+    ukf_z: np.ndarray
+    ukf_truth: np.ndarray
+    twist_uv: np.ndarray
+    twist_depths: np.ndarray
+    twist_K: np.ndarray
+    twist_duv: np.ndarray
+    twist_xi: np.ndarray
+    boxes: list
+
+
+TRACK_STARTS = ((100.0, 100.0), (320.0, 420.0), (150.0, 450.0))  # A, B, C at VGA
+TRACK_FIXTURE_AT = (60, 60)  # the corner of A's 128 x 128 fixture at VGA: A starts at its (40, 40)
+MOSSE_UPDATES = 11  # tests/test_tracking.py::TestMosse's updates: its fixture's 12 frames
+TRACK_VELS = ((2.0, 3.0), (1.5, -2.0), (2.0, 2.5))
+SIAM_START, SIAM_VEL, SIAM_SIDE = (360, 120), (3, 4), 12
+TRACK_HALF = 10.5  # a target's detection box half side (21 px textures)
+SPAWN_FRAMES = (10, 15)  # the transient fourth detection
+UKF_DT = 0.1
+
+
+def _blur_np32(a: np.ndarray, sigma: float) -> np.ndarray:
+    return filters.gaussian_blur(torch.from_numpy(np.ascontiguousarray(a, np.float32)), sigma).numpy()
+
+
+def _zoom_frames(rng, H: int, W: int, lo: int, hi: int, n: int = 20):
+    from opencv_contrib_tpu_torch.ops.image import resize
+
+    tex = torch.from_numpy(rng.uniform(0.2, 1.0, (64, 64)).astype(np.float32))
+    sizes = np.linspace(lo, hi, n).astype(int)
+    frames = np.full((n, H, W), 0.1, np.float32)
+    for f, sz in zip(frames, sizes):
+        y0, x0 = H // 2 - sz // 2, W // 2 - sz // 2
+        f[y0:y0 + sz, x0:x0 + sz] = resize(tex, (int(sz), int(sz))).numpy()
+    return frames, sizes
+
+
+def _interaction_np(uv, Z, K):
+    x = (uv[:, 0] - K[0, 2]) / K[0, 0]
+    y = (uv[:, 1] - K[1, 2]) / K[1, 1]
+    iZ = 1.0 / Z
+    Lx = np.stack([-iZ, 0 * x, x * iZ, x * y, -(1 + x * x), y], 1)
+    Ly = np.stack([0 * x, -iZ, y * iZ, 1 + y * y, -x * y, -x], 1)
+    return np.stack([Lx, Ly], 1).reshape(-1, 6)
+
+
+def tracking_scene(H: int = 480, W: int = 640, n_frames: int = 30, seed: int = 0) -> TrackingScene:
+    """The fixtures of `track_x` at H x W over n_frames (`TrackingScene`)."""
+    rng = np.random.default_rng(seed)
+    sy, sx = H / 480.0, W / 640.0
+    bg = _blur_np32(rng.uniform(0, 0.3, (H, W)), 2.0)
+    fixture = np.random.default_rng(0)  # _target_sequence()'s draws, in its order
+    oy, ox = int(round(TRACK_FIXTURE_AT[0] * sy)), int(round(TRACK_FIXTURE_AT[1] * sx))
+    bg[oy:oy + 128, ox:ox + 128] = _blur_np32(fixture.uniform(0, 0.3, (128, 128)), 2.0)[:H - oy, :W - ox]
+    texs = [_blur_np32(fixture.uniform(0.5, 1.0, (21, 21)), 1.0)]
+    texs += [_blur_np32(rng.uniform(0.5, 1.0, (21, 21)), 1.0) for _ in TRACK_STARTS[1:]]
+    obj = np.random.default_rng(11).uniform(0.5, 1.0, (SIAM_SIDE, SIAM_SIDE)).astype(np.float32)  # TestSiam's
+    t = np.arange(n_frames, dtype=np.float64)[:, None, None]
+    starts = np.array(TRACK_STARTS) * [sy, sx]
+    starts[0] = (oy + 40.0, ox + 40.0)
+    centers = (starts[None] + t * np.array(TRACK_VELS)[None]).astype(np.float32)  # (T, 3, 2)
+    s0 = np.round(np.array(SIAM_START) * [sy, sx]).astype(int)
+    siam = (s0[None] + np.arange(n_frames)[:, None] * np.array(SIAM_VEL)[None]).astype(np.float32)
+    frames = np.repeat(bg[None], n_frames, 0)
+    h = SIAM_SIDE // 2
+    for f, cs, sc in zip(frames, centers, siam):
+        for c, tex in zip(cs, texs):
+            iy, ix = int(round(float(c[0]))) - 10, int(round(float(c[1]))) - 10
+            f[iy:iy + 21, ix:ix + 21] = tex
+        f[int(sc[0]) - h:int(sc[0]) + h, int(sc[1]) - h:int(sc[1]) + h] = obj
+    vanish = bg.copy()
+    for c, tex in list(zip(centers[-1], texs))[1:]:
+        iy, ix = int(round(float(c[0]))) - 10, int(round(float(c[1]))) - 10
+        vanish[iy:iy + 21, ix:ix + 21] = tex
+    sc = siam[-1]
+    vanish[int(sc[0]) - h:int(sc[0]) + h, int(sc[1]) - h:int(sc[1]) + h] = obj
+    # each test's own fixture, from its own seed-0 generator
+    zoom, zoom_sizes = _zoom_frames(np.random.default_rng(0), H, W, 24, 48)
+    zoom_kcf, zoom_kcf_sizes = _zoom_frames(np.random.default_rng(0), H, W, 28, 48)
+    zoom_const, _ = _zoom_frames(np.random.default_rng(0), H, W, 32, 32, n=12)
+    noise = np.random.default_rng(0)  # TestKalman::test_linear_constant_velocity
+    x_kf, kf_z = np.array([0.0, 0.0, 1.0, 0.5]), []
+    for _ in range(30):
+        x_kf = np.array([x_kf[0] + x_kf[2], x_kf[1] + x_kf[3], x_kf[2], x_kf[3]])
+        kf_z.append(x_kf[:2] + noise.normal(scale=0.2, size=2))
+    noise = np.random.default_rng(0)  # test_ukf_nonlinear_range_bearing
+    x_true = np.array([2.0, 1.0, 0.5, -0.2])
+    ukf_z, ukf_truth = [], []
+    for _ in range(60):
+        x_true = np.array([x_true[0] + UKF_DT * x_true[2], x_true[1] + UKF_DT * x_true[3], x_true[2], x_true[3]])
+        ukf_z.append([np.hypot(x_true[0], x_true[1]) + noise.normal(scale=0.05),
+                      np.arctan2(x_true[1], x_true[0]) + noise.normal(scale=0.005)])
+        ukf_truth.append(x_true)
+    # twist: 20 points at depths 2-4
+    K = np.array([[500.0, 0, W / 2], [0, 500.0, H / 2], [0, 0, 1]])
+    uv = rng.uniform([0.1 * W, 0.1 * H], [0.9 * W, 0.9 * H], size=(20, 2))
+    Z = rng.uniform(2, 4, size=20)
+    xi = np.array([0.1, -0.05, 0.2, 0.02, -0.03, 0.05])
+    duv = (_interaction_np(uv, Z, K) @ xi).reshape(-1, 2) * [K[0, 0], K[1, 1]]
+    boxes = []
+    extra_box = np.array([[0.75 * H - 12, 0.1 * W - 12, 0.75 * H + 12, 0.1 * W + 12]], np.float32)
+    for i in range(n_frames):
+        b = np.concatenate([centers[i] - TRACK_HALF, centers[i] + TRACK_HALF], 1).astype(np.float32)
+        boxes.append(np.concatenate([b, extra_box]) if SPAWN_FRAMES[0] <= i < SPAWN_FRAMES[1] else b)
+    f32 = np.float32
+    return TrackingScene(frames=frames, centers=centers, siam_centers=siam, vanish=vanish, zoom=zoom,
+                         zoom_sizes=zoom_sizes, zoom_kcf=zoom_kcf, zoom_kcf_sizes=zoom_kcf_sizes, zoom_const=zoom_const,
+                         kf_z=np.array(kf_z, f32),
+                         ukf_z=np.array(ukf_z, f32), ukf_truth=np.array(ukf_truth, f32), twist_uv=uv.astype(f32),
+                         twist_depths=Z.astype(f32), twist_K=K.astype(f32), twist_duv=duv.astype(f32),
+                         twist_xi=xi.astype(f32), boxes=boxes)
+
+
+TRACK_HOST_FIELDS = {"centers", "siam_centers", "zoom_sizes", "zoom_kcf_sizes", "ukf_truth", "twist_xi", "boxes"}
+
+
+class _TScene:
+    """A TrackingScene's arrays on the device (each moved on first use), its
+    truths and host lists as they are."""
+
+    def __init__(self, scene: TrackingScene, dev: torch.device):
+        self.scene, self.dev, self._on = scene, dev, {}
+
+    def __getattr__(self, name):
+        v = getattr(self.scene, name)
+        if name in TRACK_HOST_FIELDS:
+            return v
+        if name not in self._on:
+            self._on[name] = to_device(v, self.dev)
+        return self._on[name]
+
+
+_SIAM_MODELS: dict = {}
+SIAM_TRAIN = dict(n_steps=150, batch=16, seed=0)  # tests/test_breadth11.py's training
+
+
+def siam_model(device="cuda"):
+    """The Siamese backbone trained on `device` (the twin test's 150 steps x
+    16 from seed 0), trained on first use and kept for the process."""
+    from opencv_contrib_tpu_torch.tracking import siam
+
+    dev = resolve(device)
+    if dev not in _SIAM_MODELS:
+        _SIAM_MODELS[dev] = siam.train_siam(**SIAM_TRAIN, device=dev)
+    return _SIAM_MODELS[dev]
+
+
+def _single(g: _TScene, init, step, **kw):
+    """A single-target tracker over the clip: its centres (T, 2), frame 0
+    the start, and its scores (T - 1,), all on the device."""
+    frames = g.frames
+    st = init(frames[0])
+    centers, scores = [st.center if hasattr(st, "center") else st.box.center], []
+    for i in range(1, frames.shape[0]):
+        st, score = step(st, frames[i - 1], frames[i])
+        centers.append(st.center if hasattr(st, "center") else st.box.center)
+        scores.append(score)
+    return st, torch.stack(centers), torch.stack(scores)
+
+
+def _mosse(g: _TScene, size=(64, 64)):
+    from opencv_contrib_tpu_torch.tracking import correlation
+
+    st, c, s = _single(g, lambda f: correlation.mosse_init(f, g.centers[0, 0], size=size),
+                       lambda st, prev, f: correlation.mosse_update(st, f))
+    _, psr_vanish = correlation.mosse_update(st, g.vanish)
+    return {"centers": c, "psr": s, "psr_vanish": psr_vanish}
+
+
+def _kcf(g: _TScene, size=(64, 64)):
+    from opencv_contrib_tpu_torch.tracking import correlation
+
+    _, c, s = _single(g, lambda f: correlation.kcf_init(f, g.centers[0, 0], size=size),
+                      lambda st, prev, f: correlation.kcf_update(st, f))
+    return {"centers": c, "peak": s}
+
+
+def _csrt(g: _TScene, target_hw=(21, 21)):
+    from opencv_contrib_tpu_torch.tracking import csrt
+
+    _, c, s = _single(g, lambda f: csrt.csrt_init(f, g.centers[0, 0], target_hw=target_hw),
+                      lambda st, prev, f: csrt.csrt_update(st, f))
+    return {"centers": c, "peak": s}
+
+
+def _dsst(g: _TScene):
+    """The DSST filter alone at the known centre on the constant 32 px clip
+    (TestDsstScale::test_scale_stable_on_constant_size's frames): the
+    scale each frame."""
+    from opencv_contrib_tpu_torch.tracking import dsst
+
+    z = g.zoom_const
+    H, W = z.shape[1:]
+    c = (H / 2.0, W / 2.0)
+    s0 = 32
+    st = dsst.dsst_init(z[0], c, (s0, s0))
+    scales = []
+    for f in z[1:]:
+        st, s = dsst.dsst_update(st, f, c, (s0, s0))
+        scales.append(s)
+    return {"scale": torch.stack(scales)}
+
+
+def _scaled(g: _TScene, kind: str):
+    from opencv_contrib_tpu_torch.tracking import dsst
+
+    z, sizes = (g.zoom, g.zoom_sizes) if kind == "csrt" else (g.zoom_kcf, g.zoom_kcf_sizes)
+    H, W = z.shape[1:]
+    init, update = (dsst.csrt_scale_init, dsst.csrt_scale_update) if kind == "csrt" else \
+        (dsst.kcf_scale_init, dsst.kcf_scale_update)
+    st = init(z[0], (H / 2.0, W / 2.0), target_hw=(int(sizes[0]), int(sizes[0])))
+    centers, boxes = [], []
+    for f in z[1:]:
+        st, (c, box), _ = update(st, f)
+        centers.append(c)
+        boxes.append(box)
+    return {"centers": torch.stack(centers), "boxes": torch.stack(boxes)}
+
+
+def _kalman_models(dev):
+    F = constant([[1, 0, 1, 0], [0, 1, 0, 1], [0, 0, 1, 0], [0, 0, 0, 1]], dev)
+    Hm = constant([[1, 0, 0, 0], [0, 1, 0, 0]], dev)
+    return F, Hm, 1e-4 * torch.eye(4, device=dev), 0.04 * torch.eye(2, device=dev)
+
+
+def _kf_run(g: _TScene, aukf: bool = False):
+    from opencv_contrib_tpu_torch.tracking import kalman
+
+    dev = g.dev
+    F, Hm, Q, R = _kalman_models(dev)
+    st = kalman.KalmanState(torch.zeros(4, device=dev), torch.eye(4, device=dev))
+    for z in g.kf_z:
+        if aukf:
+            st = kalman.aukf_predict(st, lambda x, q: F @ x + q, Q)
+            st = kalman.aukf_correct(st, z, lambda x, r: Hm @ x + r, R)
+        else:
+            st = kalman.kf_correct(kalman.kf_predict(st, F, Q), z, Hm, R)
+    return {"x": st.x, "P": st.P}
+
+
+def _ukf(g: _TScene):
+    from opencv_contrib_tpu_torch.tracking import kalman
+
+    dev = g.dev
+
+    def f(x):
+        return torch.stack([x[0] + UKF_DT * x[2], x[1] + UKF_DT * x[3], x[2], x[3]])
+
+    def h(x):
+        return torch.stack([torch.sqrt(x[0] ** 2 + x[1] ** 2), torch.atan2(x[1], x[0])])
+
+    Q = 1e-5 * torch.eye(4, device=dev)
+    R = torch.diag(constant([0.01, 1e-4], dev))
+    st = kalman.KalmanState(constant([1.5, 1.5, 0.0, 0.0], dev), 0.5 * torch.eye(4, device=dev))
+    for z in g.ukf_z:
+        st = kalman.ukf_correct(kalman.ukf_predict(st, f, Q), z, h, R)
+    return {"x": st.x, "P": st.P}
+
+
+def _medianflow(g: _TScene):
+    from opencv_contrib_tpu_torch.tracking import medianflow
+
+    box0 = medianflow.Box(constant(g.centers[0, 0], g.dev), torch.full((2,), 20.0, device=g.dev))
+    _, c, ok = _single(g, lambda f: box0, lambda st, prev, f: medianflow.medianflow_update(st, prev, f))
+    return {"centers": c, "ok": ok}
+
+
+def _tld(g: _TScene, seed: int = 1):
+    from opencv_contrib_tpu_torch.tracking import tld
+
+    gen = torch.Generator(device=g.dev).manual_seed(seed)
+    bank = tld.fern_bank(gen)
+    _, c, conf = _single(g, lambda f: tld.tld_init(f, g.centers[0, 0], (21.0, 21.0), bank=bank),
+                         lambda st, prev, f: tld.tld_update(st, prev, f, bank))
+    return {"centers": c, "conf": conf}
+
+
+def _haar(kind: str):
+    def run(g: _TScene, seed: int = 0, n_features: int = 120):
+        from opencv_contrib_tpu_torch.tracking import boosting, mil
+
+        gen = torch.Generator(device=g.dev).manual_seed(seed)
+        bank = mil.make_feature_bank(gen, patch=32, n_features=n_features)
+        init, update = (mil.mil_init, mil.mil_update) if kind == "mil" else \
+            (boosting.boosting_init, boosting.boosting_update)
+        _, c, s = _single(g, lambda f: init(f, g.centers[0, 0], gen, bank),
+                          lambda st, prev, f: update(st, f, gen, bank))
+        return {"centers": c, "score": s}
+
+    return run
+
+
+def _multi(g: _TScene, seed: int = 1):
+    """MultiTracker with MOSSE on A, KCF on B and MedianFlow on C
+    (tests/test_tracking_extra.py's mixed kinds): centres (T, 3, 2)."""
+    from opencv_contrib_tpu_torch.tracking import multitracker
+
+    mt = multitracker.MultiTracker(seed=seed, device=g.dev)
+    frames, c0 = g.frames, g.centers[0]
+    mt.add("mosse", frames[0], c0[0])
+    mt.add("kcf", frames[0], c0[1])
+    mt.add("medianflow", frames[0], (c0[2], (24.0, 24.0)))
+    out = [constant(c0, g.dev)]
+    for i in range(1, frames.shape[0]):
+        out.append(torch.stack(mt.update(frames[i], prev_img=frames[i - 1])))
+    return {"centers": torch.stack(out)}
+
+
+def _by_matching(g: _TScene):
+    """TrackerByMatching over the detections: the live (id, box) pairs of
+    each frame (host lists)."""
+    from opencv_contrib_tpu_torch.tracking import matching
+
+    trk = matching.TrackerByMatching(max_cost=0.8, device=g.dev)
+    return {"tracks": [trk.process(b) for b in g.boxes]}
+
+
+def _twist(g: _TScene):
+    from opencv_contrib_tpu_torch.tracking import twist
+
+    return {"xi": twist.compute_twist(g.twist_uv, g.twist_duv, g.twist_depths, g.twist_K)}
+
+
+def _siam(g: _TScene):
+    from opencv_contrib_tpu_torch.tracking import siam
+
+    model = siam_model(g.dev)
+    y, x = (float(v) for v in g.siam_centers[0])
+    h = SIAM_SIDE / 2
+    st = siam.siam_init(model, g.frames[0], (y - h, x - h, SIAM_SIDE, SIAM_SIDE))
+    centers, scores = [st.center], []
+    for i in range(1, g.frames.shape[0]):
+        st, _, score = siam.siam_update(model, st, g.frames[i])
+        centers.append(st.center)
+        scores.append(score)
+    return {"centers": torch.stack(centers), "score": scores}
+
+
+# each method: its run on the scene, with the settings of the JAX test that gates it
+TRACKING = {
+    "mosse": _mosse, "kcf": _kcf, "csrt": _csrt, "dsst": _dsst,
+    "csrt_scale": lambda g: _scaled(g, "csrt"), "kcf_scale": lambda g: _scaled(g, "kcf"),
+    "kalman": _kf_run, "ukf": _ukf, "aukf": lambda g: _kf_run(g, aukf=True), "medianflow": _medianflow,
+    "tld": _tld, "mil": _haar("mil"), "boosting": _haar("boosting"), "multi": _multi,
+    "by_matching": _by_matching, "twist": _twist, "siam": _siam,
+}
+
+
+@f32_matmuls
+def track_x(scene: TrackingScene, method: str, device="cuda") -> dict:
+    """One tracker or filter of the tracking module on `scene` (a
+    `tracking_scene()`; its arrays may already be tensors on the device):
+    MOSSE, KCF, CSRT, DSST and the scale-adaptive CSRT / KCF, the linear /
+    unscented / augmented Kalman filters, MedianFlow, TLD, MIL, Boosting,
+    the MultiTracker, TrackerByMatching, the twist and the Siamese tracker
+    (the backbone trained on `device` on first use, `siam_model`), with the
+    settings of the JAX test that gates each (`TRACKING`). Returns a dict of
+    tensors on `device` (TrackerByMatching's tracks and the Siamese scores
+    are host values, as the twins return them)."""
+    if method not in TRACKING:
+        raise ValueError(f"track_x: method must be one of {sorted(TRACKING)}, got {method!r}")
+    return TRACKING[method](_TScene(scene, resolve(device)))
+
+
+class ShakyClip(NamedTuple):
+    """`stabilize_clip`'s input: `frames` (T, H, W), a blurred (sigma 2)
+    U(0, 1) texture times 3 warped by a small similarity each frame
+    (rotation N(0, 0.01) rad and shift N(0, 1.5) px about the centre);
+    `warps` (T, 3, 3) those output -> input maps, so `motions` (T - 1, 3,
+    3) = inv(warps[i + 1]) @ warps[i] map frame i to frame i + 1;
+    `trajectory` (60, 2) the LP test's drift + N(0, 0.03) path (its seed-3
+    draws); `hole` (H,
+    W) bool, an inpainting mask."""
+    frames: np.ndarray
+    warps: np.ndarray
+    motions: np.ndarray
+    trajectory: np.ndarray
+    hole: np.ndarray
+
+
+def shaky_clip(H: int = 480, W: int = 640, n_frames: int = 16, seed: int = 0) -> ShakyClip:
+    from opencv_contrib_tpu_torch.ops.image import warp_perspective
+
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(_blur_np32(rng.uniform(size=(H, W)), 2.0) * 3)
+    c = np.array([W / 2.0, H / 2.0])
+    warps = []
+    for _ in range(n_frames):
+        a, t = rng.normal(0, 0.01), rng.normal(0, 1.5, 2)
+        R = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        M = np.eye(3)
+        M[:2, :2], M[:2, 2] = R, c - R @ c + t
+        warps.append(M)
+    warps = np.array(warps)
+    frames = np.stack([warp_perspective(base, torch.from_numpy(M.astype(np.float32))).numpy() for M in warps])
+    motions = np.stack([np.linalg.inv(warps[i + 1]) @ warps[i] for i in range(n_frames - 1)])
+    n = 60  # tests/test_videostab2.py::TestLpTrajectory's path, from its own seed-3 draws
+    jitter = np.random.default_rng(3).normal(0, 0.03, (n, 2)).astype(np.float32)
+    traj = np.stack([np.linspace(0, 1, n), np.zeros(n)], 1).astype(np.float32) + jitter
+    hole = np.zeros((H, W), bool)
+    hole[H // 3:H // 3 + H // 12, W // 3:W // 3 + W // 12] = True
+    return ShakyClip(frames.astype(np.float32), warps.astype(np.float32), motions.astype(np.float32),
+                     traj.astype(np.float32), hole)
+
+
+STAB_RANSAC = dict(n_points=60, n_outliers=12, seed=0)  # tests/test_videostab2.py's 20% outliers
+STAB_LP_BOUND = 0.08
+
+
+class Stabilized(NamedTuple):
+    frames: list  # the stabilized frames (tensors)
+    motions: torch.Tensor  # (T - 1, 4) estimated similarity parameters
+    comp: torch.Tensor  # (T, 4) float64 compensations
+    ransac: torch.Tensor  # (3, 3) RANSAC motion of frame 0 -> 1 from point matches
+    ransac_inliers: torch.Tensor
+    ransac_truth: np.ndarray  # (3, 3) the true motion
+    lp: torch.Tensor  # the L1-optimal path of the clip's trajectory
+    deblurred: torch.Tensor  # frame 2, blurred (sigma 2), then deblurred from frames 0-4
+    blurred: torch.Tensor
+    color_filled: torch.Tensor  # a constant 0.7 frame with the hole filled
+    mosaic_filled: torch.Tensor  # frame 0 with the hole zeroed, filled from 4 copies of it (K = 4)
+    wobble: torch.Tensor  # frame 3 with pass-1 = pass-2 motions (a no-op), period 5
+
+
+@f32_matmuls
+def stabilize_clip(clip: ShakyClip, device="cuda") -> Stabilized:
+    """The videostab path on a shaky clip: `stabilize` (similarity, sigma
+    1.5), `ransac_motion` on 60 point matches of frames 0 -> 1 with 12
+    outliers, the L1-optimal path of the clip's trajectory, weighting
+    deblur of a blurred frame from its neighbours, both inpainters and
+    wobble suppression (the fixtures of tests/test_breadth2.py and
+    test_videostab2.py, at the clip's size)."""
+    from opencv_contrib_tpu_torch import videostab
+
+    dev = resolve(device)
+    frames = [to_device(f, dev) for f in clip.frames]
+    stab, motions, comp = videostab.stabilize(frames, model="similarity", sigma=1.5)
+    rng = np.random.default_rng(STAB_RANSAC["seed"])
+    H, W = clip.frames.shape[1:]
+    pts0 = rng.uniform([0, 0], [W, H], (STAB_RANSAC["n_points"], 2)).astype(np.float32)
+    M = clip.motions[0].astype(np.float64)
+    pts1 = (pts0 @ M[:2, :2].T + M[:2, 2]).astype(np.float32)
+    pts1[:STAB_RANSAC["n_outliers"]] += rng.uniform(20, 40, (STAB_RANSAC["n_outliers"], 2)).astype(np.float32)
+    gen = torch.Generator(dev).manual_seed(STAB_RANSAC["seed"])
+    Mr, inl = videostab.ransac_motion(constant(pts0, dev), constant(pts1, dev), gen, model="similarity")
+    lp = videostab.lp_stabilize_trajectory(constant(clip.trajectory, dev), bound=STAB_LP_BOUND)
+    mot = [constant(m, dev) for m in clip.motions]
+    blurred = filters.gaussian_blur(frames[2], 2.0)
+    deblurred = videostab.weighting_deblur(frames[:2] + [blurred] + frames[3:5], mot[:4], idx=2)
+    hole = constant(clip.hole, dev, torch.bool)
+    color = videostab.color_average_inpaint(torch.full((H, W), 0.7, device=dev), hole, n_iters=100)
+    corrupted = torch.where(hole, torch.zeros((), device=dev), frames[0])
+    eye = [torch.eye(3, device=dev)] * 4
+    mosaic = videostab.consistent_mosaic_inpaint([frames[0], corrupted] + [frames[0]] * 3, eye, 1, hole, radius=2)
+    wob = videostab.wobble_suppress(frames[3], 3, 5, mot, mot, torch.eye(3, device=dev))
+    return Stabilized(stab, motions, comp, Mr, inl, clip.motions[0], lp, deblurred, blurred, color, mosaic, wob)
+
+
+SUPERRES_SHIFTS = ((0, 0), (1.0, 0), (0, 1.0), (1.0, 1.0))  # tests/test_breadth2.py::TestSuperres, in HR px
+
+
+class SuperRes(NamedTuple):
+    known: torch.Tensor  # btv_l1 with the known flows (n_iters 25, lam 5e-3, ref 0)
+    dis: torch.Tensor  # btv_l1 with DIS's flows (n_iters 25, lam 2e-2)
+    hr: np.ndarray  # the high-res truth
+    bicubic: torch.Tensor  # frame 0 upsampled (linear), the baseline
+    frames: list  # the low-res frames
+
+
+@f32_matmuls
+def superres_clip(device="cuda", H: int = 240, W: int = 320, seed: int = 0) -> SuperRes:
+    """4 low-res H x W frames of a blurred (sigma 1) U(0, 1) texture,
+    shifted by SUPERRES_SHIFTS and area-downsampled by 2, fused to 2H x 2W
+    by `superres.btv_l1`, once with the known flows and once with DIS's
+    (tests/test_breadth2.py::TestSuperres at this size)."""
+    from opencv_contrib_tpu_torch import superres
+    from opencv_contrib_tpu_torch.ops.image import resize
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    hr = _blur_np32(rng.uniform(size=(2 * H, 2 * W)), 1.0)
+    frames = []
+    for dy, dx in SUPERRES_SHIFTS:
+        shifted = warp_affine(torch.from_numpy(hr), torch.tensor([[1.0, 0.0, dx], [0.0, 1.0, dy]]))
+        frames.append(to_device(resize(shifted, (H, W), method="area"), dev))
+    flows = [constant([dy / 2, dx / 2], dev).expand(H, W, 2) for dy, dx in SUPERRES_SHIFTS]
+    known = superres.btv_l1(frames, scale=2, n_iters=25, lam=5e-3, ref_index=0, flows=flows)
+    est = superres.btv_l1(frames, scale=2, n_iters=25, lam=2e-2)
+    return SuperRes(known, est, hr, resize(frames[0], (2 * H, 2 * W)), frames)

@@ -1,13 +1,16 @@
 """Carry state between the JAX package and this one as numpy arrays.
 
 The port's learned state is the trained BRISQUE head, the learning-based
-white balance's regressor and the learned edge map's MLP. The head, `quality.brisque_svr.BrisqueModel`,
+white balance's regressor, the learned edge map's MLP and the Siamese
+tracker's backbone. The head, `quality.brisque_svr.BrisqueModel`,
 holds host numpy arrays in both packages and its npz (`save_model`,
 `load_model`) is the same file: it crosses as it is. The regressor,
 `xphoto.fit_wb_model`'s (F, 2) matrix, crosses by `wb_model`. The edge
 map's MLP, `ximgproc.edge_forest.train`'s {"W1", "b1", "W2", "b2"}, crosses
 by `edge_forest_params`. A trained point-pair-feature model
-(`surface_matching.PPFModel`) crosses by `ppf_model`; the omnidir and
+(`surface_matching.PPFModel`) crosses by `ppf_model`; the Siamese
+tracker's backbone (`tracking.siam.SiamBackbone`, flax's parameters in the
+twin) by `siam_params`; the omnidir and
 registration parameters are plain arrays and need no converter.
 
 The rest of the port's state is the NamedTuples (Keypoints,
@@ -112,6 +115,27 @@ def ppf_model(model_np, device="cpu") -> PPFModel:
                     keys=arr(m.keys, np.int32), ref_idx=arr(m.ref_idx, np.int32), alpha=arr(m.alpha, np.float32),
                     dist_step=arr(m.dist_step, np.float32), angle_step=arr(m.angle_step, np.float32),
                     diameter=arr(m.diameter, np.float32))
+
+
+SIAM_LAYERS = (("Conv_0", "conv1"), ("Conv_1", "conv2"), ("Conv_2", "conv3"))
+
+
+def siam_params(params_np, device="cpu") -> dict:
+    """The Siamese backbone's parameters of the JAX package (flax's
+    {"Conv_0": {"kernel": (3, 3, I, O) HWIO, "bias": (O,)}, "Conv_1",
+    "Conv_2"}, as JAX or numpy arrays) as the state dict of this package's
+    `tracking.siam.SiamBackbone` on `device`: kernels OIHW, float32."""
+    if set(params_np) != {f for f, _ in SIAM_LAYERS}:
+        raise ValueError(f"Siamese backbone parameters are {[f for f, _ in SIAM_LAYERS]}, got {sorted(params_np)}")
+    out = {}
+    for flax_name, torch_name in SIAM_LAYERS:
+        kernel = np.asarray(params_np[flax_name]["kernel"], np.float32)
+        bias = np.asarray(params_np[flax_name]["bias"], np.float32)
+        if kernel.ndim != 4 or bias.shape != (kernel.shape[3],):
+            raise ValueError(f"{flax_name}: kernel {kernel.shape}, bias {bias.shape}")
+        out[f"{torch_name}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))).to(device)
+        out[f"{torch_name}.bias"] = torch.from_numpy(bias.copy()).to(device)
+    return out
 
 
 def _is_namedtuple(x) -> bool:

@@ -43,9 +43,11 @@ SIGNATURES = {
     "scan": {
         # x, y, H, W, warps a block, run, stream
         "scan_rows_f32": [_P, _P, _I, _I, _I, _I, _P],
-        # x, out, H, W, pitch, pad, slab rows, slab columns, ctrl, base, epoch,
-        # column totals, row totals, stream
-        "integral_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P],
+        # x, out, tables, H, W, pitch, pad, slab rows, slab columns, ctrl, base,
+        # epoch, column totals, row totals, stream
+        "integral_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P],
+        # x, out, tables, H, W, pitch, pad, slab rows, slab columns, stream
+        "integral_table_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "knn2": {
         # q, t, Q, T, D, large, span, tickets, partials, dist, idx, stream

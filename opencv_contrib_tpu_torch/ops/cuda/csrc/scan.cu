@@ -66,6 +66,17 @@
 // has to set them back. With `pad` the kernel writes the zero-padded (H + 1,
 // W + 1) table of ops/integral.py::integral itself, its zero row and column
 // included.
+//
+// A batch of N tables of one (H, W) (MIL's and Boosting's 32 x 32 patches,
+// tracking/mil.py) is one launch: the tickets run table-major, ticket
+// t n + s being slab s of table t (n = nb nc slabs a table), so every slab
+// a block waits on holds a lower ticket of its own table and has started.
+// Each table has its own statuses and totals and the slabs of (H, W): its
+// bits equal those of a launch on that table alone. Such small tables take
+// integral_table_kernel instead, one block a table with its bands in shared
+// memory: the same sums in the same order, without tickets or waits (a
+// batch of 337 tables of 32 x 32 on the slabs was 1,348 blocks, four bands
+// a table each waiting on the band above).
 
 #include <cuda_runtime.h>
 
@@ -79,6 +90,10 @@ constexpr int MAX_COLS = 1024;         // columns a slab: ops/cuda/scan.py _COLS
 constexpr int MAX_DEVICES = 64;
 constexpr int MAX_SMEM = 200 * 1024;  // ops/cuda/scan.py _SMEM_MAX
 constexpr int SCAN_WARPS = 8;         // grid_scan: at most this many warps (rows) a block, ops/cuda/scan.py _SCAN_WARPS
+constexpr int TABLE_THREADS = 256;    // integral_table_kernel: 8 warps, one row each at a time
+constexpr int TABLE_BLOCKS = 4;       // integral_table_kernel: blocks an SM at least (64 registers a thread)
+constexpr int TABLE_BATCH = 8;        // integral_table_kernel: rows' loads in flight a thread
+constexpr int TABLE_SMEM = 48 * 1024; // integral_table_kernel's shared memory at most: ops/cuda/scan.py _TABLE_SMEM
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -124,10 +139,10 @@ struct BandRow {
 // 16-byte aligned; y may be the row that `load` reads. The chunks of 128
 // of a pass are loaded and scanned side by side (their shuffle chains
 // overlap); only the carry from chunk to chunk is serial, added in chunk
-// order as a walk of one chunk at a time would add it.
-template <class Load>
+// order as a walk of one chunk at a time would add it, so the sums do not
+// depend on C, the chunks of 128 a pass.
+template <int C = 8, class Load>
 __device__ __forceinline__ float scan_row(const Load& load, float* y, int W, bool vec, int lane) {
-  constexpr int C = 8;  // chunks of 128 a pass
   float carry = 0.f;
   for (int base = 0; base < W; base += 128 * C) {
     float v[C][4], s[C];
@@ -301,7 +316,7 @@ __device__ __forceinline__ void wait_for(const unsigned* p, unsigned epoch) {
 // (nc == 1), compiled without the row totals and carries.
 template <bool ONE>
 __global__ void __launch_bounds__(INTEGRAL_THREADS) integral_kernel(
-    const float* __restrict__ x, int H, int W, int R, int Cw, int nc, bool vec_in, float* __restrict__ out,
+    const float* __restrict__ x, int H, int W, int R, int Cw, int nc, int n, bool vec_in, float* __restrict__ out,
     int pitch, int pad, bool vec_out, unsigned* __restrict__ ctrl, unsigned base, unsigned epoch,
     float* __restrict__ tot, float* __restrict__ rtot) {
   constexpr int NT = INTEGRAL_THREADS, NW = NT / 32;
@@ -311,13 +326,18 @@ __global__ void __launch_bounds__(INTEGRAL_THREADS) integral_kernel(
   float* carry_s = excl_s + (size_t)(1 + GROUPS) * Cw;
   __shared__ int s_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  unsigned* cstatus = ctrl + 1;
-  unsigned* rstatus = cstatus + gridDim.x;
   if (tid == 0) s_s = (int)(atomicAdd(ctrl, 1u) - base);
   __syncthreads();
-  const int s = s_s, b = ONE ? s : s / nc, c = ONE ? 0 : s - b * nc;
+  const int t = s_s / n, s = s_s - t * n, b = ONE ? s : s / nc, c = ONE ? 0 : s - b * nc;
   const int r0 = b * R, rows = min(R, H - r0), c0 = c * Cw, cols = min(Cw, W - c0);
   const int Wt = nc * Cw, W4 = Cw / 4;
+  // table t: its input, output, statuses and totals
+  x += (size_t)t * H * W;
+  out += (size_t)t * (H + pad) * pitch;
+  unsigned* cstatus = ctrl + 1 + (size_t)t * n;
+  unsigned* rstatus = ctrl + 1 + (size_t)gridDim.x + (size_t)t * n;
+  tot += (size_t)t * n * Cw;
+  rtot += (size_t)t * n * R;
   const float* xs = x + c0;
 
   // 1. in-band column prefix, 4 columns a thread, BATCH rows' loads in flight
@@ -432,6 +452,79 @@ __global__ void __launch_bounds__(INTEGRAL_THREADS) integral_kernel(
   }
 }
 
+// integral_table_kernel: one block a table, for tables one slab across
+// (nc == 1) whose R-row bands' column prefixes, their totals and each
+// band's E fit in TABLE_SMEM. The same sums in the same order as
+// integral_kernel on the slabs of (H, W): each band's column prefix in
+// registers (step 1), E of band b as the totals of the bands above summed
+// in groups of BATCH, the groups then added in order (step 2), and one warp
+// a row scanning E + the prefix with scan_row (step 3); so its bits equal
+// integral_kernel's. No tickets, no waits: the bands of a table are the
+// block's own. Shared memory: the H rows of prefixes, nb rows of band
+// totals and nb rows of E, Cw floats each.
+__global__ void __launch_bounds__(TABLE_THREADS, TABLE_BLOCKS) integral_table_kernel(
+    const float* __restrict__ x, int H, int W, int R, int Cw, bool vec_in, float* __restrict__ out, int pitch,
+    int pad, bool vec_out) {
+  constexpr int NW = TABLE_THREADS / 32;
+  extern __shared__ float4 smem4[];
+  const int nb = (H + R - 1) / R, C4 = (W + 3) / 4;
+  float* band_s = reinterpret_cast<float*>(smem4);
+  float* tot_s = band_s + (size_t)H * Cw;
+  float* excl_s = tot_s + (size_t)nb * Cw;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  x += (size_t)blockIdx.x * H * W;
+  out += (size_t)blockIdx.x * (H + pad) * pitch;
+
+  // 1. each band's in-band column prefix, 4 columns a thread, TABLE_BATCH
+  // rows' loads in flight (the sums run row by row whatever the batch)
+  for (int e = tid; e < nb * C4; e += TABLE_THREADS) {
+    const int b = e / C4, j = (e - b * C4) * 4, r0 = b * R, rows = min(R, H - r0);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r1 = 0; r1 < rows; r1 += TABLE_BATCH) {
+      float v[TABLE_BATCH][4];
+#pragma unroll
+      for (int k = 0; k < TABLE_BATCH; ++k)
+        if (r1 + k < rows) GlobalRow{x + (size_t)(r0 + r1 + k) * W, W, vec_in}(j, v[k]);
+#pragma unroll
+      for (int k = 0; k < TABLE_BATCH; ++k) {
+        if (r1 + k >= rows) break;
+        const float4 a = make_float4(v[k][0], v[k][1], v[k][2], v[k][3]);
+        acc = r1 + k == 0 ? a : add4(acc, a);
+        *reinterpret_cast<float4*>(band_s + (size_t)(r0 + r1 + k) * Cw + j) = acc;
+      }
+    }
+    *reinterpret_cast<float4*>(tot_s + (size_t)b * Cw + j) = acc;
+  }
+  __syncthreads();
+
+  // 2. E of each band b > 0: each group of BATCH bands above summed in band
+  // order, the group sums added in group order
+  for (int e = tid; e < (nb - 1) * C4; e += TABLE_THREADS) {
+    const int b = 1 + e / C4, j = (e - (b - 1) * C4) * 4;
+    float4 E = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i0 = 0; i0 < b; i0 += BATCH) {
+      float4 p = *reinterpret_cast<const float4*>(tot_s + (size_t)i0 * Cw + j);
+      for (int k = 1; k < BATCH && i0 + k < b; ++k)
+        p = add4(p, *reinterpret_cast<const float4*>(tot_s + (size_t)(i0 + k) * Cw + j));
+      E = i0 == 0 ? p : add4(E, p);
+    }
+    *reinterpret_cast<float4*>(excl_s + (size_t)b * Cw + j) = E;
+  }
+  __syncthreads();
+
+  // 3. the rows scanned, one warp a row, a chunk of 128 at a time, into the table
+  float* o = out + (size_t)pad * pitch + pad;
+  for (int r = warp; r < H; r += NW) {
+    const int b = r / R;
+    scan_row<1>(BandRow{band_s + (size_t)r * Cw, b == 0 ? nullptr : excl_s + (size_t)b * Cw, W}, o + (size_t)r * pitch,
+             W, vec_out, lane);
+  }
+  if (pad) {
+    for (int r = tid; r < H; r += TABLE_THREADS) out[(size_t)(r + 1) * pitch] = 0.f;
+    for (int j = tid; j <= W; j += TABLE_THREADS) out[j] = 0.f;
+  }
+}
+
 }  // namespace
 
 // x, y (H, W) contiguous; `warps` rows a block (at most SCAN_WARPS), runs
@@ -449,21 +542,21 @@ extern "C" int scan_rows_f32(const float* x, float* y, int H, int W, int warps, 
   return (int)cudaGetLastError();
 }
 
-// x (H, W) contiguous; element (i, j) of the table goes to
-// out[(i + pad) * pitch + j + pad], and with pad = 1 row 0 and column 0 are
-// zeros; slabs of R rows by Cw columns (Cw % 4 == 0), nb = ceil(H / R)
-// bands of nc = ceil(W / Cw); ctrl: 1 + 2 nb nc unsigned ints, ctrl[0] ==
-// base and no status equal to epoch on entry (the wrapper counts both on:
-// base += nb nc, epoch += 1 a launch); tot: nb nc Cw floats; rtot: nb nc R
-// floats
-extern "C" int integral_f32(const float* x, float* out, int H, int W, int pitch, int pad, int R, int Cw,
+// x (N, H, W) contiguous; element (i, j) of table t goes to
+// out[t (H + pad) pitch + (i + pad) * pitch + j + pad], and with pad = 1
+// row 0 and column 0 of each table are zeros; slabs of R rows by Cw columns
+// (Cw % 4 == 0), nb = ceil(H / R) bands of nc = ceil(W / Cw) a table; ctrl:
+// 1 + 2 N nb nc unsigned ints, ctrl[0] == base and no status equal to epoch
+// on entry (the wrapper counts both on: base += N nb nc, epoch += 1 a
+// launch); tot: N nb nc Cw floats; rtot: N nb nc R floats
+extern "C" int integral_f32(const float* x, float* out, int N, int H, int W, int pitch, int pad, int R, int Cw,
                             unsigned* ctrl, unsigned base, unsigned epoch, float* tot, float* rtot,
                             cudaStream_t stream) {
-  if (H <= 0 || W <= 0 || R <= 0 || Cw <= 0 || Cw % 4 || Cw > MAX_COLS || pitch < W + pad || epoch == 0)
+  if (N <= 0 || H <= 0 || W <= 0 || R <= 0 || Cw <= 0 || Cw % 4 || Cw > MAX_COLS || pitch < W + pad || epoch == 0)
     return (int)cudaErrorInvalidValue;
   const int nb = (H + R - 1) / R, nc = (W + Cw - 1) / Cw;
   const size_t smem = (((size_t)R + 1 + GROUPS) * Cw + R) * sizeof(float);
-  if (smem > (size_t)MAX_SMEM || (size_t)nb * nc > 0x7fffffff / 2) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)MAX_SMEM || (size_t)N * nb * nc > 0x7fffffff / 2) return (int)cudaErrorInvalidValue;
   static bool attr_set[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -475,11 +568,28 @@ extern "C" int integral_f32(const float* x, float* out, int H, int W, int pitch,
     if (err != cudaSuccess) return (int)err;
     if (dev < MAX_DEVICES) attr_set[dev] = true;
   }
+  // W % 4 == 0 keeps every table's rows 16-byte aligned where the first table's are
   const bool vec_in = (W % 4 == 0) && (reinterpret_cast<size_t>(x) % 16 == 0);
   const float* row0 = out + (size_t)pad * pitch + pad;
   const bool vec_out = (W % 4 == 0) && (pitch % 4 == 0) && (reinterpret_cast<size_t>(row0) % 16 == 0);
   const auto kernel = nc == 1 ? integral_kernel<true> : integral_kernel<false>;
-  kernel<<<nb * nc, INTEGRAL_THREADS, smem, stream>>>(x, H, W, R, Cw, nc, vec_in, out, pitch, pad, vec_out, ctrl, base,
-                                                      epoch, tot, rtot);
+  kernel<<<N * nb * nc, INTEGRAL_THREADS, smem, stream>>>(x, H, W, R, Cw, nc, nb * nc, vec_in, out, pitch, pad,
+                                                          vec_out, ctrl, base, epoch, tot, rtot);
+  return (int)cudaGetLastError();
+}
+
+// the same tables as integral_f32 on slabs of R rows by Cw columns, one
+// block a table: W <= Cw (one slab across) and (H + 2 ceil(H / R)) Cw floats
+// within TABLE_SMEM (ops/cuda/scan.py::one_block)
+extern "C" int integral_table_f32(const float* x, float* out, int N, int H, int W, int pitch, int pad, int R, int Cw,
+                                  cudaStream_t stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || R <= 0 || Cw % 4 || W > Cw || pitch < W + pad) return (int)cudaErrorInvalidValue;
+  const int nb = (H + R - 1) / R;
+  const size_t smem = ((size_t)H + 2 * nb) * Cw * sizeof(float);
+  if (smem > (size_t)TABLE_SMEM) return (int)cudaErrorInvalidValue;
+  const bool vec_in = (W % 4 == 0) && (reinterpret_cast<size_t>(x) % 16 == 0);
+  const float* row0 = out + (size_t)pad * pitch + pad;
+  const bool vec_out = (W % 4 == 0) && (pitch % 4 == 0) && (reinterpret_cast<size_t>(row0) % 16 == 0);
+  integral_table_kernel<<<N, TABLE_THREADS, smem, stream>>>(x, H, W, R, Cw, vec_in, out, pitch, pad, vec_out);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,12 @@ the 2D scan is one launch of slabs of rows and
 columns, each adding the column totals of the slabs above it and the row
 totals of those to its left in a fixed order (see the source); it takes any
 width, and it writes the padded table itself, so `integral` is one launch a
-frame.
+frame. Both integral wrappers also take a batch (N, H, W) of tables of one
+size, in one launch (MIL's and Boosting's Haar patches): the kernel numbers
+its slab tickets table-major, and each table's bits equal those of a launch
+on it alone. Tables small enough (`one_block`: the 32 x 32 patches) take a
+second kernel in the same source, one block a table, which sums in the
+slab kernel's order on the slabs of (H, W) and so gives its bits.
 
 The plain versions sum in the order of XLA's CPU cumsum (blocks of 16,
 sequential inside a block, the block totals scanned the same way), so on
@@ -54,14 +59,16 @@ def grid_scan_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def integral_image_plain(x: torch.Tensor) -> torch.Tensor:
-    """Columns, then rows: the order of the JAX package's `ops.integral`."""
+    """Columns, then rows: the order of the JAX package's `ops.integral`;
+    (..., H, W), each table on its own."""
     x = x.to(torch.float32)
-    return _scan_last(_scan_last(x.T).T)
+    return _scan_last(_scan_last(x.transpose(-1, -2)).transpose(-1, -2))
 
 
-def _check(x: torch.Tensor, name: str) -> None:
-    if x.ndim != 2 or x.shape[0] == 0 or x.shape[1] == 0:
-        raise ValueError(f"{name}: expected a non-empty (H, W), got {tuple(x.shape)}")
+def _check(x: torch.Tensor, name: str, batch: bool = False) -> None:
+    if x.ndim not in ((2, 3) if batch else (2,)) or 0 in x.shape:
+        raise ValueError(f"{name}: expected a non-empty (H, W){' or (N, H, W)' if batch else ''}, "
+                         f"got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32, got {x.dtype}")
 
@@ -98,6 +105,7 @@ def grid_scan(x: torch.Tensor) -> torch.Tensor:
 
 
 def integral_padded_plain(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) -> the zero-padded tables (..., H + 1, W + 1)."""
     return F.pad(integral_image_plain(x), (1, 0, 1, 0))
 
 
@@ -108,6 +116,7 @@ _MIN_ROWS = 8  # rows a band at least: a short image takes fewer bands, not band
 _GROUPS = 4  # csrc/scan.cu GROUPS: rows of group sums beside the slab
 _SMEM_MAX = 200 * 1024  # csrc/scan.cu MAX_SMEM: a slab's rows, E, the group sums and the row carries
 _EPOCHS = 1 << 31  # launches a scratch serves (a status holds the epoch in 32 bits)
+_TABLE_SMEM = 48 * 1024  # csrc/scan.cu TABLE_SMEM: a one-block table's bands, totals and E
 
 
 def slabs(H: int, W: int) -> tuple[int, int]:
@@ -124,6 +133,14 @@ def slabs(H: int, W: int) -> tuple[int, int]:
     widest = min(_COLS, (words - R) // (R + 1 + _GROUPS) // 4 * 4)
     nc = -(-W // widest)
     return R, -(-W // (4 * nc)) * 4
+
+
+def one_block(H: int, W: int) -> bool:
+    """Whether the integral kernel takes tables of (H, W) one block a table
+    (`integral_table_kernel`): one slab across, and the slabs' rows, band
+    totals and E within _TABLE_SMEM. Its bits equal the slab kernel's."""
+    R, Cw = slabs(H, W)
+    return W <= Cw and (H + 2 * -(-H // R)) * Cw * 4 <= _TABLE_SMEM
 
 
 class _Scratch:
@@ -158,20 +175,29 @@ def _scratch_for(dev: torch.device, stream: int, n_ctrl: int, n_tot: int, n_rtot
     return sc
 
 
-def _integral(x: torch.Tensor, pad: int, name: str) -> torch.Tensor:
+def _integral(x: torch.Tensor, pad: int, name: str, slabs_only: bool = False) -> torch.Tensor:
+    """One launch of the integral kernel on (H, W) or (N, H, W): one block
+    a table where `one_block` allows it (unless `slabs_only`), else the
+    slab tickets."""
     x = x.to(torch.float32)
-    _check(x, name)
+    _check(x, name, batch=True)
     x = x.contiguous()
-    H, W = x.shape
-    out = torch.empty((H + pad, W + pad), dtype=torch.float32, device=x.device)
+    N, (H, W) = (x.shape[0] if x.ndim == 3 else 1), x.shape[-2:]
+    out = torch.empty(x.shape[:-2] + (H + pad, W + pad), dtype=torch.float32, device=x.device)
     R, Cw = slabs(H, W)
-    n = -(-H // R) * -(-W // Cw)
     stream = _build.stream_of(x)
+    if not slabs_only and one_block(H, W):
+        with _build.on_device(x.device):
+            _build.check(_build.lib("scan").integral_table_f32(x.data_ptr(), out.data_ptr(), N, H, W, W + pad, pad,
+                                                               R, Cw, stream), "integral_table_f32")
+        integral_image.launches += 1
+        return out
+    n = N * -(-H // R) * -(-W // Cw)
     sc = _scratch_for(x.device, stream, 1 + 2 * n, n * Cw, n * R)
     base, epoch = sc.next(n)
     lib = _build.lib("scan")
     with _build.on_device(x.device):
-        err = lib.integral_f32(x.data_ptr(), out.data_ptr(), H, W, W + pad, pad, R, Cw, sc.ctrl.data_ptr(), base,
+        err = lib.integral_f32(x.data_ptr(), out.data_ptr(), N, H, W, W + pad, pad, R, Cw, sc.ctrl.data_ptr(), base,
                                epoch, sc.tot.data_ptr(), sc.rtot.data_ptr(), stream)
     if err != 0:  # a launch refused drew no tickets: the counts here no longer match the ticket
         _scratch.pop((x.device, stream), None)
@@ -182,7 +208,7 @@ def _integral(x: torch.Tensor, pad: int, name: str) -> torch.Tensor:
 
 def integral_image(x: torch.Tensor) -> torch.Tensor:
     """Inclusive 2D prefix sum (H, W) -> (H, W) float32, no zero row: one
-    launch of the integral kernel on a CUDA tensor."""
+    launch of the integral kernel on a CUDA tensor (a batch (N, H, W) too)."""
     if not use_kernel(x):
         return integral_image_plain(x)
     return _integral(x, 0, "integral_image")
@@ -192,7 +218,7 @@ def integral_padded(x: torch.Tensor) -> torch.Tensor:
     """The zero-padded summed-area table (H + 1, W + 1) float32,
     out[i, j] = sum(x[:i, :j]): one launch of the integral kernel, which
     writes the zero row and column itself; on a CPU tensor, the plain table
-    padded."""
+    padded. A batch (N, H, W) gives (N, H + 1, W + 1), also in one launch."""
     if not use_kernel(x):
         return integral_padded_plain(x)
     return _integral(x, 1, "integral_padded")

@@ -16,7 +16,8 @@ from opencv_contrib_tpu_torch.ops.image import _gather2d
 
 def integral(img: torch.Tensor) -> torch.Tensor:
     """Summed-area table with one row/col of zero padding: out (H+1, W+1),
-    out[i, j] = sum(img[:i, :j])."""
+    out[i, j] = sum(img[:i, :j]); a batch (N, H, W) of images of one size
+    gives (N, H+1, W+1), one launch of the kernel for all of them."""
     return integral_padded(img.to(torch.float32))
 
 

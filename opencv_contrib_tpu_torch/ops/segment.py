@@ -18,9 +18,19 @@ a gigabyte. On the CPU it takes `index_add_`: one update after another in
 index order, the JAX version's order, with any number of threads (the CPU's
 `index_put_(accumulate=True)` splits the updates over its threads and
 changes bits from run to run). Integer counts are exact in any order
-(`segment_count`)."""
+(`segment_count`).
+
+Where the ids stay fixed over many sums (the adjoint of a bilinear warp
+inside a conjugate-gradient solve, `superres/btv.py`), `segment_plan`
+sorts them once, a stable sort, into a padded (n, M) table of each
+segment's value indices in index order (one host read of M, when the plan
+is made), and `segment_sum_planned` gathers the values through it and adds
+its M columns one after another: index order, the order of the CPU's
+`index_add_`, on any device, with no atomics and no sort a call."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -54,3 +64,32 @@ def segment_count(ids: torch.Tensor, n: int) -> torch.Tensor:
     ids = ids.reshape(-1).long()
     ones = torch.ones_like(ids, dtype=torch.int32)
     return torch.zeros(n, dtype=torch.int32, device=ids.device).scatter_add_(0, ids, ones).to(torch.float32)
+
+
+class SegmentPlan(NamedTuple):
+    slots: torch.Tensor  # (n, M) int64: each segment's value indices in index order, padded with L (a zero)
+
+
+def segment_plan(ids: torch.Tensor, n: int) -> SegmentPlan:
+    """The plan of `segment_sum_planned` for ids (L,) in [0, n)."""
+    ids = ids.reshape(-1).long()
+    L = ids.shape[0]
+    order = torch.sort(ids, stable=True).indices  # index order within each segment
+    sid = ids[order]
+    counts = torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(0, ids, torch.ones_like(ids))
+    M = max(int(counts.max()), 1)  # the one host read
+    rank = torch.arange(L, device=ids.device) - (torch.cumsum(counts, 0) - counts)[sid]
+    slots = torch.full((n, M), L, dtype=torch.int64, device=ids.device)
+    slots[sid, rank] = order
+    return SegmentPlan(slots)
+
+
+def segment_sum_planned(plan: SegmentPlan, values: torch.Tensor) -> torch.Tensor:
+    """The sum of the values (L,) of each segment of the plan, (n,), added in
+    index order."""
+    v = torch.cat([values.reshape(-1), values.new_zeros(1)])
+    g = v[plan.slots]  # (n, M)
+    acc = g[:, 0]
+    for m in range(1, g.shape[1]):
+        acc = acc + g[:, m]
+    return acc

@@ -61,7 +61,11 @@ def test_slice_files_are_twins():
                 "ximgproc/hough_mser.py", "phase_unwrapping/unwrap.py", "structured_light/graycode.py",
                 "structured_light/sinusoidal.py", "stereo/matching.py", "stereo/quasi_dense.py", "reg/mapper.py",
                 "surface_matching/icp3d.py", "surface_matching/ppf.py", "rapid/tracker.py", "aruco/markers.py",
-                "aruco/charuco.py", "ccalib/omnidir.py", "ccalib/random_pattern.py", "core/se3.py"):
+                "aruco/charuco.py", "ccalib/omnidir.py", "ccalib/random_pattern.py", "core/se3.py",
+                "tracking/boosting.py", "tracking/correlation.py", "tracking/csrt.py", "tracking/dsst.py",
+                "tracking/kalman.py", "tracking/matching.py", "tracking/medianflow.py", "tracking/mil.py",
+                "tracking/multitracker.py", "tracking/siam.py", "tracking/tld.py", "tracking/twist.py",
+                "videostab/stabilizer.py", "videostab/extra.py", "superres/btv.py"):
         assert rel in TWINS, rel
         assert rel not in ALLOWED, rel
 
@@ -78,7 +82,7 @@ def exported(path: Path) -> list:
 # packages ported whole, whose __init__ keeps its twin's exports (earlier slices' packages that are ported in part,
 # such as text/, export what they hold)
 WHOLE_PACKAGES = ("phase_unwrapping", "structured_light", "stereo", "reg", "surface_matching", "rapid", "aruco",
-                  "ccalib")
+                  "ccalib", "tracking", "videostab", "superres")
 
 
 @pytest.mark.parametrize("pkg", WHOLE_PACKAGES)

@@ -453,6 +453,22 @@ def test_integral_bands_fit_the_shared_memory(H, W):
     assert f"constexpr int MAX_COLS = {scan._COLS};" in text
 
 
+@pytest.mark.parametrize("H,W", [(32, 32), (1, 7), (37, 5), (64, 128), (100, 100), (480, 640), (5000, 64),
+                                 (3001, 16)])
+def test_integral_one_block_tables_fit(H, W):
+    """`scan.one_block` sends a table to integral_table_kernel only where it
+    is one slab across (so the slab kernel's sums reduce to its bands) and
+    its rows, band totals and E fit in the kernel's shared memory
+    (csrc/scan.cu TABLE_SMEM); MIL's and Boosting's 32 x 32 patches do."""
+    R, Cw = scan.slabs(H, W)
+    nb = -(-H // R)
+    fits = (H + 2 * nb) * Cw * 4 <= scan._TABLE_SMEM
+    assert scan.one_block(H, W) == (W <= Cw and fits)
+    assert scan.one_block(32, 32) and not scan.one_block(480, 640)
+    text = (_build.CSRC / "scan.cu").read_text()
+    assert f"constexpr int TABLE_SMEM = {scan._TABLE_SMEM // 1024} * 1024;" in text
+
+
 @pytest.mark.parametrize("shape", [(128, 128), (480, 640), (33, 47), (1, 5)])
 def test_integral_padded_is_the_plain_table_padded(rng, shape):
     """`integral` and `scan.integral_padded` on the CPU: the plain 2D scan
