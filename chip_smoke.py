@@ -12,7 +12,8 @@ points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`,
 `entry.tum_kinfu`, `entry.dynafu_track`, `entry.dryrun_multichip`,
 `entry.features_x`, `entry.video_photometric`, `entry.ximgproc_frame`,
 `entry.geometry_x`, `entry.track_x`, `entry.stabilize_clip`,
-`entry.superres_clip`), and checks their outputs.
+`entry.superres_clip`, `entry.background_x`, `entry.detect_x`), and checks
+their outputs.
 
 Phases, one JSON line each:
   (a) build and launch checks at small ragged shapes;
@@ -104,10 +105,12 @@ Phases, one JSON line each:
       around it (every count stays 0), held to >= 0.9 of the views, a mean
       reprojection <= 1.4 px, points on >= 0.6 of the tracks and an ATE
       under 0.3 on every 96-view window of the dominant segment; wall s,
-      keyframes/s, host ms a span, host syncs, peak memory; the 256 x 1,024
-      run of tests/test_scale_tpu.py profiled by step (chunk, windowed BA,
-      re-triangulation, global bundle: launches, device ms and syncs each,
-      busy share, top device ops); and a noise-free 48 x 48 orbit on the card
+      keyframes/s, host ms a span, host syncs, peak memory, and its chunks
+      36-43 profiled by step (chunk, windowed BA, re-triangulation, global
+      bundle: launches, device ms and host ms each, busy share, top device
+      ops; one window of device activity, each step between marker fills);
+      the 256 x 1,024 run of tests/test_scale_tpu.py with its gate (host
+      syncs and host ms by step); and a noise-free 48 x 48 orbit on the card
       against the CPU with the same RANSAC draws;
   (p) the KinFu remainder at 640x480: `entry.hash_kinfu_track` (HashKinFu,
       3 m / 512 voxels, 16,384 blocks) over orbit_poses(8, 0.5) with the
@@ -201,9 +204,25 @@ Phases, one JSON line each:
       `entry.superres_clip()`, each counted (pyrdown, the integral kernel,
       remap as the paths launch them, no other kernel of ours), rerun
       bit-equal, with ms a frame, host syncs and peak memory, and one
-      profiler window over all of them; the JAX tests' gates at VGA; the
-      port's CPU run of each path, in a process of its own, against the
-      card's.
+      profiler window over all of them on the clips' first frames; the JAX
+      tests' gates at VGA; the port's CPU run of each path, in a process of
+      its own, against the card's;
+  (x) background subtraction and the retina, detection, shape and face: the
+      integral kernel on WaldBoost's 8 x 480 x 640 channel stack (one
+      launch, bit-equal to 8 single launches and, on integer channels, to
+      the plain version; timed beside the plain version and two cumsums);
+      every method of `entry.background_x` on `entry.background_clip()`
+      (MOG, CNT, GMG, GSOC, LSBP, the retina with the transient
+      segmentation, the color retina and tone mapping) and of
+      `entry.detect_x` on `entry.detection_scene()` (HOG, WaldBoost, DPM,
+      EigenFaces, FisherFaces, LBPH, BIF, AAM, Facemark, shape context,
+      TPS, the EMDs, the affine transformer), each JAX test's fixture laid
+      into 480 x 640 frames, each counted (the integral kernel once a
+      WaldBoost detection and three times a transient step, no other kernel
+      of ours), rerun bit-equal, with ms a frame, host syncs and peak
+      memory, and one profiler window over all of them; the JAX tests'
+      gates at VGA; the port's CPU run of each method, in a process of its
+      own, against the card's.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -296,6 +315,11 @@ L2_FLUSH_BYTES = 128 << 20
 # launches it, and it is left out of every device time
 FLUSH_KERNEL = "FillFunctor<unsigned char>"
 N_MARKERS = 8
+# ahead of its markers a window launches N_LEAD int8 fills (LEAD_KERNEL), left out of every count: a late trace
+# drops one or two of its first kernel events in nearly every window (162 windows lost a uint8 marker that way in a
+# whole run), so the markers that follow the lead are the ones that must all survive
+LEAD_KERNEL = "FillFunctor<signed char>"
+N_LEAD = 8
 # device_ms: a trace drops the first kernel events of its window, and now and
 # then all of them; a window waits WINDOW_PAD_S before its markers and after
 # its last kernel, four times longer each time it is taken again, at most
@@ -434,10 +458,12 @@ SFM_SCALE_RUN = dict(window=24, ba_every=4, min_gap=max(3, max(24, SFM_SCALE[0] 
                      final_global_iters=15)
 SFM_SCALE_MIN_VIEW_SHARE, SFM_SCALE_MIN_POINT_SHARE, SFM_SCALE_ATE, SFM_SCALE_ATE_WINDOW = 0.9, 0.6, 0.3, 96
 # the profiled run: tests/test_scale_tpu.py::test_sfm_scale_256_end_to_end (256 x 1,024, span 24; >= 250 views)
-SFM_SCALE_PROFILED = (256, 1024)
-SFM_SCALE_PROFILED_RUN = dict(window=24, ba_every=4, min_gap=3, final_global_iters=15)
-SFM_SCALE_PROFILED_MIN_VIEWS = 250
-SFM_SCALE_PROFILED_WINDOW = (36, 44)  # the profiled chunks (views 145-176; a growth-triggered global bundle at 158)
+SFM_SCALE_256 = (256, 1024)
+SFM_SCALE_256_RUN = dict(window=24, ba_every=4, min_gap=3, final_global_iters=15)
+SFM_SCALE_256_MIN_VIEWS = 250
+# the main run's profiled chunks (the 256 run's once, where they held views 145-176 and a growth-triggered global
+# bundle)
+SFM_SCALE_CHUNK_WINDOW = (36, 44)
 # card against CPU with the same draws on a noise-free 48 x 48 orbit (tests/test_torch_sfm_scale.py's settings; on
 # noisy pixels f32 rounding, amplified by near-parallel triangulation, decides points at the 4 px gate where the
 # ring closes, so two correct runs part there: ROADMAP Queue 3): the same registered views and reg_order, mean
@@ -572,6 +598,7 @@ PATH_KERNELS.update({path: PATH_KERNELS["photometric"] for path in VIDEO_CODECS.
 
 XIMG_SHAPE = (480, 640)  # entry.structure_frame()'s VGA frame
 XIMG_MARKER = "FillFunctor<short>"  # the int16 fills that part phase u's calls in its profile
+CLOSE_MARKER = "FillFunctor<c10::complex<float>"  # phase o's chunk window closes each step with a complex64 fill
 # the host union-find of graph segmentation and selective search takes ~8 s a call at VGA on a host core (PERF.md
 # section 4): they run on the same frame made at half the size
 XIMG_CUT = {"graph_segment": (240, 320), "selective_search": (240, 320)}
@@ -598,6 +625,31 @@ XIMG_CPU_TOL = {"default": {"rel": 1e-4, "px_off": 1e-3, "mask_off": 1e-3, "labe
                 # entries) and of LSC's 64 (9 of 640 entries), by 1.8e-4 and 2.9e-4 of the range on the
                 # H100; at most two centres may move, by at most 2e-3 of the range
                 "slic": {"rel": 2e-3, "px_off": 4 / 32}, "lsc": {"rel": 2e-3, "px_off": 20 / 640}}
+
+
+XIMG_CPU_THREADS = 4  # the CPU run's torch threads (a process of its own, beside the card's runs)
+
+
+def ximg_cpu_outputs(params: dict, threads: int) -> dict:
+    """Every entry.ximgproc_frame method on the CPU, on entry.structure_frame()
+    at its shape (XIMG_SHAPE, or XIMG_CUT), with the learned edge map's
+    model `params` (numpy: the card's, trained before), its tensors as
+    numpy (phase u's CPU run, in a process of its own)."""
+    import torch
+
+    from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.ximgproc import edge_forest
+
+    torch.set_num_threads(threads)
+    edge_forest._DEFAULT_PARAMS["cpu"] = {k: torch.from_numpy(v) for k, v in params.items()}
+    frames = {shape: entry.structure_frame(*shape) for shape in {XIMG_SHAPE, *XIMG_CUT.values()}}
+    out = {}
+    for m in entry.METHODS:
+        f = frames[XIMG_CUT.get(m, XIMG_SHAPE)]
+        got = entry.ximgproc_frame(f.rgb, m, device="cpu", disparity=f.disparity)
+        leaves = list(got) if isinstance(got, tuple) else [got]
+        out[m] = [x.numpy() if isinstance(x, torch.Tensor) else x for x in leaves]
+    return out
 
 
 # phase v: entry.geometry_x's methods (entry.GEOMETRY, checked) at VGA; the random pattern matches by knn2, the reg
@@ -896,6 +948,12 @@ STAB_FRAMES = 16  # entry.shaky_clip()'s
 STAB_LAUNCHES = {"pyrdown": 4 * (STAB_FRAMES - 1)}
 SUPERRES_LAUNCHES = {"pyrdown": 3 * 4, "remap": 3 * 9}
 W_PATHS = tuple(f"track_{m}" for m in TRACK_METHODS) + ("stabilize_clip", "superres_clip")
+# phase w's profiler window runs the paths on the clips' first frames: CUPTI over a whole run's ~800,000 launches
+# cost 50-66 s (PERF.md section 6). The tracking paths that step the clip's frames run on its first 3 (2 steps),
+# the stabilizer on its first 5 (4 motions, the least its deblur and wobble parts take); the rest run whole
+W_PROFILE_FRAMES = {"track": 3, "stabilize_clip": 5}
+W_CUT_PATHS = {f"track_{m}" for m in ("mosse", "kcf", "csrt", "medianflow", "tld", "mil", "boosting", "multi",
+                                      "by_matching", "siam")}
 PATH_KERNELS.update({f"track_{m}": tuple(TRACK_LAUNCHES.get(m, {})) for m in TRACK_METHODS})
 PATH_KERNELS.update({"stabilize_clip": tuple(STAB_LAUNCHES), "superres_clip": tuple(SUPERRES_LAUNCHES)})
 INTEGRAL_BATCHES = ((289, 32, 32), (441, 32, 32), (48, 32, 32))  # MIL's and Boosting's candidates, both bags
@@ -1147,6 +1205,262 @@ def superres_gates(res) -> dict:
     return g
 
 
+# ---- phase x: background subtraction and the retina; detection, shape and face -----------------------------------
+X_SHAPE = (480, 640)  # entry.background_clip()'s and entry.detection_scene()'s frames
+BG_METHODS = ("mog", "cnt", "gmg", "gsoc", "lsbp", "retina_transient", "retina_color")
+DET_METHODS = ("hog", "waldboost", "dpm", "eigenfaces", "fisherfaces", "lbph", "bif", "aam", "facemark",
+               "shape_context", "tps", "emd", "affine")
+X_PATHS = tuple(f"bg_{m}" for m in BG_METHODS) + tuple(f"det_{m}" for m in DET_METHODS)
+# the integral kernel's launches a call: WaldBoost's 8 channel tables in one launch; the transient segmentation's
+# sigma-6 blur three box passes a step; no other kernel of ours on any path of the phase
+X_LAUNCHES = {"det_waldboost": {"integral_image": 1}, "bg_retina_transient": {"integral_image": 3 * 10}}
+PATH_KERNELS.update({p: tuple(X_LAUNCHES.get(p, {})) for p in X_PATHS})
+X_CPU_THREADS = 4
+# the card against the port's CPU run (`x_diff`): masks, labels, integer arrays and host lists equal; floats by their
+# largest difference over the larger of the CPU value's largest magnitude and `floor`; a subspace by its projector.
+# Read on the H100 (PERF.md section 6): MOG, CNT, GMG, GSOC, LSBP, LBPH, WaldBoost and Facemark
+# equal; the retina's neighbourhood context 7.1e-5 (the integral kernel's order of adds on the card, the XLA order on
+# the CPU); the recognizers' distances 4.5e-5 and 4.9e-5; shape context: the two contours' descriptors part where
+# `atan2` puts a point pair on a bin edge (a symmetric contour has many), so the chi2 costs part by 6.9e-5 (floor 1:
+# they lie in [0, 1]) and the EMD cost matrices built on them by 8.0e-4 and 2.0e-3; TPS on the 300-point contour, a
+# float32 LU of a 303 x 303 system, 4.7e-3
+X_CPU_TOL = {"default": {"rel": 1e-4, "mask_off": 0.0, "floor": 1e-30, "subspace": 0.0},
+             "bg_retina_transient": {"rel": 3e-4}, "det_eigenfaces": {"rel": 2e-4, "subspace": 3e-2},
+             "det_fisherfaces": {"rel": 2e-4, "subspace": 1e-2}, "det_shape_context": {"rel": 3e-4, "floor": 1.0},
+             "det_emd": {"rel": 6e-3}, "det_tps": {"rel": 1.5e-2}}
+INTEGRAL_CHANNELS = (8, 480, 640)  # WaldBoost's ICF stack at VGA
+X_EXACT_LEVELS = 50  # integer channels 0..50: an (8, 480, 640) table stays below 2**24
+
+
+def _x_draws_on_cpu():
+    """GSOC's and LSBP's replacement draws from a CPU generator of seed 0,
+    moved to the frame's device: a card run and a CPU run take the same
+    draws (each subtractor's run from a fresh generator, as the entry's)."""
+    import torch
+
+    from opencv_contrib_tpu_torch.bgsegm import gsoc
+
+    gens = {}  # id -> (the subtractor's generator, kept alive so its id is not reused; its CPU stand-in)
+
+    def uniform(gen, shape, device):
+        cpu = gens.setdefault(id(gen), (gen, torch.Generator().manual_seed(0)))[1]
+        return torch.rand(shape, generator=cpu).to(device)
+
+    return mock.patch.object(gsoc, "_uniform", uniform)
+
+
+def x_cpu_outputs(shape, threads: int) -> dict:
+    """Every entry.background_x and entry.detect_x method on the CPU at
+    `shape`, as numpy (phase x's CPU run, in a process of its own), GSOC and
+    LSBP on `_x_draws_on_cpu`; the run's seconds under "cpu_run_s" and its
+    detection scene under "scene"."""
+    import torch
+
+    from opencv_contrib_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(threads)
+    clip, scene = entry.background_clip(*shape), entry.detection_scene(*shape)
+    out = {"scene": scene}  # the card runs on this scene too: its models are trained once, here
+    with _x_draws_on_cpu():
+        for m in BG_METHODS:
+            out[f"bg_{m}"] = _geo_host(entry.background_x(clip, m, device="cpu"))
+    for m in DET_METHODS:
+        out[f"det_{m}"] = _geo_host(entry.detect_x(scene, m, device="cpu"))
+    out["cpu_run_s"] = time.perf_counter() - t0
+    return out
+
+
+def x_diff(card, host, path: str = "") -> dict:
+    """How a card result (numpy, `_geo_host`) of a phase-x path parts from
+    the CPU's: float arrays and numbers by their largest difference over the
+    CPU value's largest magnitude, masks by their share of differing
+    elements, integer arrays and host lists (labels, detections) by
+    equality (X_CPU_TOL)."""
+    tol = {**X_CPU_TOL["default"], **X_CPU_TOL.get(path, {})}
+    r = {}
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.shape != b.shape:
+            return float("inf")
+        top = float(np.abs(b).max()) if b.size else 0.0
+        return float(np.abs(a - b).max() / max(top, tol["floor"])) if a.size else 0.0
+
+    def walk(a, b, key):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{key}.{k}" if key else k)
+        elif isinstance(a, np.ndarray) and a.dtype.kind == "f":
+            r[key] = (rel(a, b), tol["rel"])
+        elif isinstance(a, np.ndarray) and a.dtype == bool:
+            r[key] = (float(np.mean(a != b)) if a.shape == b.shape else 1.0, tol["mask_off"])
+        elif isinstance(a, np.ndarray):
+            r[key] = (float(not np.array_equal(a, b)), 0.0)
+        elif isinstance(a, list):  # predictions (label, distance) and DPM's detections (y, x, scale, score)
+            same = len(a) == len(b) and all(u[:-1] == v[:-1] for u, v in zip(a, b))
+            r[key + "#"] = (float(not same), 0.0)
+            if same and a:
+                r[key] = (rel([u[-1] for u in a], [v[-1] for v in b]), tol["rel"])
+        elif isinstance(a, float):
+            r[key] = (rel(a, b), tol["rel"])
+
+    if path in ("det_eigenfaces", "det_fisherfaces"):
+        # SVD and eigh bases are free up to each column's sign, and near-equal singular values turn them within
+        # their span: the subspaces are held by their orthonormal bases' projectors, ||P1 - P2||_F / ||P2||_F with
+        # ||P1 - P2||_F^2 = 2K - 2 ||B1^T B2||_F^2
+        B1, B2 = (np.asarray(m["model"]["basis"], np.float64) for m in (card, host))
+        K = B2.shape[1]
+        r["model.subspace"] = (float(np.sqrt(max(2 * K - 2 * np.sum((B1.T @ B2) ** 2), 0.0) / K)), tol["subspace"])
+        card = {**card, "model": {k: v for k, v in card["model"].items() if k not in ("basis", "projections")}}
+    walk(card, host, "")
+    return {"ok": all(val <= bound for val, bound in r.values()), "diff": {k: v[0] for k, v in r.items()}}
+
+
+def _region(a, box):
+    y0, y1, x0, x1 = box
+    return a[y0:y1, x0:x1]
+
+
+def background_gates(clip, outs: dict) -> dict:
+    """The JAX tests' gates on each background_x result in `outs` (method ->
+    result on `clip`, tensors or numpy), in the tests' regions scaled to the
+    clip (`entry.bg_regions`); raises, naming every miss, after checking
+    all. Returns the gated numbers."""
+    from opencv_contrib_tpu_torch import entry
+
+    H, W = clip.gmg.shape[1:]
+    reg = entry.bg_regions(H, W)
+    g, missed = {}, {}
+    for m, out in outs.items():
+        o = _geo_host(out)
+        if m == "mog":  # TestMog: hits > 0.7, false positives < 0.1 over frames 15..; a static scene < 0.05
+            gt, patch = clip.mog_masks[15:], clip.mog_patch_masks[15:]
+            g[m] = {"hits": float(np.mean([f[p].mean() for f, p in zip(o["fg"], patch)])),
+                    "false_pos": float(np.mean([f[~t].mean() for f, t in zip(o["fg"], gt)])),
+                    "hits_scaled_object": float(np.mean([f[t & ~p].mean() for f, t, p in zip(o["fg"], gt, patch)])),
+                    "static_fg": float(o["fg_static"].mean())}
+            ok = g[m]["hits"] > 0.7 and g[m]["false_pos"] < 0.1 and g[m]["static_fg"] < 0.05
+        elif m == "cnt":  # TestCnt: > 0.6 of the object, < 0.15 elsewhere, on frame 25
+            t = clip.cnt_masks[25]
+            g[m] = {"hits": float(o["fg"][t].mean()), "false_pos": float(o["fg"][~t].mean())}
+            ok = g[m]["hits"] > 0.6 and g[m]["false_pos"] < 0.15
+        elif m == "gmg":  # TestGmg: nothing during init; > 0.9 inside the object, < 0.05 far from it
+            g[m] = {"init_any_fg": bool(o["init_any_fg"]), "inside": float(_region(o["fg"], reg["gmg_inside"]).mean()),
+                    "outside": float(_region(o["fg"], reg["gmg_outside"]).mean())}
+            ok = not g[m]["init_any_fg"] and g[m]["inside"] > 0.9 and g[m]["outside"] < 0.05
+        elif m in ("gsoc", "lsbp"):  # TestGsocLsbp: tp > 0.6 and fp < 0.15 (GSOC); tp > 0.5 and a flat image's code 0
+            t = getattr(clip, m + "_masks")[-1]
+            g[m] = {"tp": float((o["fg"] & t).sum() / max(t.sum(), 1)),
+                    "fp": float((o["fg"] & ~t).sum() / max((~t).sum(), 1))}
+            if m == "gsoc":
+                ok = g[m]["tp"] > 0.6 and g[m]["fp"] < 0.15
+            else:
+                g[m]["flat_code_max"] = int(o["flat_code"].max())
+                ok = g[m]["tp"] > 0.5 and g[m]["flat_code_max"] == 0
+        elif m == "retina_transient":  # TestRetina: contrast ratio in (0.2, 5), magno x2 on motion; TestTransient
+            c_dark = float(_region(o["parvo"], reg["retina_dark"]).std())
+            c_bright = float(_region(o["parvo"], reg["retina_bright"]).std())
+            g[m] = {"contrast_ratio": c_dark / max(c_bright, 1e-9),
+                    "magno_ratio": float(o["magno_moving"].mean() / o["magno_static"].mean()),
+                    "seg_inside": float(_region(o["seg"], reg["seg_inside"]).mean()),
+                    "seg_corner": float(_region(o["seg"], reg["seg_corner"]).mean())}
+            ok = (0.2 < g[m]["contrast_ratio"] < 5.0 and g[m]["magno_ratio"] > 2.0 and g[m]["seg_inside"] > 0.7
+                  and g[m]["seg_corner"] < 0.1)
+        elif m == "retina_color":  # tests/test_breadth9.py::TestRetinaColor
+            p95o, p5o = np.percentile(o["tone_gray"], [95, 5])
+            p95i, p5i = np.percentile(clip.hdr, [95, 5])
+            g[m] = {"demux_err": float(np.abs(o["demux"] - clip.smooth).mean()),
+                    "masks_partition": bool(np.allclose(o["masks_sum"], 1.0)),
+                    "tone_spread": float((p95o - p5o) / (p95o + p5o + 1e-9)),
+                    "input_spread": float((p95i - p5i) / (p95i + p5i + 1e-9)),
+                    "tone_color_finite": bool(np.isfinite(o["tone_color"]).all())}
+            ok = (g[m]["demux_err"] < 0.03 and g[m]["masks_partition"] and g[m]["tone_spread"] < g[m]["input_spread"]
+                  and g[m]["tone_color_finite"] and o["parvo_rgb"].shape == (H, W, 3) and o["magno"].shape == (H, W))
+        else:
+            raise AssertionError(f"no gate for background method {m!r}")
+        if not ok:
+            missed[m] = g[m]
+    check(not missed, f"background gates missed: {missed}")
+    return g
+
+
+def detection_gates(scene, outs: dict) -> dict:
+    """The JAX tests' gates on each detect_x result in `outs` (method ->
+    result on `scene`, tensors or numpy); raises, naming every miss, after
+    checking all. Returns the gated numbers."""
+    from opencv_contrib_tpu_torch import entry
+
+    g, missed = {}, {}
+    for m, out in outs.items():
+        o = _geo_host(out)
+        if m == "hog":  # TestHog::test_svm_detection: the best box within 8 px of the target
+            best = o["boxes"][int(np.argmax(o["scores"]))] if len(o["scores"]) else np.full(4, np.inf)
+            g[m] = {"detections": int(len(o["scores"])), "best_off_px": float(np.abs(best[:2] - scene.hog_at).max())}
+            ok = g[m]["detections"] > 0 and g[m]["best_off_px"] <= 8
+        elif m == "waldboost":  # test_detect_localizes: the top cluster's centroid within 4 px
+            sc = o["scores"]
+            top = o["centers"][sc >= sc.max() - 1e-3] if len(sc) else np.full((1, 2), np.inf)
+            g[m] = {"detections": int(len(sc)), "centroid_off_px": float(np.abs(top.mean(0) - scene.wb_center).max())}
+            ok = g[m]["detections"] > 0 and g[m]["centroid_off_px"] <= 4
+        elif m == "dpm":  # TestDpm: the pattern found within 16 px; the deformed one fires above the noise's best
+            first = o["dets"][0] if o["dets"] else (np.inf, np.inf, 0, -np.inf)
+            best_noise = max((d[3] for d in o["noise"]), default=-np.inf)
+            g[m] = {"off_px": float(max(abs(first[0] - (scene.dpm_at[0] + 32)), abs(first[1] - (scene.dpm_at[1] + 24)))),
+                    "deformed_score": float(o["deformed"][0][3]) if o["deformed"] else None,
+                    "noise_best": float(best_noise)}
+            ok = g[m]["off_px"] <= 16 and o["deformed"] and o["deformed"][0][3] > best_noise
+        elif m in ("eigenfaces", "fisherfaces"):  # TestEigenFaces: all; TestFisherFaces: all but one
+            correct = sum(int(p == i) for i, (p, _) in enumerate(o["predictions"]))
+            g[m] = {"correct": correct, "of": len(o["predictions"])}
+            ok = correct >= len(o["predictions"]) - (0 if m == "eigenfaces" else 1)
+        elif m == "lbph":  # TestLBPH: base 1, 2x base 3 (illumination), the updated identity
+            g[m] = {"predictions": [p for p, _ in o["predictions"]]}
+            ok = g[m]["predictions"] == [1, 3, entry.LBPH_NEW_LABEL]
+        elif m == "bif":  # TestBIF: 4 x 6 x 4 features; orientation sensitivity; discriminative
+            per_rot = o["stripes"].reshape(2, 4, 4).mean(axis=(0, 1))
+            g[m] = {"orientation_ratio": float(per_rot.max() / max(per_rot.min(), 1e-12)),
+                    "a_vs_b": float(np.abs(o["a"] - o["b"]).max())}
+            ok = (o["a"].shape == (4 * 6 * 4,) and o["faces"].shape[1] == 8 * 12 * 4
+                  and g[m]["orientation_ratio"] > 3 and g[m]["a_vs_b"] > 1e-3)
+        elif m == "aam":  # TestFacemarkAAM: < 1.5 px and under half the box init's error
+            e0 = float(np.linalg.norm(o["init"] - scene.aam_truth, axis=1).mean())
+            e1 = float(np.linalg.norm(o["shape"] - scene.aam_truth, axis=1).mean())
+            g[m] = {"init_px": e0, "fit_px": e1}
+            ok = e1 < 1.5 and e1 < 0.5 * e0
+        elif m == "facemark":  # TestFacemark: < 4 px and under the mean shape's error
+            err = float(np.linalg.norm(o["shape"] - scene.fm_truth, axis=1).mean())
+            err0 = float(np.linalg.norm(o["mean_px"] - scene.fm_truth, axis=1).mean())
+            g[m] = {"fit_px": err, "mean_shape_px": err0}
+            ok = err < err0 and err < 4.0
+        elif m == "shape_context":  # TestShape: same shape nearer than another; Hausdorff 0 and ~0.5 offset
+            g[m] = {k: float(o[k]) for k in ("same", "diff", "haus_zero", "haus_offset")}
+            ok = g[m]["same"] < g[m]["diff"] and g[m]["haus_zero"] < 1e-6 and 0.3 < g[m]["haus_offset"] < 0.9
+        elif m == "tps":  # TestShape: interpolates within 1e-2, the affine part within 1e-3; the contour warp
+            g[m] = {"interp": float(np.abs(o["interp"] - scene.tps_dst).max()),
+                    "affine": float(np.abs(o["affine"] - o["affine_truth"]).max()),
+                    "contour": float(np.abs(o["contour"] - scene.wavy).max())}
+            ok = g[m]["interp"] < 1e-2 and g[m]["affine"] < 1e-3 and g[m]["contour"] < 1e-2
+        elif m == "emd":  # TestEMD: 3 (1e-5), 4 (5%), 2 (5%); cost matrices of the contours' descriptors
+            g[m] = {k: float(o[k]) for k in ("shift", "grid", "sinkhorn")}
+            g[m]["cost_grid_min"] = float(o["cost_grid"].min())
+            ok = (abs(g[m]["shift"] - 3) < 1e-5 and abs(g[m]["grid"] - 4) < 0.2 and abs(g[m]["sinkhorn"] - 2) < 0.1
+                  and o["cost_1d"].shape == (entry.EMD_DESCS,) * 2 and g[m]["cost_grid_min"] >= -1e-6)
+        elif m == "affine":  # TestAffineTransformer
+            g[m] = {"M": float(np.abs(o["M"] - np.array(entry.AFFINE_TRUE)).max()),
+                    "applied": float(np.abs(o["applied"] - o["dst"]).max()),
+                    "similarity": float(np.abs(o["M_sim"][:, :2] - o["R"]).max()),
+                    "cost_rotation": float(o["cost_rotation"]), "cost_sheared": float(o["cost_sheared"])}
+            ok = (g[m]["M"] < 1e-4 and g[m]["applied"] < 1e-3 and g[m]["similarity"] < 1e-4
+                  and abs(g[m]["cost_rotation"]) < 1e-5 and g[m]["cost_sheared"] > 0.1)
+        else:
+            raise AssertionError(f"no gate for detection method {m!r}")
+        if not ok:
+            missed[m] = g[m]
+    check(not missed, f"detection gates missed: {missed}")
+    return g
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1277,13 +1591,162 @@ def plain_path():
         yield
 
 
+class ChunkWindow:
+    """A profiler window of device activity only over the 5k driver's
+    chunks k0..k1-1 and all between them (phase o's main run), read by
+    step: `marks` (scale_steps' hook) opens the window as chunk k0 starts
+    and closes it as chunk k1 starts, and brackets each step inside it by an
+    int16 fill (XIMG_MARKER) before and a complex64 fill (CLOSE_MARKER)
+    after, which no step launches, so each kernel is read as the innermost
+    open step's. Device activity only costs a fraction of recording the
+    host's ops too (the 256 run's window of both, before it)."""
+
+    def __init__(self, smoke, k0: int, k1: int):
+        torch = smoke.torch
+        self.smoke, self.k0, self.k1 = smoke, k0, k1
+        self.open_fill = torch.empty(16, dtype=torch.int16, device=smoke.dev)
+        self.close_fill = torch.empty(8, dtype=torch.complex64, device=smoke.dev)
+        if smoke.marker is None:
+            smoke.marker = torch.empty(16, dtype=torch.uint8, device=smoke.dev)
+        self.chunks, self.prof, self.wall, self.names, self.host, self.open = 0, None, None, [], [], []
+
+    def marks(self, name: str, start: bool):
+        torch = self.smoke.torch
+        if name == "chunk" and start:
+            if self.chunks == self.k0:
+                from torch.profiler import ProfilerActivity, profile
+
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                time.sleep(WINDOW_PAD_S)
+                for _ in range(DIST_MARKERS):
+                    self.smoke.marker.zero_()
+                self.t0 = time.perf_counter()
+            elif self.chunks == self.k1:
+                self.close()
+            self.chunks += 1
+        if self.prof is None or self.wall is not None:
+            return
+        if start:
+            self.names.append(name)
+            self.open.append(time.perf_counter())
+            self.open_fill.zero_()
+        elif self.open:  # a step that opened inside the window
+            self.close_fill.zero_()
+            self.host.append((name, time.perf_counter() - self.open.pop()))
+
+    def close(self):
+        if self.prof is not None and self.wall is None:
+            self.smoke.torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            time.sleep(WINDOW_PAD_S)
+            self.prof.__exit__(None, None, None)
+
+    def rows(self) -> dict:
+        """Per step: calls, host ms, device ms and launches; the kernels
+        outside every step; the window's busy share and top device ops."""
+        from torch.autograd import DeviceType
+
+        check(self.wall is not None, f"the chunk window never closed: {self.chunks} chunks")
+        events = sorted((e.start_ns(), e.name(), e.duration_ns()) for e in self.prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA)
+        outside = "(outside the steps)"
+        rows = {n: {"count": 0, "host_ms": 0.0, "device_ms": 0.0, "launches": 0}
+                for n in sorted(set(SCALE_STEPS.values())) + [outside]}
+        for n, dt in self.host:
+            rows[n]["count"] += 1
+            rows[n]["host_ms"] += dt * 1e3
+        stack, opened, closed, seen_start, busy, by_name = [], 0, 0, False, 0, {}
+        for _, name, dur in events:
+            if FLUSH_KERNEL in name:
+                seen_start = True
+                continue
+            if not seen_start:
+                continue
+            if XIMG_MARKER in name:
+                stack.append(self.names[opened] if opened < len(self.names) else outside)
+                opened += 1
+                continue
+            if CLOSE_MARKER in name:
+                closed += 1
+                if stack:
+                    stack.pop()
+                continue
+            row = rows[stack[-1] if stack else outside]
+            row["device_ms"] += dur / 1e6
+            row["launches"] += 1
+            busy += dur
+            agg = by_name.setdefault(name, [0, 0])
+            agg[0] += 1
+            agg[1] += dur
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        return {"wall_s_under_profiler": self.wall, "device_busy_s": busy / 1e9,
+                "device_busy_share": busy / 1e9 / self.wall, "device_launches": sum(r["launches"] for r in
+                                                                                    rows.values()),
+                "markers_whole": opened == closed == len(self.names), "steps": rows,
+                "per_step": {n: {"launches_each": r["launches"] / r["count"], "device_ms_each": r["device_ms"] / r["count"],
+                                 "host_ms_each": r["host_ms"] / r["count"]} for n, r in rows.items() if r["count"]},
+                "top_device": [{"name": k[:80], "count": c, "us": d / 1e3} for k, (c, d) in top]}
+
+
+def read_window(ev, flush_keys=frozenset()):
+    """A profiler window's kernel events (`kernel_events`) without the lead,
+    the markers and the L2 flush's kernels, the marker fills it holds, their
+    device us, and whether the window counts: every one of its N_MARKERS
+    fills survived and some device time was recorded."""
+    fills = sum(e.count for e in ev if FLUSH_KERNEL in e.key)
+    kept = [e for e in ev if FLUSH_KERNEL not in e.key and LEAD_KERNEL not in e.key and e.key not in flush_keys]
+    us = sum(e.self_device_time_total for e in kept)
+    return kept, fills, us, fills == N_MARKERS and us > 0
+
+
+def marker_groups(events):
+    """The rows of an `ximg_profile` window's (start_ns, name, duration_ns)
+    device events, sorted by start: one a group of consecutive XIMG_MARKER
+    fills, holding the device ms, launches and kernels up to the next group
+    and the group's fills; the uint8 window markers (FLUSH_KERNEL) and all
+    ahead of the first group are counted nowhere."""
+    rows, cur, prev_sep = [], None, False
+    for _, name, dur in events:
+        if XIMG_MARKER in name:
+            if not prev_sep:
+                cur = {"device_ms": 0.0, "launches": 0, "kernels": {}, "fills": 0}
+                rows.append(cur)
+            cur["fills"] += 1
+            prev_sep = True
+            continue
+        prev_sep = False
+        if cur is None or FLUSH_KERNEL in name:
+            continue
+        cur["device_ms"] += dur / 1e6
+        cur["launches"] += 1
+        k = cur["kernels"].setdefault(name, [0, 0.0])
+        k[0] += 1
+        k[1] += dur / 1e6
+    return rows
+
+
+def per_call_launches(ev, iters: int):
+    """Launches of one of `iters` calls in a window's events: all, and by
+    name those of DEVICE_KERNELS; and whether each of those counts is a
+    multiple of iters (every call's kernels present)."""
+    out, whole = {"all": sum(e.count for e in ev) / iters}, True
+    for k in DEVICE_KERNELS:
+        n = sum(e.count for e in ev if is_ours(e.key, k))
+        if n:
+            out[k] = n / iters
+            whole = whole and n % iters == 0
+    return out, whole
+
+
 class Timer:
     """Device times of calls on one card, from torch.profiler."""
 
     def __init__(self, torch, dev):
         self.torch, self.dev = torch, dev
-        self.marker = self.l2_flush = None  # the window markers and the L2 flush buffer
+        self.marker = self.lead = self.l2_flush = None  # the window markers, their lead and the L2 flush buffer
         self.flush_keys = frozenset()  # the flush's kernels
+        self.retaken = []  # the readings of each device_events window taken again
 
     def flush_l2(self):
         self.torch.amax(self.l2_flush)
@@ -1316,14 +1779,16 @@ class Timer:
         """The kernel events of `iters` calls of fn in one profiler window,
         the markers and the flush left out. cold: the L2 is flushed before
         each call by a read of L2_FLUSH_BYTES. A trace drops the first
-        kernel events of its window, so each window opens with a wait and
-        N_MARKERS small uint8 fills; a window where none of them survived is
-        taken again with a longer wait."""
+        kernel events of its window, so each window opens with a wait,
+        N_LEAD int8 fills and N_MARKERS uint8 fills; a window that lost any
+        of the markers is taken again with a longer wait (`read_window`)."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         if self.marker is None:
             self.marker = torch.empty(16, dtype=torch.uint8, device=self.dev)
+        if self.lead is None:
+            self.lead = torch.empty(16, dtype=torch.int8, device=self.dev)
         if cold and self.l2_flush is None:
             self._flush_setup()
         fn()
@@ -1332,6 +1797,8 @@ class Timer:
         for _ in range(N_WINDOWS):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 time.sleep(pad)
+                for _ in range(N_LEAD):
+                    self.lead.zero_()
                 for _ in range(N_MARKERS):
                     self.marker.zero_()
                 for _ in range(iters):
@@ -1340,15 +1807,14 @@ class Timer:
                     fn()
                 torch.cuda.synchronize()
                 time.sleep(pad)
-            ev = kernel_events(prof)
-            fills = sum(e.count for e in ev if FLUSH_KERNEL in e.key)
-            ev = [e for e in ev if FLUSH_KERNEL not in e.key and e.key not in self.flush_keys]
-            us = sum(e.self_device_time_total for e in ev)
+            ev, fills, us, whole = read_window(kernel_events(prof), self.flush_keys)
             seen.append({"pad_s": pad, "fills": fills, "us": us})
             pad *= 4
-            if fills > 0 and us > 0:
+            if whole:
+                if len(seen) > 1:
+                    self.retaken.append(seen[:-1])
                 return ev
-        raise AssertionError(f"torch.profiler recorded no device time, or not every call's: {seen}")
+        raise AssertionError(f"torch.profiler recorded no device time, or not every marker: {seen}")
 
     def device_ms(self, fn, iters: int = 10, names=None, cold: bool = False):
         """Device time of one call: the durations of the kernels it ran, from
@@ -1364,14 +1830,18 @@ class Timer:
 
     def launches_per_call(self, fn, iters: int = 10) -> dict:
         """Device launches of one call: all of its kernels, and by name those
-        of DEVICE_KERNELS."""
-        ev = self.device_events(fn, iters)
-        out = {"all": sum(e.count for e in ev) / iters}
-        for k in DEVICE_KERNELS:
-            n = sum(e.count for e in ev if is_ours(e.key, k))
-            if n:
-                out[k] = n / iters
-        return out
+        of DEVICE_KERNELS. A window in which one of those kernels' counts is
+        not a multiple of iters lost an event (a trace drops some now and
+        then): it is taken again, at most N_WINDOWS times."""
+        seen = []
+        for _ in range(N_WINDOWS):
+            out, whole = per_call_launches(self.device_events(fn, iters), iters)
+            if whole:
+                if seen:
+                    self.retaken.append(seen)
+                return out
+            seen.append(out)
+        raise AssertionError(f"every window lost a kernel event of ours: {seen}")
 
     def launch_floor_ms(self) -> float:
         """The device time of the smallest launch PyTorch makes, `add_(1)` on
@@ -1412,6 +1882,7 @@ class Smoke(Timer):
         self.intr = np.asarray([500.0, 500.0, 320.0, 240.0, 0, 0, 0, 0, 0], np.float32)
         self.kernels = {}  # name -> timing row at the main path's shape
         self.launches = {}  # path -> launch counts
+        self.x_scene = None  # phase x's detection scene, made once
 
     def card(self, a):
         return self.torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.dev)
@@ -2955,32 +3426,35 @@ class Smoke(Timer):
         main_run = self.scale_run()
         parts["main_run"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        profiled = self.scale_profiled()
-        parts["profiled_256"] = time.perf_counter() - t0
+        run_256 = self.scale_256()
+        parts["run_256"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         small = self.scale_card_vs_cpu()
         parts["small_card_and_cpu"] = time.perf_counter() - t0
-        emit({"phase": "o_sfm_scale", "main_run": main_run, "profiled_256": profiled, "small_card_vs_cpu": small,
+        emit({"phase": "o_sfm_scale", "main_run": main_run, "run_256": run_256, "small_card_vs_cpu": small,
               "phase_parts_s": parts,
               "tolerance": f"{SFM_SCALE[0]} views: registered >= {SFM_SCALE_MIN_VIEW_SHARE} x views, mean "
                            f"reprojection <= {SFM_MEAN_PX_GATE} px, points on >= {SFM_SCALE_MIN_POINT_SHARE} x "
                            f"tracks, finite, ATE < {SFM_SCALE_ATE} on every {SFM_SCALE_ATE_WINDOW}-view window of "
                            f"the dominant segment; 256: registered >= "
-                           f"{SFM_SCALE_PROFILED_MIN_VIEWS}, mean <= {SFM_MEAN_PX_GATE} px; small: registered and "
+                           f"{SFM_SCALE_256_MIN_VIEWS}, mean <= {SFM_MEAN_PX_GATE} px; small: registered and "
                            f"reg_order equal, mean px within {SFM_SCALE_CPU_TOL['mean_px']}, aligned points within "
                            f"{SFM_SCALE_CPU_TOL['aligned_points']} RMS; no kernel of ours launched",
               "timing": "wall_s: host clock around one synchronised reconstruction (run once, with the sync log "
-                        "on); host_span_ms from utils.tracing spans; the 256 run's device ms, launches and top ops "
-                        "from the raw kineto events of its profiled window (chunks and all between them; the "
-                        "profiler slows the host there)",
+                        "on); host_span_ms from utils.tracing spans; main_run.chunk_window: device ms, launches and "
+                        "top ops by step from one window of device activity over the main run's chunks "
+                        f"{SFM_SCALE_CHUNK_WINDOW[0]}-{SFM_SCALE_CHUNK_WINDOW[1] - 1} and all between them, each "
+                        "step's kernels between its marker fills (ChunkWindow), "
+                        "host ms by step in the window from the host clock",
               "ok": True})
 
     @contextlib.contextmanager
-    def scale_steps(self, got=None):
+    def scale_steps(self, got=None, marks=None):
         """Spans (utils.tracing.trace_span) around the 5k driver's device
         steps, so each step's count, host and device ms and launches can be
         read, and, given a sync log `got`, its host syncs (the yielded dict,
-        by step)."""
+        by step); `marks(step, start)`, when given, is called as each step
+        starts and ends (`chunk_window`)."""
         from opencv_contrib_tpu_torch.sfm import pipeline_scale
         from opencv_contrib_tpu_torch.utils.tracing import trace_span
 
@@ -2989,8 +3463,12 @@ class Smoke(Timer):
         def wrap(fn, name):
             def step(*a, **k):
                 i0 = len(got) if got is not None else 0
+                if marks is not None:
+                    marks(name, True)
                 with trace_span(SCALE_PREFIX + name):
                     out = fn(*a, **k)
+                if marks is not None:
+                    marks(name, False)
                 if got is not None:
                     syncs[name] = syncs.get(name, 0) + sum("synchroniz" in str(w.message) for w in got[i0:])
                 return out
@@ -3020,8 +3498,12 @@ class Smoke(Timer):
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         tracing.reset_spans()
-        with self.sync_log() as got, self.scale_steps(got) as step_syncs:
-            rec, wall = self.counted("sfm_scale", run)
+        window = ChunkWindow(self, *SFM_SCALE_CHUNK_WINDOW)
+        with self.sync_log() as got, self.scale_steps(got, window.marks) as step_syncs:
+            try:
+                rec, wall = self.counted("sfm_scale", run)
+            finally:
+                window.close()
         peak = torch.cuda.max_memory_allocated() - held
         spans = {k[len(SCALE_PREFIX):]: {kk: v[kk] for kk in ("count", "total_s", "mean_ms", "max_ms")}
                  for k, v in tracing.span_stats().items() if k.startswith(SCALE_PREFIX)}
@@ -3051,7 +3533,8 @@ class Smoke(Timer):
                "host_span_ms": spans, "host_syncs": {**syncs, "by_step": step_syncs,
                                                       "in_the_port_per_view": syncs["in_the_port"] / V},
                "launches": self.launches["sfm_scale"], "peak_mem_of_the_run_gb": peak / 2 ** 30,
-               "peak_mem_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+               "peak_mem_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "profiled_chunks": list(SFM_SCALE_CHUNK_WINDOW), "chunk_window": window.rows()}
         check(n_reg >= SFM_SCALE_MIN_VIEW_SHARE * V and mean_px <= SFM_MEAN_PX_GATE
               and n_pts >= SFM_SCALE_MIN_POINT_SHARE * T and max(ate_windows) < SFM_SCALE_ATE
               and bool(np.isfinite(rec.points[rec.has_point]).all()), f"sfm_scale gates: {out}")
@@ -3059,62 +3542,30 @@ class Smoke(Timer):
         torch.cuda.empty_cache()
         return out
 
-    def scale_profiled(self) -> dict:
-        """tests/test_scale_tpu.py's 256 x 1,024 run, once: its gates, the
-        host syncs and host ms of each step, and a profile of the chunks
-        SFM_SCALE_PROFILED_WINDOW and all between them (parsing a whole run's
-        ~7 M events would take minutes)."""
-        from torch.profiler import ProfilerActivity, profile
-
+    def scale_256(self) -> dict:
+        """tests/test_scale_tpu.py's 256 x 1,024 run, once and unprofiled
+        (its chunk profile moved into the main run, `ChunkWindow`): its gates
+        (>= SFM_SCALE_256_MIN_VIEWS views, the mean reprojection), the
+        host syncs and host ms of each step."""
         from opencv_contrib_tpu_torch.sfm import pipeline_scale
         from opencv_contrib_tpu_torch.utils import tracing
 
-        torch = self.torch
-        tracks, intr, _ = self.entry.sfm_sequence_scene(*SFM_SCALE_PROFILED)
-        k0, k1 = SFM_SCALE_PROFILED_WINDOW
-        win = {"calls": 0, "wall": None}
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-
-        def windowed(fn):
-            def chunk(*a, **k):
-                if win["calls"] in (k0, k1):
-                    torch.cuda.synchronize()
-                    if win["calls"] == k0:
-                        prof.__enter__()
-                        win["t0"] = time.perf_counter()
-                    else:
-                        win["wall"] = time.perf_counter() - win["t0"]
-                        prof.__exit__(None, None, None)
-                win["calls"] += 1
-                return fn(*a, **k)
-
-            return chunk
+        tracks, intr, _ = self.entry.sfm_sequence_scene(*SFM_SCALE_256)
 
         def run():
-            return pipeline_scale.reconstruct_sequential(tracks, intr, **SFM_SCALE_PROFILED_RUN)
+            return pipeline_scale.reconstruct_sequential(tracks, intr, **SFM_SCALE_256_RUN)
 
         tracing.reset_spans()
         with self.sync_log() as got, self.scale_steps(got) as step_syncs:
-            with mock.patch.object(pipeline_scale, "_chunk_register_jit", windowed(pipeline_scale._chunk_register_jit)):
-                rec, wall = self.wall_s(run)
-        check(win["wall"] is not None, f"the profiled window never closed: {win['calls']} chunks")
+            rec, wall = self.wall_s(run)
         spans = {k[len(SCALE_PREFIX):]: v for k, v in tracing.span_stats().items() if k.startswith(SCALE_PREFIX)}
         n_reg, mean_px = int(rec.registered.sum()), rec.reprojection_mean_px(tracks)
-        check(n_reg >= SFM_SCALE_PROFILED_MIN_VIEWS and mean_px <= SFM_MEAN_PX_GATE,
+        check(n_reg >= SFM_SCALE_256_MIN_VIEWS and mean_px <= SFM_MEAN_PX_GATE,
               f"sfm_scale 256 gates: {n_reg} views, mean {mean_px} px")
-        t0 = time.perf_counter()
-        rows = self.kineto_rows(prof, win["wall"], SCALE_PREFIX, set(SCALE_STEPS.values()), require=False)
-        s_parse = time.perf_counter() - t0
-        per = {n: {"count": r["count"], "launches_each": r["launches"] / max(r["count"], 1),
-                   "device_ms_each": r["device_ms"] / max(r["count"], 1),
-                   "host_ms_each": r["host_ms"] / max(r["count"], 1)} for n, r in rows["spans"].items()}
-        for n, c in step_syncs.items():
-            per.setdefault(n, {})["syncs_each_whole_run"] = c / max(spans.get(n, {}).get("count", 1), 1)
         return {"views": tracks.n_views, "slots": tracks.slots, "tracks": tracks.n_tracks,
-                "settings": SFM_SCALE_PROFILED_RUN, "registered": n_reg, "segments": rec.n_segments,
-                "reprojection_mean_px": mean_px, "wall_s": wall, "s_parse": s_parse, "host_span_ms": spans,
-                "host_syncs": {**self.sync_summary(got), "by_step": step_syncs},
-                "profiled_chunks": [k0, k1], "profile_window": rows, "per_step_in_window": per}
+                "settings": SFM_SCALE_256_RUN, "registered": n_reg, "segments": rec.n_segments,
+                "reprojection_mean_px": mean_px, "wall_s": wall, "host_span_ms": spans,
+                "host_syncs": {**self.sync_summary(got), "by_step": step_syncs}}
 
     def scale_card_vs_cpu(self) -> dict:
         """A noise-free 48 x 48 orbit on the card and on the CPU, both drawing
@@ -4899,28 +5350,40 @@ class Smoke(Timer):
         selective search on the frame at XIMG_CUT), the JAX tests' gates,
         bit-equal reruns, the learned edge map trained on the card, one
         profiler window over every method, and the port's CPU run of each
-        against the card's."""
+        (`ximg_cpu_outputs`, made in a process of its own while the card
+        runs, with the card's edge model) against the card's."""
+        import concurrent.futures
+        import multiprocessing
+
         from opencv_contrib_tpu_torch.ximgproc import edge_forest
 
-        torch, entry = self.torch, self.entry
+        entry = self.entry
         t_all = time.perf_counter()
         frames = {shape: entry.structure_frame(*shape) for shape in {XIMG_SHAPE, *XIMG_CUT.values()}}
-        on_card = {shape: (self.card(f.rgb), self.card(f.disparity)) for shape, f in frames.items()}
         t0 = time.perf_counter()
         params, train_s = self.wall_s(lambda: edge_forest.train(device=self.dev))
         edge_forest._DEFAULT_PARAMS[str(self.dev)] = params
         parts = {"edge_forest_train": time.perf_counter() - t0}
+        pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            cpu_job = pool.submit(ximg_cpu_outputs, {k: v.cpu().numpy() for k, v in params.items()},
+                                  XIMG_CPU_THREADS)
+            return self._ximgproc_card(edge_forest, frames, train_s, parts, t_all, cpu_job)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def _ximgproc_card(self, edge_forest, frames, train_s, parts, t_all, cpu_job):
+        """Phase u past the edge model's training: the card's runs, profile
+        and gates, then the CPU run's outputs (`cpu_job`) against the card's."""
+        torch, entry = self.torch, self.entry
+        on_card = {shape: (self.card(f.rgb), self.card(f.disparity)) for shape, f in frames.items()}
         t0 = time.perf_counter()
         train_check = self.ximg_train_check(edge_forest, self.card(frames[XIMG_SHAPE].rgb))
         parts["edge_forest_train_vs_cpu"] = time.perf_counter() - t0
 
-        def call(m, dev=None):
-            shape = XIMG_CUT.get(m, XIMG_SHAPE)
-            if dev is None:
-                rgb, disp = on_card[shape]
-                return entry.ximgproc_frame(rgb, m, device=self.dev, disparity=disp)
-            f = frames[shape]
-            return entry.ximgproc_frame(f.rgb, m, device=dev, disparity=f.disparity)
+        def call(m):
+            rgb, disp = on_card[XIMG_CUT.get(m, XIMG_SHAPE)]
+            return entry.ximgproc_frame(rgb, m, device=self.dev, disparity=disp)
 
         t0 = time.perf_counter()
         runs, outs = {}, {}
@@ -4951,10 +5414,13 @@ class Smoke(Timer):
         gates = self.ximg_gates(outs, frames)
         parts["gates"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        edge_forest._DEFAULT_PARAMS["cpu"] = {k: v.cpu() for k, v in params.items()}  # the card's model on the CPU
+        host = cpu_job.result(timeout=600)
+        parts["cpu_wait"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         cpu, beyond = {}, {}
         for m in entry.METHODS:
-            d = self.ximg_diff(outs[m], call(m, dev="cpu"))
+            d = self.ximg_diff(outs[m], tuple(torch.from_numpy(v) if isinstance(u, torch.Tensor) else v
+                                              for u, v in zip(self._leaves(outs[m]), host[m])))
             tol = {**XIMG_CPU_TOL["default"], **XIMG_CPU_TOL.get(m, {})}
             cpu[m] = {k: v for k, v in d.items() if v}
             if any(d[k] > tol[k] for k in d):
@@ -5001,7 +5467,10 @@ class Smoke(Timer):
         Recording the host's ops too cost ~50 s for phase u's ~300,000
         launches on the H100); the window opens with DIST_MARKERS uint8
         fills, as every late window here does (a trace drops its first
-        events). Returns {name: {device_ms, launches, kernels}}."""
+        events). A window whose trace holds another number of marker groups
+        than calls + 1 is taken again, at most N_WINDOWS times (one of the
+        H100's runs read 54 groups for phase u's 50 calls). Returns
+        {name: {device_ms, launches, kernels}}."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -5009,39 +5478,39 @@ class Smoke(Timer):
         if self.marker is None:
             self.marker = torch.empty(16, dtype=torch.uint8, device=self.dev)
         sep = torch.empty(16, dtype=torch.int16, device=self.dev)
-        names = list(calls)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(WINDOW_PAD_S)
-            for _ in range(DIST_MARKERS):
-                self.marker.zero_()
-            for name in names:
-                sep.zero_()
-                sep.zero_()
-                calls[name]()
-            sep.zero_()
+        names, seen = list(calls), []
+        for _ in range(N_WINDOWS):
             torch.cuda.synchronize()
-            time.sleep(WINDOW_PAD_S)
-        events = sorted((e.start_ns(), e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
-                        if e.device_type() == DeviceType.CUDA)
-        rows, cur, prev_sep = [], None, False
-        for _, name, dur in events:
-            if XIMG_MARKER in name:
-                if not prev_sep:
-                    cur = {"device_ms": 0.0, "launches": 0, "kernels": {}}
-                    rows.append(cur)
-                prev_sep = True
-                continue
-            prev_sep = False
-            if cur is None or FLUSH_KERNEL in name:
-                continue
-            cur["device_ms"] += dur / 1e6
-            cur["launches"] += 1
-            k = cur["kernels"].setdefault(name, [0, 0.0])
-            k[0] += 1
-            k[1] += dur / 1e6
-        check(len(rows) == len(names) + 1, f"profile: {len(rows)} marker groups for {len(names)} calls")
-        return dict(zip(names, rows))
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(WINDOW_PAD_S)
+                for _ in range(DIST_MARKERS):
+                    self.marker.zero_()
+                for name in names:
+                    sep.zero_()
+                    sep.zero_()
+                    calls[name]()
+                sep.zero_()
+                torch.cuda.synchronize()
+                time.sleep(WINDOW_PAD_S)
+                t_run = time.perf_counter()
+            t_stop = time.perf_counter()
+            results = prof.profiler.kineto_results
+            events = sorted((e.start_ns(), e.name(), e.duration_ns()) for e in results.events()
+                            if e.device_type() == DeviceType.CUDA)
+            # where a window's seconds go: the calls under the profiler, its stop, reading its events
+            self.profile_split = {"run_s": t_run - t0, "stop_s": t_stop - t_run,
+                                  "read_s": time.perf_counter() - t_stop, "events": len(events)}
+            rows = marker_groups(events)
+            if len(rows) == len(names) + 1:
+                if seen:
+                    self.retaken.append(seen)
+                return dict(zip(names, rows))
+            start = results.trace_start_ns() if hasattr(results, "trace_start_ns") else None
+            seen.append({"marker_groups": len(rows), "calls": len(names), "events": len(events),
+                         "before_trace_start": None if start is None else sum(t < start for t, _, _ in events),
+                         "group_fills": [r["fills"] for r in rows if r["fills"] != 2][:10]})
+        raise AssertionError(f"profile: no window held one marker group a call: {seen}")
 
     @staticmethod
     def _leaves(x):
@@ -5269,10 +5738,11 @@ class Smoke(Timer):
 
     # ---- (w) -----------------------------------------------------------------
     def track_cpu_start(self):
-        """Start phase w's CPU run (`track_cpu_outputs`) in a spawned process
-        of its own at a low priority; main() starts it before phase u, so
-        that it runs beside phases u, v and w's card work (phase w starts it
-        itself when run alone). `close` ends it."""
+        """Start phase w's CPU run (`track_cpu_outputs`), then phase x's
+        (`x_cpu_outputs`), in a spawned process of their own at a low
+        priority; main() starts them before phase u, so that they run beside
+        phases u, v, w and x's card work (phase w or x starts them itself
+        when run alone). `close` ends them."""
         import multiprocessing
 
         # at niceness 10 the CPU run takes the cores the card's phases leave idle (beside them at the default
@@ -5280,6 +5750,8 @@ class Smoke(Timer):
         self.track_pool = multiprocessing.get_context("spawn").Pool(1, initializer=os.nice, initargs=(10,))
         self.track_cpu_job = self.track_pool.apply_async(track_cpu_outputs,
                                                          (TRACK_SHAPE, TRACK_FRAMES, TRACK_CPU_THREADS))
+        # phase x's CPU run, queued behind phase w's in the same process
+        self.x_cpu_job = self.track_pool.apply_async(x_cpu_outputs, (X_SHAPE, X_CPU_THREADS))
         self.track_cpu_t0 = time.perf_counter()
 
     def close(self):
@@ -5288,7 +5760,7 @@ class Smoke(Timer):
         if pool is not None:
             pool.terminate()
             pool.join()
-            self.track_pool = None
+            self.track_pool = self.x_cpu_job = None
 
     def integral_batched(self) -> dict:
         """The integral kernel on the batches of tables MIL's and Boosting's
@@ -5410,24 +5882,32 @@ class Smoke(Timer):
                               "sync_sites": syncs["top_sites"], "kernel_launches": launches}
             parts["card_runs"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            again, walls = {}, {}
-
-            def timed(path):  # the second call, in the profiler's window: its output and host clock
-                def run():
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    again[path] = calls[path]()
-                    torch.cuda.synchronize()
-                    walls[path] = time.perf_counter() - t
-                return run
-
-            prof = self.ximg_profile({path: timed(path) for path in W_PATHS})
+            for path in W_PATHS:  # the second call: its bits and its ms on the host clock
+                again, s2 = self.wall_s(calls[path])
+                runs[path].update(ms=s2 * 1e3, ms_a_frame=s2 * 1e3 / frames[path],
+                                  rerun_bit_equal=_geo_equal(outs[path], again))
+            parts["reruns"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            # device ms and launches from one window over the paths on the clips' first frames (W_PROFILE_FRAMES)
+            cut_scene = on_card._replace(**{k: getattr(on_card, k)[:W_PROFILE_FRAMES["track"]]
+                                            for k in ("frames", "centers", "siam_centers", "boxes")})
+            n_stab = W_PROFILE_FRAMES["stabilize_clip"]
+            cut_clip = clip_card._replace(frames=clip_card.frames[:n_stab], warps=clip.warps[:n_stab],
+                                          motions=clip.motions[:n_stab - 1])
+            cut_calls = {f"track_{m}": (lambda m=m: entry.track_x(cut_scene, m, device=self.dev))
+                         for m in TRACK_METHODS}
+            cut_calls["stabilize_clip"] = lambda: entry.stabilize_clip(cut_clip, device=self.dev)
+            cut_calls["superres_clip"] = calls["superres_clip"]
+            cut_frames = {p: (W_PROFILE_FRAMES["track"] - 1 if p in W_CUT_PATHS else frames[p]) for p in W_PATHS}
+            cut_frames["stabilize_clip"] = n_stab
+            prof = self.ximg_profile(cut_calls)
+            parts["profile_split"] = self.profile_split
             for path, row in prof.items():
                 top = sorted(row["kernels"].items(), key=lambda kv: -kv[1][1])[:3]
-                runs[path].update(ms=walls[path] * 1e3, ms_a_frame=walls[path] * 1e3 / frames[path],
-                                  device_ms=row["device_ms"], device_launches=row["launches"],
-                                  device_ms_a_frame=row["device_ms"] / frames[path],
-                                  rerun_bit_equal=_geo_equal(outs[path], again[path]),
+                runs[path].update(window_frames=cut_frames[path], device_ms_window=row["device_ms"],
+                                  device_launches_window=row["launches"],
+                                  device_ms_a_frame=row["device_ms"] / cut_frames[path],
+                                  device_launches_a_frame=row["launches"] / cut_frames[path],
                                   costliest={k[:60]: [n, ms] for k, (n, ms) in top})
             parts["profile"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -5449,8 +5929,12 @@ class Smoke(Timer):
             t0 = time.perf_counter()
             same_draws = {}
             with _draws_on_cpu():  # the paths that draw, again on the CPU run's draws
-                for path in ("track_tld", "track_mil", "track_boosting", "stabilize_clip"):
+                for path in ("track_tld", "track_mil", "track_boosting"):
                     same_draws[path] = _geo_host(calls[path]())
+                # the stabilizer draws only in its RANSAC part: that part again, the rest from the first call
+                Mr, inl = entry.stab_ransac(clip_card, self.dev)
+                same_draws["stabilize_clip"] = {**_geo_host(outs["stabilize_clip"]), "ransac": _geo_host(Mr),
+                                                "ransac_inliers": _geo_host(inl)}
             for seed in BOOST_SEEDS:
                 with _draws_on_cpu(seed):
                     same_draws[f"track_boosting@{seed}"] = _geo_host(calls["track_boosting"]())
@@ -5460,7 +5944,8 @@ class Smoke(Timer):
             parts["cpu_wait"] = time.perf_counter() - t0
             parts["cpu_run"] = host.pop("cpu_run_s")
         finally:
-            self.close()
+            if getattr(self, "x_cpu_job", None) is None:  # phase x's CPU run, queued behind this one, ends it
+                self.close()
         cpu, beyond = {}, {}
         for path in W_PATHS + tuple(f"track_boosting@{seed}" for seed in BOOST_SEEDS):
             cpu[path] = track_diff(same_draws.get(path, _geo_host(outs.get(path))), host[path], path.split("@")[0])
@@ -5481,14 +5966,182 @@ class Smoke(Timer):
                            f"bit-equal on integer patches to the plain version, to the slab kernel on the batch and "
                            f"to single slab launches, 2e-6 of the largest entry on float patches",
               "timing": "two calls a path: the first counted, its host syncs logged and its peak memory (above "
-                        "what was held) read (ms_first, host clock); the second, in one profiler window over every "
-                        "path (device activity only, raw kineto events), gives device_ms, device_launches, the "
-                        "rerun's bits and ms (host clock around the synchronised call, under the profiler); "
-                        "ms_a_frame: ms over the path's frames (steps); the Siamese backbone trained before the "
+                        "what was held) read (ms_first, host clock); the second gives the rerun's bits and ms (host "
+                        "clock around the synchronised call); ms_a_frame: ms over the path's frames (steps); "
+                        "device_ms_a_frame and device_launches_a_frame: one profiler window (device activity only, "
+                        "raw kineto events) over every path on the clips' first frames (W_PROFILE_FRAMES: "
+                        f"{W_PROFILE_FRAMES}; window_frames steps; the paths that step no clip frame run whole); "
+                        "the Siamese backbone trained before the "
                         "paths (siam_train_s) and again to compare bits; the CPU run went on in a process of its "
                         f"own ({TRACK_CPU_THREADS} threads, niceness 10; cpu_run: its seconds), started "
                         "cpu_started_s_before the phase (main() starts it before phase u), while these ran"})
         check(ok, f"tracking: card vs CPU beyond tolerance {beyond}, reruns not bit-equal {not_equal}, gates "
+                  f"{gates_missed}")
+
+    # ---- (x) -----------------------------------------------------------------
+    def integral_channels(self) -> dict:
+        """The integral kernel on WaldBoost's 8-channel VGA stack
+        (INTEGRAL_CHANNELS, the slab kernel: a table is far over one block's
+        48 KB) of phase x's detection frame (`x_scene`): one launch a call;
+        bit-equal to 8 single launches on integer and on float channels, and
+        to the plain version on integer channels 0..X_EXACT_LEVELS (tables
+        below 2**24); on the frame's channels within phase c's 2e-6 of the
+        largest entry of the plain version. Timed L2-warm and L2-cold beside
+        the plain version and two cumsums over the batch (the library's
+        call), INTEGRAL_REPS calls each in one profiler window."""
+        import torch.nn.functional as F
+
+        from opencv_contrib_tpu_torch.ops.cuda import scan
+        from opencv_contrib_tpu_torch.xobjdetect import waldboost
+
+        torch = self.torch
+        N, H, W = INTEGRAL_CHANNELS
+        check(not scan.one_block(H, W), f"{N}x{H}x{W}: expected the slab kernel")
+        chans = waldboost.icf_channels(self.card(self.x_scene.wb_frame))
+        check(tuple(chans.shape) == INTEGRAL_CHANNELS, f"ICF stack {tuple(chans.shape)}")
+        ints = self.card(np.round(self.gen.uniform(0, X_EXACT_LEVELS, size=INTEGRAL_CHANNELS)))
+        for kind, x in (("integer", ints), ("channels", chans)):
+            out, ref = scan.integral_padded(x), scan.integral_padded_plain(x)
+            singles = torch.stack([scan.integral_padded(x[i]) for i in range(N)])
+            torch.cuda.synchronize()
+            err, top = float((out - ref).abs().max()), float(ref.abs().max())
+            check(err <= (0.0 if kind == "integer" else 2e-6 * top) and torch.equal(out, singles)
+                  and torch.equal(scan.integral_padded(x), out),
+                  f"integral {N}x{H}x{W} ({kind}): max err {err} (max {top}); 8 single launches and a rerun equal")
+        fns = {"": lambda: scan.integral_padded(chans), "plain_": lambda: scan.integral_padded_plain(chans),
+               "library_": lambda: F.pad(torch.cumsum(torch.cumsum(chans, 1), 2), (1, 0, 1, 0))}
+        for fn in fns.values():  # warm
+            fn()
+        prof = self.ximg_profile({p: (lambda fn=fn: [fn() for _ in range(INTEGRAL_REPS)]) for p, fn in fns.items()})
+        r = prof[""]
+        check(r["launches"] == INTEGRAL_REPS and all(is_ours(k, "integral_kernel") for k in r["kernels"]),
+              f"integral {N}x{H}x{W}: {r['launches']} launches of {list(r['kernels'])} in {INTEGRAL_REPS} calls")
+        row = {"shape": list(INTEGRAL_CHANNELS), "max_abs_err": err, "max_abs": top, "integer_exact": True,
+               "equal_to_single_launches": True, "launches_per_call": r["launches"] / INTEGRAL_REPS,
+               **{p + "ms": prof[p]["device_ms"] / INTEGRAL_REPS for p in fns},
+               "bound_ms": 4 * N * (H * W + (H + 1) * (W + 1)) / self.bw * 1e3, "bound_by": "bytes"}
+        for p in ("", "library_"):
+            row[p + "cold_ms"] = self.device_ms(fns[p], iters=30, cold=True)
+        row["wall_ms"] = self.wall_ms(fns[""])
+        self.kernels["integral_image"]["channels"] = {k: row[k] for k in (
+            "shape", "ms", "cold_ms", "plain_ms", "library_ms", "library_cold_ms", "bound_ms", "bound_by",
+            "max_abs_err")}
+        return row
+
+    def detection(self):
+        """Phase x: background subtraction and the retina, detection, shape
+        and face at VGA on the card: the integral kernel on WaldBoost's
+        channel stack (`integral_channels`); every method of
+        entry.background_x on entry.background_clip() and of entry.detect_x
+        on entry.detection_scene(), each counted (X_LAUNCHES: the integral
+        kernel once a WaldBoost detection, three times a transient step, no
+        other kernel of ours), rerun bit-equal, timed (ms a frame), its host
+        syncs and peak memory; one profiler window over all of them; the JAX
+        tests' gates at VGA (background_gates, detection_gates); the port's
+        CPU run of every method, made in a process of its own while the
+        card ran earlier phases, against the card's (x_diff, X_CPU_TOL),
+        GSOC and LSBP on one CPU generator's draws (`_x_draws_on_cpu`); the
+        detection scene is that run's (its models trained once)."""
+        torch, entry = self.torch, self.entry
+        check(tuple(entry.BACKGROUND) == BG_METHODS and tuple(entry.DETECTION) == DET_METHODS,
+              f"entry.BACKGROUND / DETECTION {tuple(entry.BACKGROUND)} {tuple(entry.DETECTION)}")
+        t_all = time.perf_counter()
+        parts = {}
+        if getattr(self, "x_cpu_job", None) is None:
+            self.track_cpu_start()
+        try:
+            t0 = time.perf_counter()
+            host = self.x_cpu_job.get(timeout=600)
+            parts["cpu_wait"] = time.perf_counter() - t0
+            parts["cpu_run"] = host.pop("cpu_run_s")
+            t0 = time.perf_counter()
+            clip, scene = entry.background_clip(*X_SHAPE), host.pop("scene")
+            self.x_scene = scene
+            clip_card = clip._replace(**{k: self.card(v) for k, v in clip._asdict().items() if v.dtype.kind == "f"})
+            scene_card = scene._replace(**{k: self.card(v) for k, v in scene._asdict().items()
+                                           if isinstance(v, np.ndarray) and v.dtype.kind == "f"
+                                           and k not in entry.DETECT_HOST_FIELDS})
+            parts["scenes"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            channels = self.integral_channels()
+            parts["integral_channels"] = time.perf_counter() - t0
+            calls = {f"bg_{m}": (lambda m=m: entry.background_x(clip_card, m, device=self.dev)) for m in BG_METHODS}
+            calls.update({f"det_{m}": (lambda m=m: entry.detect_x(scene_card, m, device=self.dev))
+                          for m in DET_METHODS})
+            frames = {**{f"bg_{m}": entry.BACKGROUND_FRAMES[m] for m in BG_METHODS},
+                      **{f"det_{m}": 1 for m in DET_METHODS}}
+            t0 = time.perf_counter()
+            runs, outs = {}, {}
+            for path in X_PATHS:  # the first call: counted, its syncs logged, its peak
+                with self.sync_log() as got:
+                    (out, s1), peak = self.peak_gb(lambda: self.counted(path, calls[path]))
+                launches = {k: v for k, v in self.launches[path].items() if v}
+                check(launches == X_LAUNCHES.get(path, {}),
+                      f"{path}: kernel launches {launches}, expected {X_LAUNCHES.get(path, {})}")
+                syncs = self.sync_summary(got)
+                outs[path] = out
+                runs[path] = {"ms_first": s1 * 1e3, "frames": frames[path], "peak_mem_gb": peak,
+                              "host_syncs": syncs["total"], "host_syncs_in_port": syncs["in_the_port"],
+                              "sync_sites": syncs["top_sites"], "kernel_launches": launches}
+            parts["card_runs"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for path in X_PATHS:  # the second call: its bits and its ms on the host clock
+                again, s2 = self.wall_s(calls[path])
+                runs[path].update(ms=s2 * 1e3, ms_a_frame=s2 * 1e3 / frames[path],
+                                  rerun_bit_equal=_geo_equal(outs[path], again))
+            parts["reruns"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prof = self.ximg_profile(calls)
+            parts["profile_split"] = self.profile_split
+            for path, row in prof.items():
+                top = sorted(row["kernels"].items(), key=lambda kv: -kv[1][1])[:3]
+                runs[path].update(device_ms=row["device_ms"], device_launches=row["launches"],
+                                  device_ms_a_frame=row["device_ms"] / frames[path],
+                                  costliest={k[:60]: [n, ms] for k, (n, ms) in top})
+            parts["profile"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gates, gates_missed = {}, []
+            for name, fn in (("background", lambda: background_gates(clip, {m: outs[f"bg_{m}"] for m in BG_METHODS})),
+                             ("detection", lambda: detection_gates(scene, {m: outs[f"det_{m}"] for m in DET_METHODS}))):
+                try:
+                    gates[name] = fn()
+                except AssertionError as e:  # reported with the phase's readings, then raised
+                    gates_missed.append(str(e))
+            parts["gates"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            same_draws = {}
+            with _x_draws_on_cpu():  # GSOC and LSBP again, on the CPU run's draws
+                for m in ("gsoc", "lsbp"):
+                    same_draws[f"bg_{m}"] = _geo_host(calls[f"bg_{m}"]())
+            parts["same_draws"] = time.perf_counter() - t0
+        finally:
+            self.close()
+        cpu, beyond = {}, {}
+        for path in X_PATHS:
+            cpu[path] = x_diff(same_draws.get(path, _geo_host(outs[path])), host[path], path)
+            if not cpu[path]["ok"]:
+                beyond[path] = cpu[path]
+        not_equal = sorted(p for p, r in runs.items() if not r["rerun_bit_equal"])
+        ok = not beyond and not not_equal and not gates_missed
+        emit({"phase": "x_detection", "ok": ok, "card_vs_cpu_beyond_tolerance": beyond,
+              "rerun_not_bit_equal": not_equal, "gates_missed": gates_missed, "frame": list(X_SHAPE),
+              "integral_channels": channels, "paths": runs, "gates": gates, "card_vs_cpu": cpu,
+              "phase_parts_s": parts, "phase_s": time.perf_counter() - t_all,
+              "tolerance": f"launches: {X_LAUNCHES} a call, no other kernel of ours; every path bit-equal on a "
+                           f"rerun; gates: the JAX tests' at VGA (background_gates, detection_gates); card vs CPU: "
+                           f"{X_CPU_TOL} (x_diff; GSOC and LSBP on one CPU generator's draws; the subspaces' "
+                           f"columns aligned in sign first); the channel integral: one launch, bit-equal to 8 single "
+                           f"launches, to the plain version on integer channels, 2e-6 of the largest entry on the "
+                           f"frame's channels",
+              "timing": "two calls a path: the first counted, its host syncs logged and its peak memory (above "
+                        "what was held) read (ms_first, host clock); the second gives the rerun's bits and ms (host "
+                        "clock around the synchronised call); ms_a_frame: ms over the path's frames (steps; a "
+                        "detect_x call is one); device_ms and device_launches: one profiler window (device activity "
+                        "only, raw kineto events) over a third call of every path; the CPU run went on in a "
+                        f"process of its own ({X_CPU_THREADS} threads, niceness 10; cpu_run: its seconds) from "
+                        "before phase u, behind phase w's, and made the detection scene (cpu_wait: the phase "
+                        "waited for it first)"})
+        check(ok, f"detection: card vs CPU beyond tolerance {beyond}, reruns not bit-equal {not_equal}, gates "
                   f"{gates_missed}")
 
     def kernels_line(self):
@@ -5505,7 +6158,7 @@ class Smoke(Timer):
                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                          "library_ms": row["library_ms"], "wall_ms": row["wall_ms"],
                          **{k: row[k] for k in ("cold_ms", "library_cold_ms", "bound_over_cold_ms", "frame_ms",
-                                                "frame_library_ms", "widths", "batched") if k in row}})
+                                                "frame_library_ms", "widths", "batched", "channels") if k in row}})
         emit({"kernels": line})
 
 
@@ -5521,10 +6174,11 @@ def main() -> int:
                       smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
                       smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd,
                       smoke.remainder, smoke.distributed, smoke.xfeatures, smoke.video, smoke.track_cpu_start,
-                      smoke.ximgproc, smoke.geometry, smoke.track):
+                      smoke.ximgproc, smoke.geometry, smoke.track, smoke.detection):
             phase()
     finally:
         smoke.close()
+    emit({"windows_retaken": len(smoke.retaken), "their_readings": smoke.retaken[:20]})
     smoke.kernels_line()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+LOG_TAYLOR_THETA2 = 1e-6  # log_se3's small-angle branch for its V^{-1} coefficient
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -96,9 +97,12 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     WW = W @ W
     I = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
-    # V^{-1} = I - W/2 + (1/theta^2)(1 - A/(2B)) W^2
-    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
-                       (1.0 - A / (2.0 * torch.where(small, torch.full_like(B, 0.5), B))) / theta2_safe)
+    # V^{-1} = I - W/2 + (1/theta^2)(1 - A/(2B)) W^2. Below theta^2 = 1e-6 the Taylor branch: in float32 B reads 0
+    # once cos(theta) rounds to 1 (theta from 1e-4 to ~2.4e-4 rad), where the closed form divides by 0 (the twin
+    # returns NaN there); above it, the twin's closed form
+    taylor = theta2 < LOG_TAYLOR_THETA2
+    coef = torch.where(taylor, 1.0 / 12.0 + theta2 / 720.0,
+                       (1.0 - A / (2.0 * torch.where(taylor, torch.full_like(B, 0.5), B))) / theta2_safe)
     Vinv = I - 0.5 * W + coef[..., None, None] * WW
     return torch.cat([w, torch.einsum("...ij,...j->...i", Vinv, t)], dim=-1)
 

@@ -1450,19 +1450,20 @@ def tracking_scene(H: int = 480, W: int = 640, n_frames: int = 30, seed: int = 0
 TRACK_HOST_FIELDS = {"centers", "siam_centers", "zoom_sizes", "zoom_kcf_sizes", "ukf_truth", "twist_xi", "boxes"}
 
 
-class _TScene:
-    """A TrackingScene's arrays on the device (each moved on first use), its
-    truths and host lists as they are."""
+class _Scene:
+    """A scene's numpy arrays on the device, each moved on first use (bool
+    arrays as bool, the rest as float32); the fields named in `host`,
+    tensors (already placed) and other values as they are."""
 
-    def __init__(self, scene: TrackingScene, dev: torch.device):
-        self.scene, self.dev, self._on = scene, dev, {}
+    def __init__(self, scene, dev: torch.device, host=frozenset()):
+        self.scene, self.dev, self.host, self._on = scene, dev, host, {}
 
     def __getattr__(self, name):
         v = getattr(self.scene, name)
-        if name in TRACK_HOST_FIELDS:
+        if name in self.host or not isinstance(v, np.ndarray):
             return v
         if name not in self._on:
-            self._on[name] = to_device(v, self.dev)
+            self._on[name] = (constant(v, self.dev, torch.bool) if v.dtype == bool else to_device(v, self.dev))
         return self._on[name]
 
 
@@ -1481,7 +1482,7 @@ def siam_model(device="cuda"):
     return _SIAM_MODELS[dev]
 
 
-def _single(g: _TScene, init, step, **kw):
+def _single(g: _Scene, init, step, **kw):
     """A single-target tracker over the clip: its centres (T, 2), frame 0
     the start, and its scores (T - 1,), all on the device."""
     frames = g.frames
@@ -1494,7 +1495,7 @@ def _single(g: _TScene, init, step, **kw):
     return st, torch.stack(centers), torch.stack(scores)
 
 
-def _mosse(g: _TScene, size=(64, 64)):
+def _mosse(g: _Scene, size=(64, 64)):
     from opencv_contrib_tpu_torch.tracking import correlation
 
     st, c, s = _single(g, lambda f: correlation.mosse_init(f, g.centers[0, 0], size=size),
@@ -1503,7 +1504,7 @@ def _mosse(g: _TScene, size=(64, 64)):
     return {"centers": c, "psr": s, "psr_vanish": psr_vanish}
 
 
-def _kcf(g: _TScene, size=(64, 64)):
+def _kcf(g: _Scene, size=(64, 64)):
     from opencv_contrib_tpu_torch.tracking import correlation
 
     _, c, s = _single(g, lambda f: correlation.kcf_init(f, g.centers[0, 0], size=size),
@@ -1511,7 +1512,7 @@ def _kcf(g: _TScene, size=(64, 64)):
     return {"centers": c, "peak": s}
 
 
-def _csrt(g: _TScene, target_hw=(21, 21)):
+def _csrt(g: _Scene, target_hw=(21, 21)):
     from opencv_contrib_tpu_torch.tracking import csrt
 
     _, c, s = _single(g, lambda f: csrt.csrt_init(f, g.centers[0, 0], target_hw=target_hw),
@@ -1519,7 +1520,7 @@ def _csrt(g: _TScene, target_hw=(21, 21)):
     return {"centers": c, "peak": s}
 
 
-def _dsst(g: _TScene):
+def _dsst(g: _Scene):
     """The DSST filter alone at the known centre on the constant 32 px clip
     (TestDsstScale::test_scale_stable_on_constant_size's frames): the
     scale each frame."""
@@ -1537,7 +1538,7 @@ def _dsst(g: _TScene):
     return {"scale": torch.stack(scales)}
 
 
-def _scaled(g: _TScene, kind: str):
+def _scaled(g: _Scene, kind: str):
     from opencv_contrib_tpu_torch.tracking import dsst
 
     z, sizes = (g.zoom, g.zoom_sizes) if kind == "csrt" else (g.zoom_kcf, g.zoom_kcf_sizes)
@@ -1559,7 +1560,7 @@ def _kalman_models(dev):
     return F, Hm, 1e-4 * torch.eye(4, device=dev), 0.04 * torch.eye(2, device=dev)
 
 
-def _kf_run(g: _TScene, aukf: bool = False):
+def _kf_run(g: _Scene, aukf: bool = False):
     from opencv_contrib_tpu_torch.tracking import kalman
 
     dev = g.dev
@@ -1574,7 +1575,7 @@ def _kf_run(g: _TScene, aukf: bool = False):
     return {"x": st.x, "P": st.P}
 
 
-def _ukf(g: _TScene):
+def _ukf(g: _Scene):
     from opencv_contrib_tpu_torch.tracking import kalman
 
     dev = g.dev
@@ -1593,7 +1594,7 @@ def _ukf(g: _TScene):
     return {"x": st.x, "P": st.P}
 
 
-def _medianflow(g: _TScene):
+def _medianflow(g: _Scene):
     from opencv_contrib_tpu_torch.tracking import medianflow
 
     box0 = medianflow.Box(constant(g.centers[0, 0], g.dev), torch.full((2,), 20.0, device=g.dev))
@@ -1601,7 +1602,7 @@ def _medianflow(g: _TScene):
     return {"centers": c, "ok": ok}
 
 
-def _tld(g: _TScene, seed: int = 1):
+def _tld(g: _Scene, seed: int = 1):
     from opencv_contrib_tpu_torch.tracking import tld
 
     gen = torch.Generator(device=g.dev).manual_seed(seed)
@@ -1612,7 +1613,7 @@ def _tld(g: _TScene, seed: int = 1):
 
 
 def _haar(kind: str):
-    def run(g: _TScene, seed: int = 0, n_features: int = 120):
+    def run(g: _Scene, seed: int = 0, n_features: int = 120):
         from opencv_contrib_tpu_torch.tracking import boosting, mil
 
         gen = torch.Generator(device=g.dev).manual_seed(seed)
@@ -1626,7 +1627,7 @@ def _haar(kind: str):
     return run
 
 
-def _multi(g: _TScene, seed: int = 1):
+def _multi(g: _Scene, seed: int = 1):
     """MultiTracker with MOSSE on A, KCF on B and MedianFlow on C
     (tests/test_tracking_extra.py's mixed kinds): centres (T, 3, 2)."""
     from opencv_contrib_tpu_torch.tracking import multitracker
@@ -1642,7 +1643,7 @@ def _multi(g: _TScene, seed: int = 1):
     return {"centers": torch.stack(out)}
 
 
-def _by_matching(g: _TScene):
+def _by_matching(g: _Scene):
     """TrackerByMatching over the detections: the live (id, box) pairs of
     each frame (host lists)."""
     from opencv_contrib_tpu_torch.tracking import matching
@@ -1651,13 +1652,13 @@ def _by_matching(g: _TScene):
     return {"tracks": [trk.process(b) for b in g.boxes]}
 
 
-def _twist(g: _TScene):
+def _twist(g: _Scene):
     from opencv_contrib_tpu_torch.tracking import twist
 
     return {"xi": twist.compute_twist(g.twist_uv, g.twist_duv, g.twist_depths, g.twist_K)}
 
 
-def _siam(g: _TScene):
+def _siam(g: _Scene):
     from opencv_contrib_tpu_torch.tracking import siam
 
     model = siam_model(g.dev)
@@ -1695,7 +1696,7 @@ def track_x(scene: TrackingScene, method: str, device="cuda") -> dict:
     are host values, as the twins return them)."""
     if method not in TRACKING:
         raise ValueError(f"track_x: method must be one of {sorted(TRACKING)}, got {method!r}")
-    return TRACKING[method](_TScene(scene, resolve(device)))
+    return TRACKING[method](_Scene(scene, resolve(device), TRACK_HOST_FIELDS))
 
 
 class ShakyClip(NamedTuple):
@@ -1743,6 +1744,23 @@ STAB_RANSAC = dict(n_points=60, n_outliers=12, seed=0)  # tests/test_videostab2.
 STAB_LP_BOUND = 0.08
 
 
+def stab_ransac(clip: ShakyClip, dev: torch.device):
+    """`stabilize_clip`'s RANSAC part, the one that draws: 60 point matches
+    of frames 0 -> 1 under the clip's first motion with 12 outliers, and
+    `videostab.ransac_motion` (similarity) on them, drawing from a
+    generator on `dev`. Returns (M, inliers)."""
+    from opencv_contrib_tpu_torch import videostab
+
+    rng = np.random.default_rng(STAB_RANSAC["seed"])
+    H, W = clip.frames.shape[1:]
+    pts0 = rng.uniform([0, 0], [W, H], (STAB_RANSAC["n_points"], 2)).astype(np.float32)
+    M = clip.motions[0].astype(np.float64)
+    pts1 = (pts0 @ M[:2, :2].T + M[:2, 2]).astype(np.float32)
+    pts1[:STAB_RANSAC["n_outliers"]] += rng.uniform(20, 40, (STAB_RANSAC["n_outliers"], 2)).astype(np.float32)
+    gen = torch.Generator(dev).manual_seed(STAB_RANSAC["seed"])
+    return videostab.ransac_motion(constant(pts0, dev), constant(pts1, dev), gen, model="similarity")
+
+
 class Stabilized(NamedTuple):
     frames: list  # the stabilized frames (tensors)
     motions: torch.Tensor  # (T - 1, 4) estimated similarity parameters
@@ -1771,14 +1789,8 @@ def stabilize_clip(clip: ShakyClip, device="cuda") -> Stabilized:
     dev = resolve(device)
     frames = [to_device(f, dev) for f in clip.frames]
     stab, motions, comp = videostab.stabilize(frames, model="similarity", sigma=1.5)
-    rng = np.random.default_rng(STAB_RANSAC["seed"])
     H, W = clip.frames.shape[1:]
-    pts0 = rng.uniform([0, 0], [W, H], (STAB_RANSAC["n_points"], 2)).astype(np.float32)
-    M = clip.motions[0].astype(np.float64)
-    pts1 = (pts0 @ M[:2, :2].T + M[:2, 2]).astype(np.float32)
-    pts1[:STAB_RANSAC["n_outliers"]] += rng.uniform(20, 40, (STAB_RANSAC["n_outliers"], 2)).astype(np.float32)
-    gen = torch.Generator(dev).manual_seed(STAB_RANSAC["seed"])
-    Mr, inl = videostab.ransac_motion(constant(pts0, dev), constant(pts1, dev), gen, model="similarity")
+    Mr, inl = stab_ransac(clip, dev)
     lp = videostab.lp_stabilize_trajectory(constant(clip.trajectory, dev), bound=STAB_LP_BOUND)
     mot = [constant(m, dev) for m in clip.motions]
     blurred = filters.gaussian_blur(frames[2], 2.0)
@@ -1823,3 +1835,666 @@ def superres_clip(device="cuda", H: int = 240, W: int = 320, seed: int = 0) -> S
     known = superres.btv_l1(frames, scale=2, n_iters=25, lam=5e-3, ref_index=0, flows=flows)
     est = superres.btv_l1(frames, scale=2, n_iters=25, lam=2e-2)
     return SuperRes(known, est, hr, resize(frames[0], (2 * H, 2 * W)), frames)
+
+
+# ---- background subtraction and the retina ----------------------------------------------------------------------
+
+# the JAX tests' sequences: (frames, seed, the test's frame side): the object's 10 px scale by W over that side,
+# which keeps its motion a frame, (W - size) / (frames - 1), the same share of its size as in the test
+BG_SEQUENCES = {"mog": (25, 1, 64), "cnt": (30, 2, 64), "gsoc": (24, 0, 48), "lsbp": (24, 3, 48)}
+GMG_INIT = 22  # tests/test_breadth8.py::TestGmg's background frames, then one with the object
+TRANSIENT_STEPS = 10
+RETINA_RUNS = (10, 12)  # the parvo test's runs; the magno test's static runs (one moved run follows)
+RETINA_SHIFT = 5  # px, the magno test's roll
+
+
+class BackgroundClip(NamedTuple):
+    """The fixtures of `background_x` (numpy float32 unless stated), each
+    JAX test's own from its own seed at H x W (object sizes and regions
+    scaled with the frame).
+
+    - `mog`, `cnt`, `gsoc`, `lsbp` (T, H, W) with `*_masks` (T, H, W) bool:
+      `bgsegm.synthetic_sequence` with each test's frame count and seed
+      (BG_SEQUENCES; tests/test_bgsegm_stereo.py, test_breadth6.py), the
+      object 10 W / side px (side: the test's frame side). `mog` also
+      holds TestMog's own 64 x 64 sequence in its top-left corner
+      (`mog_patch_masks` its object): MOG is per pixel, so the test's gate
+      reads the same there as in the test (0.703 against 0.7), while the
+      scaled object, 10,000 pixels a frame where the test has 100, reads
+      the rate the test's draws overstate (0.633 in both packages); `static` (10, H, W): TestMog's static scene (seed 0:
+      U(0, 1) plus N(0, 0.005) a frame).
+    - `gmg` (GMG_INIT + 1, H, W): TestGmg's 0.5 background plus N(0, 0.01)
+      (seed 1), then the 0.95 object over [10 s, 20 s)^2.
+    - `retina_contrast` (H, W): the parvo test's U(0, 0.1) texture with its
+      right half raised by 0.8; `retina_motion` (H, W): the magno test's U(0,
+      1) image (both seed 0).
+    - `magno` (TRANSIENT_STEPS, H, W): TestTransient's N(0, 0.01) magno
+      frames (seed 0) with 0.5 added over rows [20 s, 40 s) x cols [24 s,
+      44 s).
+    - `hdr` (H, W): the tone-mapping test's exp(N(0, 2)) (seed 0); `color`
+      (H, W, 3): U(0.1, 1) (seed 1); `smooth` (H, W, 3): the mux / demux
+      test's smooth RGB; `retina_rgb` (H, W, 3): U(0, 1) (seed 2)."""
+    mog: np.ndarray
+    mog_masks: np.ndarray
+    mog_patch_masks: np.ndarray
+    cnt: np.ndarray
+    cnt_masks: np.ndarray
+    gsoc: np.ndarray
+    gsoc_masks: np.ndarray
+    lsbp: np.ndarray
+    lsbp_masks: np.ndarray
+    static: np.ndarray
+    gmg: np.ndarray
+    retina_contrast: np.ndarray
+    retina_motion: np.ndarray
+    magno: np.ndarray
+    hdr: np.ndarray
+    color: np.ndarray
+    smooth: np.ndarray
+    retina_rgb: np.ndarray
+
+
+def bg_regions(H: int = 480, W: int = 640) -> dict:
+    """The JAX tests' gate regions, scaled to H x W: (y0, y1, x0, x1)."""
+    s6 = (H / 64.0, W / 64.0)  # the 64 x 64 retina and transient fixtures
+    s4 = H / 48.0  # GMG's 48 x 48
+
+    def box(y0, y1, x0, x1, sy, sx):
+        return (int(round(y0 * sy)), int(round(y1 * sy)), int(round(x0 * sx)), int(round(x1 * sx)))
+
+    return {"gmg_object": box(10, 20, 10, 20, s4, s4), "gmg_inside": box(12, 18, 12, 18, s4, s4),
+            "gmg_outside": box(30, 48, 30, 48, s4, s4 * W / H),
+            "retina_dark": box(8, 56, 4, 28, *s6), "retina_bright": box(8, 56, 36, 60, *s6),
+            "magno_on": box(20, 40, 24, 44, *s6), "seg_inside": box(24, 36, 28, 40, *s6),
+            "seg_corner": box(0, 10, 0, 10, *s6)}
+
+
+def background_clip(H: int = 480, W: int = 640) -> BackgroundClip:
+    """The fixtures of `background_x` at H x W (`BackgroundClip`)."""
+    from opencv_contrib_tpu_torch.bgsegm import synthetic_sequence
+
+    seqs = {}
+    for name, (n, seed, side) in BG_SEQUENCES.items():
+        fr = list(synthetic_sequence(n_frames=n, shape=(H, W), obj_size=int(round(10 * W / side)), seed=seed))
+        seqs[name] = np.stack([f for f, _ in fr])
+        seqs[name + "_masks"] = np.stack([m for _, m in fr])
+    # TestMog's own 64 x 64 sequence in the top-left corner, clear of the scaled object's rows
+    n, seed, side = BG_SEQUENCES["mog"]
+    patch = list(synthetic_sequence(n_frames=n, shape=(side, side), seed=seed))
+    seqs["mog"][:, :side, :side] = np.stack([f for f, _ in patch])
+    seqs["mog_patch_masks"] = np.zeros_like(seqs["mog_masks"])
+    seqs["mog_patch_masks"][:, :side, :side] = np.stack([m for _, m in patch])
+    seqs["mog_masks"] |= seqs["mog_patch_masks"]
+    rng = np.random.default_rng(0)
+    img = rng.uniform(size=(H, W)).astype(np.float32)
+    static = np.stack([img + rng.normal(scale=0.005, size=(H, W)).astype(np.float32) for _ in range(10)])
+    reg = bg_regions(H, W)
+    rng = np.random.default_rng(1)
+    bg = np.full((H, W), 0.5)
+    gmg = [(bg + rng.normal(0, 0.01, bg.shape)).astype(np.float32) for _ in range(GMG_INIT)]
+    y0, y1, x0, x1 = reg["gmg_object"]
+    obj = bg.copy()
+    obj[y0:y1, x0:x1] = 0.95
+    gmg.append(obj.astype(np.float32))
+    contrast = np.random.default_rng(0).uniform(size=(H, W)).astype(np.float32) * 0.1
+    contrast[:, W // 2:] += 0.8
+    motion = np.random.default_rng(0).uniform(size=(H, W)).astype(np.float32)
+    rng = np.random.default_rng(0)
+    y0, y1, x0, x1 = reg["magno_on"]
+    magno = []
+    for _ in range(TRANSIENT_STEPS):
+        m = 0.01 * rng.standard_normal((H, W)).astype(np.float32)
+        m[y0:y1, x0:x1] += 0.5
+        magno.append(m)
+    hdr = np.exp(np.random.default_rng(0).normal(0, 2.0, (H, W))).astype(np.float32)
+    color = np.random.default_rng(1).uniform(0.1, 1.0, (H, W, 3)).astype(np.float32)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    smooth = np.stack([0.3 + 0.3 * np.sin(xs / 15), 0.5 + 0.2 * np.cos(ys / 12),
+                       0.4 + 0.1 * np.sin((xs + ys) / 20)], -1).astype(np.float32)
+    retina_rgb = np.random.default_rng(2).uniform(size=(H, W, 3)).astype(np.float32)
+    return BackgroundClip(**seqs, static=static, gmg=np.stack(gmg), retina_contrast=contrast, retina_motion=motion,
+                          magno=np.stack(magno), hdr=hdr, color=color, smooth=smooth, retina_rgb=retina_rgb)
+
+
+def _bg_mog(c: _Scene):
+    from opencv_contrib_tpu_torch import bgsegm
+
+    frames = c.mog
+    st = bgsegm.mog_create(frames.shape[1:], device=c.dev)
+    for f in frames[:10]:  # learn the background, then frames 15.. as the test does
+        st, _ = bgsegm.mog_apply(st, f)
+    fgs = []
+    for f in frames[15:]:
+        st, fg = bgsegm.mog_apply(st, f)
+        fgs.append(fg)
+    st_static = bgsegm.mog_create(frames.shape[1:], device=c.dev)
+    for f in c.static:
+        st_static, fg_static = bgsegm.mog_apply(st_static, f)
+    return {"state": st, "fg": torch.stack(fgs), "fg_static": fg_static}
+
+
+def _bg_cnt(c: _Scene):
+    from opencv_contrib_tpu_torch import bgsegm
+
+    frames = c.cnt
+    st = bgsegm.cnt_create(frames.shape[1:], device=c.dev)
+    for f in frames[:20]:
+        st, _ = bgsegm.cnt_apply(st, f)
+    st, fg = bgsegm.cnt_apply(st, frames[25])
+    return {"state": st, "fg": fg}
+
+
+def _bg_gmg(c: _Scene):
+    from opencv_contrib_tpu_torch import bgsegm
+
+    frames = c.gmg
+    st = bgsegm.gmg_create(frames.shape[1:], device=c.dev)
+    any_fg = torch.zeros((), dtype=torch.bool, device=c.dev)
+    for f in frames[:GMG_INIT]:
+        st, fg = bgsegm.gmg_apply(st, f)
+        any_fg = any_fg | fg.any()
+    st, fg = bgsegm.gmg_apply(st, frames[GMG_INIT])
+    return {"state": st, "fg": fg, "init_any_fg": any_fg}
+
+
+def _bg_gsoc(c: _Scene):
+    from opencv_contrib_tpu_torch import bgsegm
+
+    frames = c.gsoc
+    st = bgsegm.gsoc_create(frames.shape[1:], device=c.dev)
+    for f in frames:
+        st, fg = bgsegm.gsoc_apply(st, f)
+    return {"samples": st.samples, "hits": st.hits, "fg": fg}
+
+
+def _bg_lsbp(c: _Scene):
+    from opencv_contrib_tpu_torch import bgsegm
+
+    frames = c.lsbp
+    flat = bgsegm.lsbp_descriptor(torch.zeros((16, 16), device=c.dev))
+    st = bgsegm.lsbp_create(frames.shape[1:], device=c.dev)
+    for f in frames:
+        st, fg = bgsegm.lsbp_apply(st, f)
+    return {"samples": st.gsoc.samples, "hits": st.gsoc.hits, "desc": st.desc, "fg": fg, "flat_code": flat}
+
+
+def _bg_retina_transient(c: _Scene):
+    from opencv_contrib_tpu_torch import bioinspired
+
+    shape = c.retina_contrast.shape
+    r = bioinspired.Retina(shape, device=c.dev)
+    for _ in range(RETINA_RUNS[0]):
+        parvo, _ = r.run(c.retina_contrast)
+    r = bioinspired.Retina(shape, device=c.dev)
+    for _ in range(RETINA_RUNS[1]):
+        _, magno_static = r.run(c.retina_motion)
+    _, magno_moving = r.run(torch.roll(c.retina_motion, RETINA_SHIFT, 1))
+    st = bioinspired.transient_create(shape, device=c.dev)
+    for m in c.magno:
+        st, seg = bioinspired.transient_run(st, m)
+    return {"parvo": parvo, "magno_static": magno_static, "magno_moving": magno_moving, "transient": st, "seg": seg}
+
+
+def _bg_retina_color(c: _Scene):
+    from opencv_contrib_tpu_torch import bioinspired
+
+    mosaic = bioinspired.color_multiplex(c.smooth)
+    rec = bioinspired.color_demultiplex(mosaic)
+    masks = bioinspired.bayer_masks(c.smooth.shape[:2], c.dev)
+    r = bioinspired.Retina(c.retina_rgb.shape[:2], device=c.dev)
+    parvo_rgb, magno = bioinspired.retina_run_color(r, c.retina_rgb)
+    return {"mosaic": mosaic, "demux": rec, "masks_sum": masks.sum(0), "tone_gray": bioinspired.fast_tone_mapping(c.hdr),
+            "tone_color": bioinspired.fast_tone_mapping(c.color), "parvo_rgb": parvo_rgb, "magno": magno}
+
+
+BACKGROUND = {"mog": _bg_mog, "cnt": _bg_cnt, "gmg": _bg_gmg, "gsoc": _bg_gsoc, "lsbp": _bg_lsbp,
+              "retina_transient": _bg_retina_transient, "retina_color": _bg_retina_color}
+# frames (steps) a call of each method runs
+BACKGROUND_FRAMES = {"mog": 20, "cnt": 21, "gmg": GMG_INIT + 1, "gsoc": BG_SEQUENCES["gsoc"][0],
+                     "lsbp": BG_SEQUENCES["lsbp"][0], "retina_transient": sum(RETINA_RUNS) + 1 + TRANSIENT_STEPS,
+                     "retina_color": 1}
+
+
+def background_x(clip: BackgroundClip, method: str, device="cuda") -> dict:
+    """One background subtractor or retina path on `clip` (a
+    `background_clip()`), with the settings of the JAX test that gates it
+    (`BACKGROUND`): MOG, CNT, GMG, GSOC and LSBP over their sequences (GSOC
+    and LSBP drawing from a generator on `device` seeded 0, the twins'
+    PRNGKey(0)), the retina's parvo and magno runs with the transient
+    segmentation (three integral launches a step), or the color
+    multiplexing, tone mapping and color retina. Returns a dict of tensors
+    on `device`."""
+    if method not in BACKGROUND:
+        raise ValueError(f"background_x: method must be one of {sorted(BACKGROUND)}, got {method!r}")
+    return BACKGROUND[method](_Scene(clip, resolve(device)))
+
+
+# ---- detection, shape and face ------------------------------------------------------------------------------------
+
+WB_WIN = 24  # tests/test_xobjdetect.py's window
+WB_AT = (40, 30)  # the cross's corner in the test's 96 x 96 scene (scaled with the frame)
+WB_STRIDE = 2
+HOG_WIN_CELLS = (8, 8)  # TestHog::test_svm_detection's 64 x 64 window
+HOG_AT = (32, 48)  # the target's corner in the test's 128 x 128 scene (scaled with the frame)
+HOG_SCALES = (1.0, 0.84, 0.7)  # detect_multiscale's defaults
+DPM_AT = (192, 272)  # the 96 x 96 DPM pattern's corner in a VGA frame (scaled with the frame)
+FACE_IDS, FACE_PER_ID, FACE_SHAPE = 40, 10, (112, 92)  # the AT&T database's layout
+EIGEN_COMPONENTS = 2 * FACE_IDS  # tests/test_face.py's 8 components for 4 identities
+LBPH_GRID = 4
+LBPH_NEW_LABEL = FACE_IDS  # the identity LBPH's update adds
+BIF_FACES = 4  # gallery bases described at BIF's default 8 bands x 12 rotations
+AAM_AT = (200, 300)  # the held-out AAM face's offset in a VGA frame (scaled with the frame)
+FACEMARK_AT = (150, 400)  # the held-out Facemark face's offset in a VGA frame (scaled with the frame)
+CONTOUR_POINTS = 300
+EMD_DESCS = 32  # shape contexts of each contour in the EMD-L1 grid cost matrix
+
+
+def _cross_patch(win, rng):
+    """tests/test_xobjdetect.py::_cross_patch."""
+    p = rng.uniform(0, 0.2, (win, win)).astype(np.float32)
+    c = win // 2
+    p[c - 2:c + 2, 4:-4] += 0.8
+    p[4:-4, c - 2:c + 2] += 0.8
+    return p
+
+
+def _dpm_pattern(rng, deform=0):
+    """tests/test_detect_breadth.py::TestDpm._pattern."""
+    img = rng.uniform(0, 0.1, (96, 96)).astype(np.float32)
+    img[40:72, 32:64] += 0.15
+    img[44:52, 36:44] += 0.7
+    img[60 + deform:68 + deform, 52:60] += 0.7
+    return img
+
+
+def _identity_images(rng, n_ids=4, n_per_id=6, shape=(32, 32)):
+    """tests/test_face.py::_identity_images."""
+    bases = [rng.uniform(0, 1, shape).astype(np.float32) for _ in range(n_ids)]
+    imgs, labels = [], []
+    for i, b in enumerate(bases):
+        for _ in range(n_per_id):
+            gain = rng.uniform(0.7, 1.3)
+            imgs.append(np.clip(gain * b + rng.normal(scale=0.05, size=shape), 0, 1.5).astype(np.float32))
+            labels.append(i)
+    return imgs, labels, bases
+
+
+def _make_face(cy, cx, s, H=96, W=96):
+    """tests/test_face.py::TestFacemarkAAM._make_face."""
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    img = np.zeros((H, W), np.float32)
+    img[(((yy - cy) / (1.3 * s)) ** 2 + ((xx - cx) / s) ** 2) < 1] = 0.8
+    ey, ex = cy - 0.4 * s, 0.45 * s
+    for sx in (-1, 1):
+        img[(((yy - ey) ** 2 + (xx - (cx + sx * ex)) ** 2) < (0.18 * s) ** 2)] = 0.2
+    img[(np.abs(yy - (cy + 0.55 * s)) < 0.08 * s) & (np.abs(xx - cx) < 0.35 * s)] = 0.3
+    img[(np.abs(yy - (cy + 0.1 * s)) < 0.12 * s) & (np.abs(xx - cx) < 0.07 * s)] = 0.5
+    lm = np.array([[ey, cx - ex], [ey, cx + ex], [cy + 0.1 * s, cx], [cy + 0.55 * s, cx - 0.35 * s],
+                   [cy + 0.55 * s, cx + 0.35 * s], [cy + 1.25 * s, cx]], np.float32)
+    return img, lm
+
+
+def _face_like(landmarks_px, shape=(96, 96)):
+    """tests/test_breadth7.py::_face_like."""
+    img = np.zeros(shape, np.float32)
+    yy, xx = np.meshgrid(np.arange(shape[0]), np.arange(shape[1]), indexing="ij")
+    img += 0.2 + 0.002 * yy
+    for (y, x) in landmarks_px:
+        img += 0.8 * np.exp(-((yy - y) ** 2 + (xx - x) ** 2) / (2 * 2.5 ** 2))
+    return img.astype(np.float32)
+
+
+def _at_scale(at, H: int, W: int):
+    """A VGA position scaled to an H x W frame."""
+    return int(round(at[0] * H / 480)), int(round(at[1] * W / 640))
+
+
+def _box_of(lm):
+    """TestFacemarkAAM's fitting box around landmarks: (y0, x0, h, w)."""
+    lo, hi = lm.min(0), lm.max(0)
+    return (lo[0] - 0.05 * (hi[0] - lo[0]), lo[1] - 0.05 * (hi[1] - lo[1]), 1.1 * (hi[0] - lo[0]),
+            1.1 * (hi[1] - lo[1]))
+
+
+def contours(n: int = CONTOUR_POINTS):
+    """The shape methods' contours: a unit circle and the wavy closed curve
+    of tests/test_breadth2.py::TestShape's shape-context test, n points each."""
+    t = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    circle = np.stack([np.cos(t), np.sin(t)], axis=1).astype(np.float32)
+    wavy = np.stack([np.cos(t) * (1 + 0.3 * np.sign(np.cos(3 * t))), np.sin(t)], axis=1).astype(np.float32)
+    return circle, wavy
+
+
+class DetectionScene(NamedTuple):
+    """The fixtures of `detect_x`, each JAX test's own from its own seed
+    (the tests' `rng` is numpy's default_rng(0)) laid into H x W frames
+    (numpy float32 unless stated; s = the frame over the test's scene).
+
+    - WaldBoost (tests/test_xobjdetect.py::TestWaldBoost): `wb_model`, the
+      port's model trained on the CPU on the test's 40 crosses and 40 noise
+      patches over the port's pool (generator seed 0, 256 features, 16
+      rounds); `wb_frame` U(0, 0.3) with the test's cross at WB_AT s;
+      `wb_center` (2,) its centre.
+    - HOG (TestHog::test_svm_detection): `hog_w` the one-shot SVM (the
+      target's descriptor less its mean), `hog_frame` U(0, 0.05) with the
+      target at HOG_AT s; `hog_at` (2,).
+    - DPM (tests/test_detect_breadth.py::TestDpm): `dpm_model` built from the
+      96 x 96 training pattern's features as the test builds it (host
+      arrays, bias a float); `dpm_frame`, `dpm_deformed` U(0, 0.1) with the
+      pattern and its deformed copy at `dpm_at` (DPM_AT s), `dpm_noise` U(0,
+      1).
+    - Faces (tests/test_face.py): `faces` (400, 112, 92) and `face_labels`
+      (400,) int, `_identity_images` at the AT&T layout; `face_bases` (40,
+      112, 92); `eigen_probes` and `fisher_probes` (40, 112, 92), the
+      tests' 1.1 / 0.9 gains plus noise; `lbph_new` (3, 112, 92) and
+      `lbph_new_base`, a new identity.
+    - BIF (tests/test_breadth9.py::TestBIF): `bif_stripes`, `bif_a`,
+      `bif_b` (112, 92).
+    - AAM (TestFacemarkAAM): `aam_model` (CPU tensors) trained on the
+      test's 12 faces; `aam_frame` with its held-out face at AAM_AT s,
+      `aam_truth` (6, 2), `aam_box` (4,).
+    - Facemark (tests/test_breadth7.py::TestFacemark): `fm_model` (CPU
+      tensors) trained on the test's 24 faces; `fm_frame` with its held-out
+      face at FACEMARK_AT s, `fm_truth` (5, 2), `fm_box` (3,).
+    - Shape: `circle`, `wavy` (CONTOUR_POINTS, 2), `tps_src`, `tps_dst`
+      (the TPS test's 12 points in [0, 10) and their moves; seed 0)."""
+    wb_model: tuple
+    wb_frame: np.ndarray
+    wb_center: np.ndarray
+    hog_w: np.ndarray
+    hog_frame: np.ndarray
+    hog_at: np.ndarray
+    dpm_model: tuple
+    dpm_frame: np.ndarray
+    dpm_deformed: np.ndarray
+    dpm_noise: np.ndarray
+    dpm_at: np.ndarray
+    faces: np.ndarray
+    face_labels: np.ndarray
+    face_bases: np.ndarray
+    eigen_probes: np.ndarray
+    fisher_probes: np.ndarray
+    lbph_new: np.ndarray
+    lbph_new_base: np.ndarray
+    bif_stripes: np.ndarray
+    bif_a: np.ndarray
+    bif_b: np.ndarray
+    aam_model: tuple
+    aam_frame: np.ndarray
+    aam_truth: np.ndarray
+    aam_box: np.ndarray
+    fm_model: tuple
+    fm_frame: np.ndarray
+    fm_truth: np.ndarray
+    fm_box: np.ndarray
+    circle: np.ndarray
+    wavy: np.ndarray
+    tps_src: np.ndarray
+    tps_dst: np.ndarray
+
+
+DETECT_HOST_FIELDS = {"wb_center", "hog_at", "face_labels", "aam_truth", "aam_box", "fm_truth", "dpm_model", "dpm_at"}
+
+
+def _train_waldboost(rng):
+    from opencv_contrib_tpu_torch.xobjdetect import waldboost
+
+    pool = waldboost.make_feature_pool(torch.Generator().manual_seed(0), win=WB_WIN, n_features=256)
+    pos = np.stack([_cross_patch(WB_WIN, rng) for _ in range(40)])
+    neg = rng.uniform(0, 1, (40, WB_WIN, WB_WIN)).astype(np.float32)
+    c = torch.tensor([[WB_WIN // 2, WB_WIN // 2]])
+    fp = torch.cat([waldboost.window_features(torch.from_numpy(p), c, pool, win=WB_WIN) for p in pos])
+    fn = torch.cat([waldboost.window_features(torch.from_numpy(n), c, pool, win=WB_WIN) for n in neg])
+    return waldboost.train(fp, fn, pool, n_rounds=16, win=WB_WIN)
+
+
+def detection_scene(H: int = 480, W: int = 640) -> DetectionScene:
+    """The fixtures of `detect_x` at H x W (`DetectionScene`); the models
+    are trained on the CPU here."""
+    from opencv_contrib_tpu_torch.dpm.detector import DPMModel, _features
+    from opencv_contrib_tpu_torch.face import aam, facemark
+    from opencv_contrib_tpu_torch.xobjdetect import hog
+
+    rng = np.random.default_rng(0)  # TestWaldBoost::test_detect_localizes
+    wb_model = _train_waldboost(rng)
+    wb_frame = rng.uniform(0, 0.3, (H, W)).astype(np.float32)
+    wy, wx = int(round(WB_AT[0] * H / 96)), int(round(WB_AT[1] * W / 96))
+    wb_frame[wy:wy + WB_WIN, wx:wx + WB_WIN] = _cross_patch(WB_WIN, rng)
+
+    rng = np.random.default_rng(0)  # TestHog::test_svm_detection
+    target = np.zeros((64, 64), np.float32)
+    target[16:48, 28:36] = 1.0
+    w = hog.hog_descriptor(torch.from_numpy(target), HOG_WIN_CELLS).numpy()
+    hog_frame = rng.uniform(0, 0.05, (H, W)).astype(np.float32)
+    hy, hx = int(round(HOG_AT[0] * H / 128)), int(round(HOG_AT[1] * W / 128))
+    hog_frame[hy:hy + 64, hx:hx + 64] = np.maximum(hog_frame[hy:hy + 64, hx:hx + 64], target)
+
+    rng = np.random.default_rng(0)  # TestDpm::test_detect_and_deformation_tolerance
+    train = _dpm_pattern(rng)
+    feat = _features(torch.from_numpy(train))
+    nrm = lambda a: a / (torch.linalg.vector_norm(a) + 1e-6)  # noqa: E731
+    dpm_model = DPMModel(root=nrm(feat[4:9, 3:8]).numpy(),
+                         parts=torch.stack([nrm(feat[5:7, 4:6]), nrm(feat[7:9, 6:8])]).numpy(),
+                         anchors=np.array([[1, 1], [3, 3]], np.int32), deform=np.full((2, 4), 0.05, np.float32),
+                         bias=0.0)
+    deformed = _dpm_pattern(rng, deform=6)
+    noise = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    frames = []
+    dy, dx = _at_scale(DPM_AT, H, W)
+    for pat in (train, deformed):
+        f = rng.uniform(0, 0.1, (H, W)).astype(np.float32)
+        f[dy:dy + 96, dx:dx + 96] = pat
+        frames.append(f)
+
+    rng = np.random.default_rng(0)  # tests/test_face.py's dataset and probes
+    imgs, labels, bases = _identity_images(rng, FACE_IDS, FACE_PER_ID, FACE_SHAPE)
+    eigen_probes = [np.clip(1.1 * b + rng.normal(scale=0.05, size=b.shape), 0, 1.5) for b in bases]
+    fisher_probes = [np.clip(0.9 * b + rng.normal(scale=0.05, size=b.shape), 0, 1.5) for b in bases]
+    new_base = rng.uniform(0, 1, FACE_SHAPE).astype(np.float32)
+    lbph_new = [np.clip(new_base + rng.normal(scale=0.05, size=FACE_SHAPE), 0, 1.5) for _ in range(3)]
+    xs = np.arange(FACE_SHAPE[1])
+    stripes = np.tile(np.sin(xs * 0.8), (FACE_SHAPE[0], 1)).astype(np.float32)
+    rng = np.random.default_rng(4)
+    bif_a, bif_b = (rng.uniform(size=FACE_SHAPE).astype(np.float32) for _ in range(2))
+
+    rng = np.random.default_rng(0)  # TestFacemarkAAM::test_train_fit_held_out
+    a_imgs, a_shapes = [], []
+    for _ in range(12):
+        img, lm = _make_face(44 + rng.uniform(-6, 6), 46 + rng.uniform(-6, 6), 22 + rng.uniform(-4, 5))
+        a_imgs.append(img + rng.normal(0, 0.01, img.shape).astype(np.float32))
+        a_shapes.append(lm)
+    aam_model = aam.train(a_imgs, a_shapes, n_shape_modes=4, n_tex_modes=4)
+    ay, ax = _at_scale(AAM_AT, H, W)
+    aam_frame, aam_truth = _make_face(49 + ay, 43 + ax, 25, H, W)
+
+    rng = np.random.default_rng(0)  # TestFacemark::test_train_and_fit
+    base = np.array([[30, 30], [30, 60], [55, 45], [70, 35], [70, 55]], np.float32)
+    f_imgs, f_shapes, f_boxes = [], [], []
+    for _ in range(24):
+        jitter = rng.normal(0, 2.0, base.shape).astype(np.float32)
+        off = rng.uniform(-6, 6, 2).astype(np.float32)
+        lm = base + jitter + off
+        f_imgs.append(_face_like(lm))
+        f_shapes.append(lm)
+        f_boxes.append([lm[:, 0].min() - 10, lm[:, 1].min() - 10, 60.0])
+    fm_model = facemark.train(f_imgs, np.stack(f_shapes), np.stack(f_boxes), n_stages=3)
+    fm_truth = base + rng.normal(0, 2.0, base.shape).astype(np.float32) + np.array(_at_scale(FACEMARK_AT, H, W), np.float32)
+    fm_frame = _face_like(fm_truth, (H, W))
+    fm_box = np.array([fm_truth[:, 0].min() - 10, fm_truth[:, 1].min() - 10, 60.0], np.float32)
+
+    circle, wavy = contours()
+    rng = np.random.default_rng(0)  # TestShape::test_tps_interpolates_exactly
+    tps_src = rng.uniform(0, 10, size=(12, 2)).astype(np.float32)
+    tps_dst = tps_src + rng.normal(scale=0.5, size=(12, 2)).astype(np.float32)
+    f32 = np.float32
+    return DetectionScene(
+        wb_model=wb_model, wb_frame=wb_frame, wb_center=np.array([wy + WB_WIN // 2, wx + WB_WIN // 2], f32),
+        hog_w=(w - w.mean()).astype(f32), hog_frame=hog_frame, hog_at=np.array([hy, hx], f32),
+        dpm_model=dpm_model, dpm_frame=frames[0], dpm_deformed=frames[1], dpm_noise=noise, dpm_at=np.array([dy, dx]),
+        faces=np.stack(imgs), face_labels=np.array(labels, np.int32), face_bases=np.stack(bases),
+        eigen_probes=np.stack(eigen_probes).astype(f32), fisher_probes=np.stack(fisher_probes).astype(f32),
+        lbph_new=np.stack(lbph_new).astype(f32), lbph_new_base=new_base, bif_stripes=stripes, bif_a=bif_a, bif_b=bif_b,
+        aam_model=aam_model, aam_frame=aam_frame, aam_truth=aam_truth, aam_box=np.array(_box_of(aam_truth), f32),
+        fm_model=fm_model, fm_frame=fm_frame, fm_truth=fm_truth, fm_box=fm_box, circle=circle, wavy=wavy,
+        tps_src=tps_src, tps_dst=tps_dst)
+
+
+def _model_to(model, dev):
+    """A model NamedTuple's tensor fields on `dev` (numpy fields become
+    tensors; Python numbers stay)."""
+    def one(v):
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        return v.to(dev, non_blocking=True) if isinstance(v, torch.Tensor) else v
+    return type(model)(*(one(v) for v in model))
+
+
+def _det_waldboost(g: _Scene):
+    from opencv_contrib_tpu_torch.xobjdetect import waldboost
+
+    centers, scores = waldboost.detect(g.wb_frame, _model_to(g.wb_model, g.dev), stride=WB_STRIDE)
+    return {"centers": centers, "scores": scores}
+
+
+def _det_hog(g: _Scene):
+    from opencv_contrib_tpu_torch.xobjdetect import hog
+
+    boxes, scores = hog.detect_multiscale(g.hog_frame, g.hog_w, win_cells=HOG_WIN_CELLS, scales=HOG_SCALES,
+                                          score_thresh=0.0)
+    return {"boxes": boxes, "scores": scores}
+
+
+def _det_dpm(g: _Scene):
+    from opencv_contrib_tpu_torch import dpm
+
+    model = _model_to(g.dpm_model, g.dev)
+    return {k: dpm.detect(getattr(g, f), model, scales=(1.0,), score_thresh=2.0)
+            for k, f in (("dets", "dpm_frame"), ("deformed", "dpm_deformed"), ("noise", "dpm_noise"))}
+
+
+def _det_eigenfaces(g: _Scene):
+    from opencv_contrib_tpu_torch.face import EigenFaces
+
+    m = EigenFaces(n_components=EIGEN_COMPONENTS).train(g.faces, g.face_labels)
+    return {"model": m.model, "predictions": [m.predict(p) for p in g.eigen_probes]}
+
+
+def _det_fisherfaces(g: _Scene):
+    from opencv_contrib_tpu_torch.face import FisherFaces
+
+    m = FisherFaces().train(g.faces, g.face_labels)
+    return {"model": m.model, "predictions": [m.predict(p) for p in g.fisher_probes]}
+
+
+def _det_lbph(g: _Scene):
+    from opencv_contrib_tpu_torch.face import LBPH
+
+    m = LBPH(grid=LBPH_GRID).train(g.faces, g.face_labels)
+    before = [m.predict(g.face_bases[1]), m.predict(2.0 * g.face_bases[3])]
+    m.update(g.lbph_new, [LBPH_NEW_LABEL] * g.lbph_new.shape[0])
+    return {"features": m.features, "predictions": before + [m.predict(g.lbph_new_base)]}
+
+
+def _det_bif(g: _Scene):
+    from opencv_contrib_tpu_torch.face import bif_features
+
+    return {"faces": torch.stack([bif_features(b) for b in g.face_bases[:BIF_FACES]]),
+            "a": bif_features(g.bif_a, 4, 6), "b": bif_features(g.bif_b, 4, 6),
+            "stripes": bif_features(g.bif_stripes, 2, 4)}
+
+
+def _det_aam(g: _Scene):
+    from opencv_contrib_tpu_torch.face import aam
+
+    model = _model_to(g.aam_model, g.dev)
+    q0 = aam.init_params(model, g.aam_box)
+    shape, q = aam.fit(model, g.aam_frame, q0)
+    return {"init": aam._shape_from_params(model, q0), "shape": shape, "q": q}
+
+
+def _det_facemark(g: _Scene):
+    from opencv_contrib_tpu_torch.face import facemark
+
+    model = _model_to(g.fm_model, g.dev)
+    return {"shape": facemark.fit(model, g.fm_frame, g.fm_box), "mean_px": model.mean_shape * g.fm_box[2] + g.fm_box[:2]}
+
+
+def _det_shape_context(g: _Scene):
+    from opencv_contrib_tpu_torch import shape
+
+    c, w = g.circle, g.wavy
+    return {"same": shape.shape_context_distance(c, c * 2.0 + 5.0), "diff": shape.shape_context_distance(c, w),
+            "haus_zero": shape.hausdorff_distance(c, c), "haus_offset": shape.hausdorff_distance(c, c + 0.5),
+            "haus_rank": shape.hausdorff_distance(c, w, rank=0.9)}
+
+
+def _det_tps(g: _Scene):
+    from opencv_contrib_tpu_torch import shape
+
+    params = shape.tps_fit(g.tps_src, g.tps_dst)
+    sq = constant([[0, 0], [1, 0], [0, 1], [1, 1]], g.dev)
+    shift = constant([2.0, -1.0], g.dev)
+    q = constant([[0.5, 0.5], [3.0, 2.0]], g.dev)
+    # the contours: the circle warped onto the wavy curve, applied to the circle itself and to a ring inside it
+    cp = shape.tps_fit(g.circle, g.wavy)
+    return {"interp": shape.tps_apply(params, g.tps_src, g.tps_src),
+            "affine": shape.tps_apply(shape.tps_fit(sq, sq + shift), sq, q), "affine_truth": q + shift,
+            "contour": shape.tps_apply(cp, g.circle, g.circle), "ring": shape.tps_apply(cp, g.circle, 0.5 * g.circle)}
+
+
+def _det_emd(g: _Scene):
+    from opencv_contrib_tpu_torch import shape
+
+    dev = g.dev
+    h1, h2 = constant(np.eye(10)[2], dev), constant(np.eye(10)[5], dev)  # TestEMD's unit masses
+    g1, g2 = constant(np.eye(24)[8].reshape(4, 6), dev), constant(np.eye(24)[22].reshape(4, 6), dev)
+    x1, x2, w = constant([[0.0, 0.0]], dev), constant([[2.0, 0.0]], dev), torch.ones(1, device=dev)
+    da = shape.shape_context_descriptor(g.circle)[:EMD_DESCS]
+    db = shape.shape_context_descriptor(g.wavy)[:EMD_DESCS]
+    return {"shift": shape.emd_1d(h1, h2), "grid": shape.emd_l1_grid(g1, g2),
+            "sinkhorn": shape.emd_sinkhorn(w, x1, w, x2, reg=0.01),
+            "cost_1d": shape.emd_histogram_cost(da, db), "cost_grid": shape.emd_histogram_cost(da, db, (5, 12))}
+
+
+AFFINE_TRUE = ((1.2, 0.3, 2.0), (-0.2, 0.9, -1.0))  # TestAffineTransformer's map
+SIM_THETA, SIM_SCALE, SIM_T = 0.4, 1.3, (1.0, -2.0)
+
+
+def _det_affine(g: _Scene):
+    from opencv_contrib_tpu_torch import shape
+
+    dev = g.dev
+    M_true = constant(AFFINE_TRUE, dev)
+    src = g.circle * 3.0 + g.wavy  # a spread of points off one line
+    dst = src @ M_true[:, :2].T + M_true[:, 2]
+    c, s = np.cos(SIM_THETA), np.sin(SIM_THETA)
+    R = constant(SIM_SCALE * np.array([[c, -s], [s, c]]), dev)
+    dst_sim = src @ R.T + constant(SIM_T, dev)
+    M = shape.affine_fit(src, dst, True)
+    rot = constant(np.concatenate([[[np.cos(0.7), -np.sin(0.7)], [np.sin(0.7), np.cos(0.7)]], np.zeros((2, 1))], 1),
+                   dev)
+    sheared = rot * constant([[2.5, 1.0, 1.0], [1.0, 1.0, 1.0]], dev)
+    return {"M": M, "applied": shape.affine_apply(M, src), "dst": dst, "M_sim": shape.affine_fit(src, dst_sim, False),
+            "R": R, "cost_rotation": shape.affine_transform_cost(rot), "cost_sheared": shape.affine_transform_cost(sheared)}
+
+
+DETECTION = {"hog": _det_hog, "waldboost": _det_waldboost, "dpm": _det_dpm, "eigenfaces": _det_eigenfaces,
+             "fisherfaces": _det_fisherfaces, "lbph": _det_lbph, "bif": _det_bif, "aam": _det_aam,
+             "facemark": _det_facemark, "shape_context": _det_shape_context, "tps": _det_tps, "emd": _det_emd,
+             "affine": _det_affine}
+
+
+@f32_matmuls
+def detect_x(scene: DetectionScene, method: str, device="cuda") -> dict:
+    """One detector, recognizer, landmark fitter or shape method on `scene`
+    (a `detection_scene()`), with the settings of the JAX test that gates
+    it (`DETECTION`): HOG at the three default scales, WaldBoost at stride 2
+    (its 8 channel tables one integral launch), DPM, EigenFaces (2
+    components an identity), FisherFaces and LBPH trained on the gallery
+    and asked its probes, BIF, AAM and Facemark fitting, shape context and
+    Hausdorff distances, TPS, the EMDs and the affine transformer. Returns a
+    dict of tensors on `device` (the recognizers' predictions and DPM's
+    detections are host values, as the twins return them)."""
+    if method not in DETECTION:
+        raise ValueError(f"detect_x: method must be one of {sorted(DETECTION)}, got {method!r}")
+    return DETECTION[method](_Scene(scene, resolve(device), DETECT_HOST_FIELDS))

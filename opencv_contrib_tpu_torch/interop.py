@@ -1,8 +1,12 @@
 """Carry state between the JAX package and this one as numpy arrays.
 
 The port's learned state is the trained BRISQUE head, the learning-based
-white balance's regressor, the learned edge map's MLP and the Siamese
-tracker's backbone. The head, `quality.brisque_svr.BrisqueModel`,
+white balance's regressor, the learned edge map's MLP, the Siamese
+tracker's backbone, and the detection and face models: WaldBoost's
+(`xobjdetect.waldboost.WaldBoostModel`), the DPM
+(`dpm.DPMModel`), the recognizers' subspace (`face.recognizers.SubspaceModel`),
+the AAM (`face.aam.AAMModel`) and Facemark's cascade
+(`face.facemark.FacemarkModel`), NamedTuples that cross by `from_numpy`. The head, `quality.brisque_svr.BrisqueModel`,
 holds host numpy arrays in both packages and its npz (`save_model`,
 `load_model`) is the same file: it crosses as it is. The regressor,
 `xphoto.fit_wb_model`'s (F, 2) matrix, crosses by `wb_model`. The edge
@@ -19,21 +23,19 @@ SparseBAResult and ObsBuckets, KinFu's TSDFVolume and DepthFrame, the
 hashed-block volume's HashTSDF, the pose graph's PoseGraph, the colored
 volume's ColoredTSDFVolume (which nests a TSDFVolume), the RANSAC's
 RansacResult, the 5k-view driver's device-resident MapState, DynaFu's
-WarpField, PCT's Signature, TBMR's EllipticKeypoints and LINEMOD's Template),
-with the same class names, field names and field order in both
+WarpField, PCT's Signature, TBMR's EllipticKeypoints, LINEMOD's Template,
+the background subtractors' MogState, CntState, GmgState, GsocState and
+LsbpState, the retina's RetinaState and TransientState), with the same class names, field names and field order in both
 packages. `from_numpy` turns such a tuple, its fields read as
 numpy arrays (anything `np.asarray` takes), into this package's tuple of
 tensors; `to_numpy` goes the other way. A field of such a tuple that holds a
-Python tuple of numbers, as `Template.size` does, crosses as it is.
+Python tuple of numbers, as `Template.size` does, or a bare Python number,
+as `WaldBoostModel.win` and `DPMModel.bias` do, crosses as it is. GSOC's
+`key` does not cross: the twin's is a PRNG key, the port's a
+`torch.Generator`, so `from_numpy` of a GsocState needs `key=` (the
+generator to put there).
 
-The host-side SfM state, `sfm.tracks.TracksTensor`,
-`sfm.pipeline.Reconstruction`, and the 5k-view driver's
-`sfm.pipeline_scale.SparseTracks` and `SequentialReconstruction`, holds
-host numpy arrays in both packages, with the same fields: it crosses as it
-is and needs no conversion. So do the large-scale KinFu's
-`rgbd.submap.Submap` (its pose and constraints are host numpy; its volume
-crosses by `from_numpy`) and `rgbd.submap.LargeKinFuParams`.
-"""
+The host-side SfM state, `sfm.tracks.TracksTensor`,"""
 
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ import numpy as np
 import torch
 
 from opencv_contrib_tpu_torch.ba.bundle import BAProblem, BAResult
+from opencv_contrib_tpu_torch.bgsegm import CntState, GmgState, GsocState, LsbpState, MogState
+from opencv_contrib_tpu_torch.bioinspired import RetinaState, TransientState
+from opencv_contrib_tpu_torch.dpm import DPMModel
+from opencv_contrib_tpu_torch.face.aam import AAMModel
+from opencv_contrib_tpu_torch.face.facemark import FacemarkModel
+from opencv_contrib_tpu_torch.face.recognizers import SubspaceModel
 from opencv_contrib_tpu_torch.ba.sparse import ObsBuckets, SparseBAProblem, SparseBAResult
 from opencv_contrib_tpu_torch.features.detect_x import EllipticKeypoints
 from opencv_contrib_tpu_torch.features.keypoints import Keypoints
@@ -56,11 +64,14 @@ from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.rgbd.warpfield import WarpField
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import MapState
 from opencv_contrib_tpu_torch.surface_matching.ppf import PPFModel
+from opencv_contrib_tpu_torch.xobjdetect.waldboost import WaldBoostModel
 
 TUPLES = {cls.__name__: cls for cls in (Keypoints, Matches, BAProblem, BAResult, SparseBAProblem, SparseBAResult,
                                         ObsBuckets, TSDFVolume, DepthFrame, HashTSDF, PoseGraph, ColoredTSDFVolume,
                                         RansacResult, MapState, WarpField, Signature, EllipticKeypoints,
-                                        Template)}
+                                        Template, MogState, CntState, GmgState, GsocState, LsbpState, RetinaState,
+                                        TransientState, WaldBoostModel, DPMModel, SubspaceModel, AAMModel,
+                                        FacemarkModel)}
 
 
 def wb_model(W, device="cpu") -> torch.Tensor:
@@ -142,26 +153,36 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _is_number(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool)
+
+
 def _is_size(x) -> bool:
-    """A plain tuple of Python numbers (a shape, `Template.size`)."""
-    return type(x) is tuple and all(isinstance(v, (int, float)) and not isinstance(v, bool) for v in x)
+    """A bare Python number (`WaldBoostModel.win`, `DPMModel.bias`) or a
+    plain tuple of them (a shape, `Template.size`)."""
+    return type(x) in (int, float) or (type(x) is tuple and all(_is_number(v) for v in x))
 
 
-def from_numpy(tree, device="cpu"):
+def from_numpy(tree, device="cpu", key=None):
     """NamedTuple / tuple / list / dict of arrays -> the same structure of
     tensors on `device`; a NamedTuple maps to this package's class of the
-    same name."""
+    same name. A GsocState (or an LsbpState holding one) takes `key`, the
+    torch.Generator its draws come from, in place of the twin's PRNG key."""
     if _is_namedtuple(tree):
         cls = TUPLES.get(type(tree).__name__)
         if cls is None:
             raise TypeError(f"no counterpart for {type(tree).__name__}")
         if cls._fields != tree._fields:
             raise TypeError(f"{cls.__name__}: fields {tree._fields} != {cls._fields}")
-        return cls(*(v if _is_size(v) else from_numpy(v, device) for v in tree))
+        if cls is GsocState:
+            if not isinstance(key, torch.Generator):
+                raise TypeError("a GsocState's key is a torch.Generator: pass key=")
+            return GsocState(from_numpy(tree.samples, device), from_numpy(tree.hits, device), key)
+        return cls(*(v if _is_size(v) else from_numpy(v, device, key) for v in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(from_numpy(v, device) for v in tree)
+        return type(tree)(from_numpy(v, device, key) for v in tree)
     if isinstance(tree, dict):
-        return {k: from_numpy(v, device) for k, v in tree.items()}
+        return {k: from_numpy(v, device, key) for k, v in tree.items()}
     return torch.as_tensor(np.array(np.asarray(tree)), device=device)
 
 
@@ -175,4 +196,6 @@ def to_numpy(tree):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
+    if isinstance(tree, torch.Generator):
+        return tree
     return np.asarray(tree)

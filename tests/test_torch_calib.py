@@ -1,13 +1,15 @@
 """Parity of the port's calibration and registration modules
 (opencv_contrib_tpu_torch.reg, .rapid, .aruco, .ccalib, and core.se3's
-axis_angle_to_quat / rotation_angle / rotation_distance) with the JAX
+axis_angle_to_quat / rotation_angle / rotation_distance / log_se3) with the JAX
 package on the CPU. The inputs are the JAX tests' fixtures
 (tests/test_imgproc_modules.py, test_breadth3.py, test_breadth6.py,
 test_breadth8.py, test_detect_breadth.py, test_aruco.py) and second seeded
 inputs, the same numpy arrays through both packages.
 
 Tolerances:
-- se3: 1e-6; reg's warps 1e-5 and its parameters within 1e-4 (each
+- se3: 1e-6; log_se3 1e-5 of the twin outside the small-angle band, and
+  within it (1e-4 to 1e-3 rad, where the twin is NaN or inexact) 1e-5
+  relative of a float64 log_se3; reg's warps 1e-5 and its parameters within 1e-4 (each
   level's 20 Gauss-Newton steps through jacfwd of the bilinear warp, the
   two packages' sums rounding apart); RAPID's control points, line bundles
   and correspondences 1e-5, its tracked pose 1e-4;
@@ -80,6 +82,31 @@ def test_se3_rotation_helpers(rng):
     np.testing.assert_allclose(N(tse3.rotation_distance(T(R1), T(R2))),
                                np.asarray(jse3.rotation_distance(jnp.asarray(R1), jnp.asarray(R2))), atol=1e-6)
 
+
+
+def _twists(theta):
+    """Twists of rotation angle theta (about a fixed axis) and a 0.37 m
+    translation, float32."""
+    axis = np.array([0.6, -0.8, 0.0])
+    return np.concatenate([theta * axis, [0.1, -0.2, 0.3]])[None].astype(np.float32)
+
+
+@pytest.mark.parametrize("theta", [1e-4, 1.5e-4, 2e-4, 2.4e-4, 5e-4, 9e-4])
+def test_log_se3_small_angles_against_float64(theta):
+    """Below theta^2 = 1e-6 log_se3 takes the Taylor branch of its V^-1
+    coefficient: finite and within 1e-5 of a float64 log_se3 of the same
+    transform (from 1e-4 to ~2.4e-4 rad the closed form divides by a B that
+    float32 rounds to 0, and the twin returns NaN there)."""
+    Tm = tse3.exp_se3(T(_twists(theta)))
+    got, ref = N(tse3.log_se3(Tm)), N(tse3.log_se3(Tm.double()))
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("theta", [0.0, 1e-5, 9e-5, 1e-3, 1e-2, 0.5, 2.0])
+def test_log_se3_outside_the_band_is_the_twins(theta):
+    Tm = np.asarray(jse3.exp_se3(jnp.asarray(_twists(theta))))
+    np.testing.assert_allclose(N(tse3.log_se3(T(Tm))), np.asarray(jse3.log_se3(jnp.asarray(Tm))), atol=1e-5)
 
 # --- reg --------------------------------------------------------------------------
 

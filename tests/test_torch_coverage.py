@@ -65,7 +65,11 @@ def test_slice_files_are_twins():
                 "tracking/boosting.py", "tracking/correlation.py", "tracking/csrt.py", "tracking/dsst.py",
                 "tracking/kalman.py", "tracking/matching.py", "tracking/medianflow.py", "tracking/mil.py",
                 "tracking/multitracker.py", "tracking/siam.py", "tracking/tld.py", "tracking/twist.py",
-                "videostab/stabilizer.py", "videostab/extra.py", "superres/btv.py"):
+                "videostab/stabilizer.py", "videostab/extra.py", "superres/btv.py", "bgsegm/synthetic.py",
+                "bgsegm/mog.py", "bgsegm/cnt.py", "bgsegm/gmg.py", "bgsegm/gsoc.py", "bioinspired/retina.py",
+                "bioinspired/transient.py", "bioinspired/color.py", "xobjdetect/hog.py", "xobjdetect/waldboost.py",
+                "dpm/detector.py", "shape/distances.py", "shape/tps.py", "shape/extra.py", "face/recognizers.py",
+                "face/bif.py", "face/aam.py", "face/facemark.py"):
         assert rel in TWINS, rel
         assert rel not in ALLOWED, rel
 
@@ -82,7 +86,8 @@ def exported(path: Path) -> list:
 # packages ported whole, whose __init__ keeps its twin's exports (earlier slices' packages that are ported in part,
 # such as text/, export what they hold)
 WHOLE_PACKAGES = ("phase_unwrapping", "structured_light", "stereo", "reg", "surface_matching", "rapid", "aruco",
-                  "ccalib", "tracking", "videostab", "superres")
+                  "ccalib", "tracking", "videostab", "superres", "bgsegm", "bioinspired", "xobjdetect", "dpm", "shape",
+                  "face")
 
 
 @pytest.mark.parametrize("pkg", WHOLE_PACKAGES)

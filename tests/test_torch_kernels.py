@@ -1095,3 +1095,137 @@ def test_icp_getab_refuses_what_the_kernel_does_not_take(monkeypatch, rng):
             reduce.icp_getab(*args[:k], bad, *args[k + 1:])
     with pytest.raises(ValueError, match="the kernel takes CUDA tensors"):
         reduce.icp_getab(*args)
+
+
+# --- chip_smoke's launch-count windows ----------------------------------------------------------------------------
+
+
+def _ev(key, count, us=1.0):
+    """A key_averages row as chip_smoke reads one."""
+    return SimpleNamespace(key=key, count=count, self_device_time_total=us * count)
+
+
+def _markers(n):
+    import chip_smoke
+
+    return [_ev(chip_smoke.FLUSH_KERNEL, n)] if n else []
+
+
+def test_a_window_counts_only_with_every_marker():
+    """A window whose trace dropped one of its marker fills is not read;
+    the lead fills ahead of the markers (the events a late trace drops) are
+    counted nowhere."""
+    import chip_smoke
+
+    body = [_ev("void integral_kernel<4>(float*)", 10), _ev("at::native::add_kernel", 20)]
+    lead = [_ev(f"vectorized_elementwise_kernel<4, at::native::{chip_smoke.LEAD_KERNEL}>", chip_smoke.N_LEAD - 2)]
+    for fills, whole in ((chip_smoke.N_MARKERS, True), (chip_smoke.N_MARKERS - 1, False), (0, False)):
+        kept, got, us, ok = chip_smoke.read_window(lead + _markers(fills) + body)
+        assert got == fills and ok is whole and [e.key for e in kept] == [e.key for e in body] and us == 30.0
+    assert not chip_smoke.read_window(_markers(chip_smoke.N_MARKERS))[3]  # no device time: not read either
+
+
+def test_launches_per_call_retakes_a_window_that_lost_an_event():
+    """A window in which one of our kernels' counts is not a multiple of the
+    calls lost an event: it is taken again; a whole one gives the per-call
+    counts; windows that all lose one fail."""
+    import chip_smoke
+
+    iters = 10
+    full = [_ev("void pyrdown_kernel<1>(float const*)", iters), _ev("at::native::fill", 2 * iters)]
+    lost = [_ev("void pyrdown_kernel<1>(float const*)", iters - 1), _ev("at::native::fill", 2 * iters)]
+    out, whole = chip_smoke.per_call_launches(lost, iters)
+    assert not whole and out["pyrdown_kernel"] == 0.9
+    timer = chip_smoke.Timer(torch, "cpu")
+    windows = iter([lost, lost, full])
+    timer.device_events = lambda fn, iters=10, cold=False: next(windows)
+    assert timer.launches_per_call(None, iters) == {"all": 3.0, "pyrdown_kernel": 1.0}
+    timer.device_events = lambda fn, iters=10, cold=False: lost
+    with pytest.raises(AssertionError, match="lost a kernel event"):
+        timer.launches_per_call(None, iters)
+
+
+def _fill(dtype_marker, t):
+    return (t, f"vectorized_elementwise_kernel<4, at::native::{dtype_marker}>", 1000)
+
+
+def test_marker_groups_part_a_window_by_call():
+    """The int16 fills part a window's device events into one row a call;
+    the uint8 window markers and whatever precedes the first group count
+    nowhere."""
+    import chip_smoke
+
+    sep = chip_smoke.XIMG_MARKER
+    events = [(0, "stale_kernel", 5000), _fill(chip_smoke.FLUSH_KERNEL, 1), _fill(sep, 2), _fill(sep, 3),
+              (4, "a_kernel", 2000), (5, "a_kernel", 2000), _fill(sep, 6), _fill(sep, 7), (8, "b_kernel", 1000),
+              _fill(chip_smoke.FLUSH_KERNEL, 9), _fill(sep, 10)]
+    rows = chip_smoke.marker_groups(events)
+    assert [r["launches"] for r in rows] == [2, 1, 0] and [r["fills"] for r in rows] == [2, 2, 1]
+    assert rows[0]["kernels"] == {"a_kernel": [2, 0.004]} and rows[1]["device_ms"] == 0.001
+
+
+def test_ximg_profile_retakes_a_window_with_extra_marker_groups(monkeypatch):
+    """A window whose trace holds more marker groups than calls + 1 is taken
+    again and recorded; one that never holds the right number fails."""
+    import contextlib
+
+    import chip_smoke
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    sep = chip_smoke.XIMG_MARKER
+    whole = [_fill(sep, 1), _fill(sep, 2), (3, "a_kernel", 1000), _fill(sep, 4), _fill(sep, 5),
+             (6, "b_kernel", 1000), _fill(sep, 7)]
+    extra = [_fill(sep, -2), (-1, "stale_kernel", 1000)] + whole
+    traces = iter([extra, whole])
+
+    class Profile(contextlib.AbstractContextManager):
+        def __init__(self, activities):
+            trace = next(traces)
+            events = [SimpleNamespace(start_ns=lambda t=t: t, name=lambda n=n: n, duration_ns=lambda d=d: d,
+                                      device_type=lambda: DeviceType.CUDA) for t, n, d in trace]
+            self.profiler = SimpleNamespace(kineto_results=SimpleNamespace(events=lambda: events))
+
+        def __exit__(self, *exc):
+            return None
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "WINDOW_PAD_S", 0.0)
+    monkeypatch.setattr(chip_smoke, "DIST_MARKERS", 1)
+    smoke = SimpleNamespace(torch=torch, dev="cpu", marker=None, retaken=[])
+    ran = []
+    calls = {"a": lambda: ran.append("a"), "b": lambda: ran.append("b")}
+    prof = chip_smoke.Smoke.ximg_profile(smoke, calls)
+    assert list(prof) == ["a", "b"] and prof["a"]["kernels"] == {"a_kernel": [1, 0.001]} and ran == ["a", "b"] * 2
+    assert smoke.retaken[0][0]["marker_groups"] == 4 and smoke.retaken[0][0]["group_fills"] == [1, 1]
+    traces = iter([extra] * chip_smoke.N_WINDOWS)
+    with pytest.raises(AssertionError, match="no window held one marker group a call"):
+        chip_smoke.Smoke.ximg_profile(smoke, calls)
+
+
+def test_ximg_cpu_outputs_are_the_in_process_runs(monkeypatch):
+    """Phase u's CPU run, made in a process of its own, gives every method's
+    result leaves as numpy, equal to a run of the method here with the same
+    edge model (at a small frame)."""
+    import chip_smoke
+    from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.ximgproc import edge_forest
+
+    monkeypatch.setattr(chip_smoke, "XIMG_SHAPE", (96, 128))
+    monkeypatch.setattr(chip_smoke, "XIMG_CUT", {m: (48, 64) for m in chip_smoke.XIMG_CUT})
+    monkeypatch.setattr(edge_forest, "_DEFAULT_PARAMS", {})
+    params = edge_forest.train(device="cpu", **chip_smoke.XIMG_TRAIN)
+    host = chip_smoke.ximg_cpu_outputs({k: v.numpy() for k, v in params.items()}, torch.get_num_threads())
+    assert set(host) == set(entry.METHODS)
+    for m in entry.METHODS:
+        shape = (48, 64) if m in chip_smoke.XIMG_CUT else (96, 128)
+        f = entry.structure_frame(*shape)
+        got = entry.ximgproc_frame(f.rgb, m, device="cpu", disparity=f.disparity)
+        leaves = chip_smoke.Smoke._leaves(got)
+        assert len(leaves) == len(host[m]), m
+        for u, v in zip(leaves, host[m]):
+            if isinstance(u, torch.Tensor):
+                assert isinstance(v, np.ndarray) and np.array_equal(u.numpy(), v), m
+            else:
+                assert not isinstance(v, torch.Tensor), m
