@@ -1461,6 +1461,215 @@ def detection_gates(scene, outs: dict) -> dict:
     return g
 
 
+# ---- phase y: hashes and saliency, lines and MIH, the colour chart, the ER filter and OCR, QR --------------------
+Y_SHAPE = (480, 640)  # entry.recognition_scene()'s frames
+Y_METHODS = ("average_hash", "block_mean_hash", "phash", "color_moment_hash", "radial_variance_hash",
+             "marr_hildreth_hash", "spectral_residual", "fine_grained", "bing", "motion", "lines_lbd", "mih", "mcc",
+             "er", "ocr_viterbi", "ocr_beam", "qr")
+Y_PATHS = tuple(f"rec_{m}" for m in Y_METHODS)
+# the integral kernel's launches a call: fine-grained saliency's table and BING's; no other kernel of ours on any path
+Y_LAUNCHES = {"rec_fine_grained": {"integral_image": 1}, "rec_bing": {"integral_image": 1}}
+PATH_KERNELS.update({p: tuple(Y_LAUNCHES.get(p, {})) for p in Y_PATHS})
+Y_CPU_THREADS = 4
+Y_FINE_INT_SEED = 7  # the integer frame (0..X_EXACT_LEVELS) fine-grained saliency runs on bit for bit
+# the card against the port's CPU run (`y_diff`): masks, integer arrays, boxes, codes, MIH indices and strings equal;
+# floats by their largest difference over the larger of the CPU value's largest magnitude and `floor`. A hash bit may
+# differ where its compared value lies within `hash_bit` of the compared values' largest magnitude of its threshold
+# (`hash_margins`: the mean, the median, or the centre block). Read on the H100 (PERF.md section 6): every hash bit,
+# code, MIH index, box, mask and string equal; the spectral residual 2.3e-6 (cuFFT against the CPU's FFT); the radial
+# variances 9.2e-5 (their sums' order); fine-grained saliency on U(0, 1) 1.44e-2: its 2 x 2 centre box is 4 table
+# entries near 1.5e5 (an ulp 0.0156) apart over 4 pixels, so the integral kernel's order of adds, not the CPU's, moves a
+# box mean by ~0.01 of the [0, 1] map; on the integer frame, whose table is exact, it is bit-equal
+Y_CPU_TOL = {"default": {"rel": 1e-4, "floor": 1e-30, "hash_bit": 1e-5},
+             "rec_fine_grained": {"rel": 3e-2}, "rec_radial_variance_hash": {"rel": 3e-4}}
+BINARY_HASHES = ("average_hash", "block_mean_hash", "phash", "marr_hildreth_hash")
+
+
+def hash_margins(method: str, img) -> np.ndarray:
+    """Each bit of a binary hash of `img` (host, gray) as its compared
+    value's distance from its threshold over the compared values' largest
+    magnitude, computed by the port on the CPU (the hashes' own steps)."""
+    import torch
+
+    from opencv_contrib_tpu_torch.img_hash import hashes
+    from opencv_contrib_tpu_torch.ops import filters
+    from opencv_contrib_tpu_torch.ops.image import resize
+
+    g = torch.as_tensor(np.asarray(img, np.float32))
+    if method == "average_hash":
+        v = resize(g, (8, 8), method="area") if g.shape[0] % 8 == 0 else resize(g, (8, 8))
+        v, t = v.reshape(-1), v.mean()
+    elif method == "block_mean_hash":
+        v = resize(g, (64, 64)).reshape(16, 4, 16, 4).mean(dim=(1, 3)).reshape(-1)
+        t = hashes._median(v)
+    elif method == "phash":
+        M = hashes._dct_matrix(32)
+        v = (M @ resize(g, (32, 32)) @ M.T)[:8, :8].reshape(-1)
+        t = hashes._median(v[1:])
+    else:  # marr_hildreth_hash: each neighbour block against its centre, over the blocks' scale
+        b = filters.laplacian(filters.gaussian_blur(resize(g, (64, 64)), 2.0)).reshape(16, 4, 16, 4).mean(dim=(1, 3))
+        c = b[1:-1, 1:-1]
+        d = torch.cat([(b[1 + dy:15 + dy, 1 + dx:15 + dx] - c).reshape(-1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                       if dy or dx])
+        return (torch.abs(d) / torch.clamp(b.abs().max(), min=1e-30)).numpy()
+    return (torch.abs(v - t) / torch.clamp(v.abs().max(), min=1e-30)).numpy()
+
+
+def _hash_inputs(scene) -> dict:
+    """The gray frames a binary hash path hashes, by its output key."""
+    a = scene.hash_a[..., 0]
+    return {"a": a, "noisy": a + scene.hash_noise, "other": scene.hash_other[..., 0]}
+
+
+def y_cpu_outputs(shape, threads: int) -> dict:
+    """Every entry.recognize_x method on the CPU at `shape`, as numpy (phase
+    y's CPU run, in a process of its own), and fine-grained saliency of the
+    integer frame; the run's seconds under "cpu_run_s", its scene under
+    "scene", the integer frame under "fine_int_frame"."""
+    import torch
+
+    from opencv_contrib_tpu_torch import entry, saliency
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(threads)
+    scene = entry.recognition_scene(*shape)
+    out = {"scene": scene}
+    for m in Y_METHODS:
+        out[f"rec_{m}"] = _geo_host(entry.recognize_x(scene, m, device="cpu"))
+    ints = np.round(np.random.default_rng(Y_FINE_INT_SEED).uniform(0, X_EXACT_LEVELS, shape)).astype(np.float32)
+    out["fine_int_frame"], out["fine_int_sal"] = ints, saliency.fine_grained(torch.from_numpy(ints)).numpy()
+    out["cpu_run_s"] = time.perf_counter() - t0
+    return out
+
+
+def y_diff(card, host, path: str = "", scene=None) -> dict:
+    """How a card result (numpy, `_geo_host`) of a phase-y path parts from
+    the CPU's (Y_CPU_TOL): floats by their largest difference over the CPU
+    value's largest magnitude; masks, integer arrays, host boxes and strings
+    by equality, except a binary hash's bits within `hash_bit` of their
+    threshold (with `scene`, from `hash_margins`; their count under
+    "hash_bits_near_threshold")."""
+    tol = {**Y_CPU_TOL["default"], **Y_CPU_TOL.get(path, {})}
+    r, near = {}, 0
+    method = path[len("rec_"):]
+    margins = ({k: hash_margins(method, v) for k, v in _hash_inputs(scene).items()}
+               if method in BINARY_HASHES and scene is not None else {})
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.shape != b.shape:
+            return float("inf")
+        top = float(np.abs(b).max()) if b.size else 0.0
+        return float(np.abs(a - b).max() / max(top, tol["floor"])) if a.size else 0.0
+
+    def walk(a, b, key):
+        nonlocal near
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                r[key + "#keys"] = (1.0, 0.0)
+            for k in a:
+                if k in b:
+                    walk(a[k], b[k], f"{key}.{k}" if key else k)
+        elif isinstance(a, np.ndarray) and a.dtype == bool and key in margins:
+            off = a != b if a.shape == b.shape else np.ones(margins[key].shape, bool)
+            near += int(off.sum())
+            r[key] = (float(margins[key][off].max()) if off.any() else 0.0, tol["hash_bit"])
+        elif isinstance(a, np.ndarray) and a.dtype.kind == "f":
+            r[key] = (rel(a, b), tol["rel"])
+        elif isinstance(a, np.ndarray):
+            r[key] = (float(not (a.shape == b.shape and np.array_equal(a, b))), 0.0)
+        elif isinstance(a, float):
+            r[key] = (rel(a, b), tol["rel"])
+        else:  # strings, None, ints
+            r[key] = (float(a != b), 0.0)
+
+    walk(card, host, "")
+    return {"ok": all(val <= bound for val, bound in r.values()), "diff": {k: v[0] for k, v in r.items()},
+            "hash_bits_near_threshold": near}
+
+
+def recognition_gates(scene, outs: dict) -> dict:
+    """The JAX tests' gates on each recognize_x result in `outs` (method ->
+    result on `scene`, tensors or numpy), their objects and regions scaled
+    to the scene (`entry.recognition_regions`); raises, naming every miss,
+    after checking all. Returns the gated numbers."""
+    from opencv_contrib_tpu_torch import entry
+    from opencv_contrib_tpu_torch.mcc import MACBETH_SRGB
+
+    H, W = scene.spectral_frame.shape
+    reg = entry.recognition_regions(H, W)
+    g, missed = {}, {}
+    for m, out in outs.items():
+        o = _geo_host(out)
+        if m in BINARY_HASHES:  # TestImgHash: noisy closer than other, and at most 15% of the bits
+            g[m] = {"noisy": int((o["a"] != o["noisy"]).sum()), "other": int((o["a"] != o["other"]).sum()),
+                    "bits": int(o["a"].size)}
+            ok = g[m]["noisy"] < g[m]["other"] and g[m]["noisy"] <= 0.15 * g[m]["bits"]
+        elif m == "color_moment_hash":  # the 0.98 copy closer than another frame
+            g[m] = {"scaled": float(np.linalg.norm(o["a"] - o["scaled"])),
+                    "other": float(np.linalg.norm(o["a"] - o["other"]))}
+            ok = g[m]["scaled"] < g[m]["other"]
+        elif m == "radial_variance_hash":  # a 180-degree turn keeps the radial variances (atol 0.15)
+            g[m] = {"rot180": float(np.abs(o["a"] - o["rot180"]).max())}
+            ok = g[m]["rot180"] <= 0.15
+        elif m == "spectral_residual":  # the block above 1.5 x the top and bottom bands
+            s, k = o["sal"], reg["spectral_top"]
+            y0, y1, x0, x1 = reg["spectral_block"]
+            g[m] = {"inside": float(s[y0:y1, x0:x1].mean()),
+                    "outside": float(np.concatenate([s[:k].ravel(), s[-k:].ravel()]).mean())}
+            ok = g[m]["inside"] > 1.5 * g[m]["outside"]
+        elif m == "fine_grained":  # test_fine_grained_runs: the frame's shape, values in [0, 1]
+            g[m] = {"shape": list(o["sal"].shape), "min": float(o["sal"].min()), "max": float(o["sal"].max())}
+            ok = tuple(g[m]["shape"]) == (H, W) and g[m]["min"] >= 0.0 and g[m]["max"] <= 1.0
+        elif m == "bing":  # TestBing: the top box covers more than half a window of the object
+            b = o["boxes"][0]
+            y0, y1, x0, x1 = reg["bing_object"]
+            inter = max(0, min(b[2], y1) - max(b[0], y0)) * max(0, min(b[3], x1) - max(b[1], x0))
+            g[m] = {"top_box": [int(v) for v in b], "overlap": float(inter / reg["bing_size"] ** 2)}
+            ok = g[m]["overlap"] > 0.5
+        elif m == "motion":  # test_motion_saliency: the moved block above 0.8, the background below 0.1
+            y0, y1, x0, x1 = reg["motion_block"]
+            by0, _, bx0, _ = reg["motion_background"]
+            g[m] = {"inside": float(o["sal"][y0:y1, x0:x1].mean()), "background": float(o["sal"][by0:, bx0:].mean())}
+            ok = g[m]["inside"] > 0.8 and g[m]["background"] < 0.1
+        elif m == "lines_lbd":  # test_end_to_end_with_lbd: the bar's edge found; LBD self-match is the identity
+            v, segs = o["valid"], o["segments"]
+            b0, b1 = reg["lines_bar"]
+            step = 2 * np.hypot(H, W) / 256  # the Hough's rho bin
+            bar = [s for s, ok_ in zip(segs, v) if ok_ and abs(s[0] - s[2]) <= 2
+                   and min(abs(s[0] - b0), abs(s[0] - b1)) <= step and abs(s[1] - s[3]) >= W / 2]
+            g[m] = {"valid": int(v.sum()), "bar_segments": len(bar),
+                    "self_match": bool((o["idx"][v, 0] == np.arange(len(v))[v]).all())}
+            ok = g[m]["bar_segments"] > 0 and g[m]["self_match"]
+        elif m == "mih":  # every query finds its source at distance 2
+            g[m] = {"found": int(((o["idx"][:, 0] == scene.mih_src) & (o["dist"][:, 0] == entry.MIH_FLIPS)).sum()),
+                    "queries": int(len(scene.mih_src))}
+            ok = g[m]["found"] == g[m]["queries"]
+        elif m == "mcc":  # TestMccDetector: M within 0.08 of I; the colours as test_rotated_30_degrees (0.05)
+            ok = o["M"] is not None
+            g[m] = {"M_off_identity": float(np.abs(o["M"] - np.eye(3)).max()) if ok else None,
+                    "colour_err": float(np.abs(o["measured"] - np.asarray(MACBETH_SRGB)).mean()) if ok else None}
+            ok = ok and g[m]["M_off_identity"] <= 0.08 and g[m]["colour_err"] < 0.05
+        elif m == "er":  # TestEr: a hit on a bar, >= 2 boxes; at least as many boxes on the bars as on noise
+            hy0, hy1, hx0, hx1 = reg["er_hit"]
+            hit = any(b[0] <= hy0 and b[2] >= hy1 and b[1] <= hx0 and b[3] >= hx1 for b in o["glyphs"])
+            g[m] = {"boxes": int(len(o["glyphs"])), "hit": bool(hit), "glyph_boxes": int(len(o["glyphs_min_area"])),
+                    "noise_boxes": int(len(o["noise_min_area"]))}
+            ok = hit and g[m]["boxes"] >= 2 and g[m]["glyph_boxes"] >= g[m]["noise_boxes"]
+        elif m in ("ocr_viterbi", "ocr_beam"):  # TestHMM: each line read as rendered
+            g[m] = {k: o[k] for k in entry.OCR_TEXTS}
+            ok = g[m] == entry.OCR_TEXTS
+        elif m == "qr":  # both codes decoded
+            g[m] = {k: o[k] for k in entry.QR_TEXTS}
+            ok = g[m] == entry.QR_TEXTS
+        else:
+            raise AssertionError(f"no gate for recognition method {m!r}")
+        if not ok:
+            missed[m] = g[m]
+    check(not missed, f"recognition gates missed: {missed}")
+    return g
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -5739,10 +5948,11 @@ class Smoke(Timer):
     # ---- (w) -----------------------------------------------------------------
     def track_cpu_start(self):
         """Start phase w's CPU run (`track_cpu_outputs`), then phase x's
-        (`x_cpu_outputs`), in a spawned process of their own at a low
-        priority; main() starts them before phase u, so that they run beside
-        phases u, v, w and x's card work (phase w or x starts them itself
-        when run alone). `close` ends them."""
+        (`x_cpu_outputs`) and phase y's (`y_cpu_outputs`), in a spawned
+        process of their own at a low priority; main() starts them before
+        phase u, so that they run beside phases u to y's card work (phase w,
+        x or y starts them itself when run alone). `close` ends them: phase
+        y, or phase x when phase y's run is not queued."""
         import multiprocessing
 
         # at niceness 10 the CPU run takes the cores the card's phases leave idle (beside them at the default
@@ -5750,8 +5960,9 @@ class Smoke(Timer):
         self.track_pool = multiprocessing.get_context("spawn").Pool(1, initializer=os.nice, initargs=(10,))
         self.track_cpu_job = self.track_pool.apply_async(track_cpu_outputs,
                                                          (TRACK_SHAPE, TRACK_FRAMES, TRACK_CPU_THREADS))
-        # phase x's CPU run, queued behind phase w's in the same process
+        # phase x's CPU run, queued behind phase w's in the same process, and phase y's behind it
         self.x_cpu_job = self.track_pool.apply_async(x_cpu_outputs, (X_SHAPE, X_CPU_THREADS))
+        self.y_cpu_job = self.track_pool.apply_async(y_cpu_outputs, (Y_SHAPE, Y_CPU_THREADS))
         self.track_cpu_t0 = time.perf_counter()
 
     def close(self):
@@ -5760,7 +5971,7 @@ class Smoke(Timer):
         if pool is not None:
             pool.terminate()
             pool.join()
-            self.track_pool = self.x_cpu_job = None
+            self.track_pool = self.x_cpu_job = self.y_cpu_job = None
 
     def integral_batched(self) -> dict:
         """The integral kernel on the batches of tables MIL's and Boosting's
@@ -6115,7 +6326,8 @@ class Smoke(Timer):
                     same_draws[f"bg_{m}"] = _geo_host(calls[f"bg_{m}"]())
             parts["same_draws"] = time.perf_counter() - t0
         finally:
-            self.close()
+            if getattr(self, "y_cpu_job", None) is None:  # phase y's CPU run, queued behind, keeps the pool
+                self.close()
         cpu, beyond = {}, {}
         for path in X_PATHS:
             cpu[path] = x_diff(same_draws.get(path, _geo_host(outs[path])), host[path], path)
@@ -6143,6 +6355,113 @@ class Smoke(Timer):
                         "waited for it first)"})
         check(ok, f"detection: card vs CPU beyond tolerance {beyond}, reruns not bit-equal {not_equal}, gates "
                   f"{gates_missed}")
+
+    # ---- (y) -----------------------------------------------------------------
+    def recognition(self):
+        """Phase y: perceptual hashes and saliency, lines with multi-index
+        hashing, the colour chart, the ER filter and OCR, and QR at VGA on
+        the card: every method of entry.recognize_x on
+        entry.recognition_scene(), each counted (Y_LAUNCHES: the integral
+        kernel once a fine-grained or BING call, no other kernel of ours),
+        rerun bit-equal, timed, its host syncs and peak memory; one profiler
+        window over all of them; the JAX tests' gates at VGA
+        (recognition_gates); the port's CPU run of every method, made in a
+        process of its own behind phases w's and x's while the card ran
+        earlier phases, against the card's (y_diff, Y_CPU_TOL, the hash bits
+        near their thresholds counted); fine-grained saliency of an integer
+        frame (0..X_EXACT_LEVELS) bit-equal to the CPU's. The scene is the
+        CPU run's."""
+        torch, entry = self.torch, self.entry
+        from opencv_contrib_tpu_torch import saliency
+
+        check(tuple(entry.RECOGNITION) == Y_METHODS, f"entry.RECOGNITION {tuple(entry.RECOGNITION)}")
+        t_all = time.perf_counter()
+        parts = {}
+        if getattr(self, "y_cpu_job", None) is None:  # run alone: phase y's CPU run by itself
+            import multiprocessing
+
+            self.track_pool = multiprocessing.get_context("spawn").Pool(1, initializer=os.nice, initargs=(10,))
+            self.y_cpu_job = self.track_pool.apply_async(y_cpu_outputs, (Y_SHAPE, Y_CPU_THREADS))
+        try:
+            t0 = time.perf_counter()
+            host = self.y_cpu_job.get(timeout=600)
+            parts["cpu_wait"] = time.perf_counter() - t0
+            parts["cpu_run"] = host.pop("cpu_run_s")
+        finally:
+            self.close()
+        t0 = time.perf_counter()
+        scene = host.pop("scene")
+        ints = self.card(host.pop("fine_int_frame"))
+        fine_int_cpu = host.pop("fine_int_sal")
+        fields = {k: (torch.from_numpy(v).to(self.dev) if v.dtype == np.int32 else self.card(v))
+                  for k, v in scene._asdict().items() if v.dtype.kind == "f" or k in ("mih_codes", "mih_queries")}
+        scene_card = scene._replace(**fields)
+        parts["scene"] = time.perf_counter() - t0
+        calls = {f"rec_{m}": (lambda m=m: entry.recognize_x(scene_card, m, device=self.dev)) for m in Y_METHODS}
+        t0 = time.perf_counter()
+        runs, outs = {}, {}
+        for path in Y_PATHS:  # the first call: counted, its syncs logged, its peak
+            with self.sync_log() as got:
+                (out, s1), peak = self.peak_gb(lambda: self.counted(path, calls[path]))
+            launches = {k: v for k, v in self.launches[path].items() if v}
+            check(launches == Y_LAUNCHES.get(path, {}),
+                  f"{path}: kernel launches {launches}, expected {Y_LAUNCHES.get(path, {})}")
+            syncs = self.sync_summary(got)
+            outs[path] = out
+            runs[path] = {"ms_first": s1 * 1e3, "peak_mem_gb": peak, "host_syncs": syncs["total"],
+                          "host_syncs_in_port": syncs["in_the_port"], "sync_sites": syncs["top_sites"],
+                          "kernel_launches": launches}
+        parts["card_runs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for path in Y_PATHS:  # the second call: its bits and its ms on the host clock
+            again, s2 = self.wall_s(calls[path])
+            runs[path].update(ms=s2 * 1e3, rerun_bit_equal=_geo_equal(outs[path], again))
+        parts["reruns"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prof = self.ximg_profile(calls)
+        parts["profile_split"] = self.profile_split
+        for path, row in prof.items():
+            top = sorted(row["kernels"].items(), key=lambda kv: -kv[1][1])[:3]
+            runs[path].update(device_ms=row["device_ms"], device_launches=row["launches"],
+                              costliest={k[:60]: [n, ms] for k, (n, ms) in top})
+        parts["profile"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fine_int = saliency.fine_grained(ints).cpu().numpy()
+        fine_int_equal = bool(np.array_equal(fine_int, fine_int_cpu))
+        gates, gates_missed = {}, []
+        try:
+            gates = recognition_gates(scene, {m: outs[f"rec_{m}"] for m in Y_METHODS})
+        except AssertionError as e:  # reported with the phase's readings, then raised
+            gates_missed.append(str(e))
+        cpu, beyond, near = {}, {}, 0
+        for path in Y_PATHS:
+            cpu[path] = y_diff(_geo_host(outs[path]), host[path], path, scene)
+            near += cpu[path]["hash_bits_near_threshold"]
+            if not cpu[path]["ok"]:
+                beyond[path] = cpu[path]
+        parts["checks"] = time.perf_counter() - t0
+        not_equal = sorted(p for p, r in runs.items() if not r["rerun_bit_equal"])
+        ok = not beyond and not not_equal and not gates_missed and fine_int_equal
+        emit({"phase": "y_recognition", "ok": ok, "card_vs_cpu_beyond_tolerance": beyond,
+              "rerun_not_bit_equal": not_equal, "gates_missed": gates_missed, "frame": list(Y_SHAPE),
+              "fine_grained_integer_frame_bit_equal": fine_int_equal, "hash_bits_near_threshold": near,
+              "paths": runs, "gates": gates, "card_vs_cpu": cpu, "phase_parts_s": parts,
+              "phase_s": time.perf_counter() - t_all,
+              "tolerance": f"launches: {Y_LAUNCHES} a call, no other kernel of ours; every path bit-equal on a "
+                           f"rerun; gates: the JAX tests' at VGA (recognition_gates); card vs CPU: {Y_CPU_TOL} "
+                           f"(y_diff: floats relative to the CPU value's largest magnitude; masks, integers, boxes, "
+                           f"codes, MIH indices and strings equal; a hash bit may differ within hash_bit of its "
+                           f"threshold, hash_margins); fine-grained saliency of an integer frame 0..{X_EXACT_LEVELS} "
+                           f"bit-equal to the CPU's",
+              "timing": "two calls a path: the first counted, its host syncs logged and its peak memory (above "
+                        "what was held) read (ms_first, host clock); the second gives the rerun's bits and ms (host "
+                        "clock around the synchronised call); device_ms and device_launches: one profiler window "
+                        "(device activity only, raw kineto events) over a third call of every path; the CPU run went "
+                        f"on in a process of its own ({Y_CPU_THREADS} threads, niceness 10; cpu_run: its seconds) "
+                        "from before phase u, behind phases w's and x's, and made the scene (cpu_wait: the phase "
+                        "waited for it first)"})
+        check(ok, f"recognition: card vs CPU beyond tolerance {beyond}, reruns not bit-equal {not_equal}, gates "
+                  f"{gates_missed}, integer-frame fine-grained bit-equal {fine_int_equal}")
 
     def kernels_line(self):
         line = []
@@ -6174,7 +6493,8 @@ def main() -> int:
                       smoke.reduce_vec, smoke.kinfu, smoke.profile_kinfu, smoke.pyrdown_remap, smoke.dense_flow,
                       smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd,
                       smoke.remainder, smoke.distributed, smoke.xfeatures, smoke.video, smoke.track_cpu_start,
-                      smoke.ximgproc, smoke.geometry, smoke.track, smoke.detection):
+                      smoke.ximgproc, smoke.geometry, smoke.track, smoke.detection,
+                      smoke.recognition):
             phase()
     finally:
         smoke.close()

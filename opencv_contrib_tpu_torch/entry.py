@@ -64,6 +64,14 @@
   the L1 path, deblurring, both inpainters, wobble suppression) on
   `shaky_clip()`'s frames; `superres_clip()`: BTV super-resolution of 4
   low-res frames with known and with DIS flows.
+- `background_x(clip, method)` and `detect_x(scene, method)`: background
+  subtraction and the retina; detection, shape and face.
+- `recognize_x(scene, method)`: one perceptual hash, saliency map (spectral
+  residual, fine-grained, BING, motion), line detector with LBD and
+  multi-index hashing, the colour chart and its CCM, the ER filter, an OCR
+  decoder or the QR decoder, with the settings of the JAX test that gates
+  it (`RECOGNITION`); `recognition_scene()` lays those tests' fixtures
+  into VGA frames, with MIH at a matcher's size.
 - `sfm.pipeline.reconstruct_incremental(tracks, intr)`: the incremental SfM
   driver; `sfm_scene()` makes its 100-view x 900-track synthetic scene.
 - `sfm.pipeline_scale.reconstruct_sequential(tracks, intr)`: the sequential
@@ -2498,3 +2506,376 @@ def detect_x(scene: DetectionScene, method: str, device="cuda") -> dict:
     if method not in DETECTION:
         raise ValueError(f"detect_x: method must be one of {sorted(DETECTION)}, got {method!r}")
     return DETECTION[method](_Scene(scene, resolve(device), DETECT_HOST_FIELDS))
+
+
+# ---- hashes, saliency, lines, the colour chart, text and QR -------------------------------------------------------
+HASH_FIXTURE = (64, 80)  # tests/test_imgproc_modules.py::TestImgHash's image
+BING_SIZE, BING_STRIDE, BING_TOP_K = 32, 4, 8  # TestBing's window, stride and top-k on its 96 x 96 scene
+LBD_LINES, LBD_CAP = 8, 8  # TestMIH::test_end_to_end_with_lbd's max_lines and bucket cap
+MIH_DB, MIH_QUERIES, MIH_WORDS, MIH_FLIPS = 8192, 2048, 20, 2  # a matcher's size: 640-bit codes (36-dim LBD)
+MIH_B, MIH_CAP, MIH_K = 8, 64, 2  # 80 tables of 256 buckets; the cap keeps every source (see `recognition_scene`)
+# test_mcc_perspective.py's chart at its own size: `find_chart_cells` thresholds against a 19 x 19 box mean, so a
+# larger cell's candidate is a ring that fills under 0.4 of its turned bounding box (at twice the size, 0.35)
+MCC_CELL, MCC_GUTTER, MCC_SCALE, MCC_DEG = 22, 5, 1, 30.0
+ER_LEVELS, ER_COMPONENTS, ER_MIN_AREAS = 8, 64, (12, 20)  # tests/test_text.py::TestEr's settings (areas at scale 1)
+ER_NOISE = (64, 64)  # test_prob_filters_noise's patch
+# the text lines and QR codes scale by k = H // 120 (4 at VGA): tests/test_text_ocr.py renders at scale 2 (8 at VGA),
+# test_rendered_decode_perspective at 8 (a 360-pixel code at VGA), TestQrImage at 5 (10 at VGA)
+OCR_SCALE, QR_SCALE, QR_NOISY_SCALE, QR_NOISY_AT = 2, 2, 2.5, (15, 62)
+OCR_LEXICON = ("TRACK", "STACK", "TRUCK", "TRICK")
+OCR_TEXTS = {"kinfu": "KINFU42", "track": "TRACK", "beam": "BEAM"}
+QR_TEXTS = {"perspective": "PERSPECTIVE AT VERSION FOUR 0123456789", "noisy": "NOISY!"}
+
+
+class RecognitionScene(NamedTuple):
+    """The fixtures of `recognize_x`, each JAX test's own from its own seed
+    (the tests' `rng` is numpy's default_rng(0)) laid into H x W frames,
+    objects scaled with the frame (numpy float32 unless stated).
+
+    - Hashes (tests/test_imgproc_modules.py::TestImgHash): `hash_a`, the
+      test's blurred 64 x 80 x 3 image resized to the frame; `hash_noise`
+      its 0.01 noise at the frame (the binary tests add it to channel 0);
+      `hash_other` the binary tests' second image and `hash_other_color`
+      the colour-moment test's, both resized.
+    - Spectral residual (TestSaliency): `spectral_frame`, 0.5 with 0.01
+      noise and the salient block; fine-grained: `fine_frame` U(0, 1).
+    - BING (tests/test_breadth7.py::TestBing): `bing_frame`, U(0, 0.03) with
+      the object; the test's window, stride and the object scaled by H / 96.
+    - Motion (TestSaliency::test_motion_saliency): `motion_frames` (11, H,
+      W), ten noisy copies of the base and the moved one.
+    - Lines (tests/test_breadth10.py::TestMIH::test_end_to_end_with_lbd):
+      `lines_frame` U(0, 1) with the bar.
+    - MIH at a matcher's size: `mih_codes` (MIH_DB, MIH_WORDS) int32
+      (random 32-bit words), `mih_queries` (MIH_QUERIES, MIH_WORDS) int32,
+      the codes at `mih_src` (int64, distinct) with MIH_FLIPS distinct
+      bits flipped. A bucket holds MIH_DB / 256 = 32 codes on average; at
+      cap 16 a late code would be dropped from nearly every table, at
+      MIH_CAP = 64 every source is probed.
+    - Colour chart (tests/test_mcc_perspective.py): `mcc_frame`, the chart
+      at MCC_SCALE of the test's size, turned MCC_DEG degrees about its
+      centre onto the frame's centre by the test's nearest warp.
+    - ER (tests/test_text.py::TestEr): `er_glyphs`, the test's four dark
+      bars and `er_noise`, its 64 x 64 U(0.4, 0.6) patch, each scaled by
+      one factor (`recognition_regions`' er_scale) into a white frame; the
+      minimum areas scale by its square.
+    - OCR (tests/test_text_ocr.py::TestHMM): `ocr_kinfu`, `ocr_track`,
+      `ocr_beam`, each line rendered at OCR_SCALE k (k = H // 120) with the
+      test's noise and seed, laid into a zero frame.
+    - QR (tests/test_wechat_qrcode.py): `qr_perspective`, the version-4
+      code at QR_SCALE k warped by the test's perspective, in a white
+      frame; `qr_noisy`, TestQrImage's code at QR_NOISY_SCALE k at
+      QR_NOISY_AT k, the frame with the test's 0.05 noise, clipped."""
+    hash_a: np.ndarray
+    hash_noise: np.ndarray
+    hash_other: np.ndarray
+    hash_other_color: np.ndarray
+    spectral_frame: np.ndarray
+    fine_frame: np.ndarray
+    bing_frame: np.ndarray
+    motion_frames: np.ndarray
+    lines_frame: np.ndarray
+    mih_codes: np.ndarray
+    mih_queries: np.ndarray
+    mih_src: np.ndarray
+    mcc_frame: np.ndarray
+    er_glyphs: np.ndarray
+    er_noise: np.ndarray
+    ocr_kinfu: np.ndarray
+    ocr_track: np.ndarray
+    ocr_beam: np.ndarray
+    qr_perspective: np.ndarray
+    qr_noisy: np.ndarray
+
+
+RECOGNITION_HOST_FIELDS = {"mih_codes", "mih_queries", "mih_src"}
+
+
+def recognition_regions(H: int = 480, W: int = 640) -> dict:
+    """The JAX tests' objects and gate regions scaled to H x W: (y0, y1,
+    x0, x1) boxes, and BING's window and stride."""
+    def box(y0, y1, x0, x1, sy, sx):
+        return (int(round(y0 * sy)), int(round(y1 * sy)), int(round(x0 * sx)), int(round(x1 * sx)))
+
+    s96 = (H / 96.0, W / 96.0)
+    s32 = (H / 32.0, W / 32.0)
+    sb = H // 96  # BING's object, window and stride keep their square shape
+    s64 = H / 64.0
+    er = (float(min(H // 96, W // 160)),) * 2  # one scale: the ER gate scores aspect and compactness
+    return {"spectral_block": box(40, 56, 40, 56, *s96), "spectral_top": int(round(30 * s96[0])),
+            "bing_object": box(30, 62, 40, 72, sb, sb), "bing_size": BING_SIZE * sb, "bing_stride": BING_STRIDE * sb,
+            "motion_block": box(10, 20, 10, 20, *s32), "motion_background": box(25, 32, 25, 32, *s32),
+            "lines_bar": (int(round(20 * s64)), int(round(24 * s64))),
+            "er_rows": box(30, 66, 0, 0, *er)[:2], "er_bars": [int(round(x * er[1])) for x in (30, 50, 70, 90)],
+            "er_stroke": int(round(4 * er[1])), "er_hit": box(35, 60, 52, 50, *er),
+            "er_scale": int(er[0]), "k": max(1, H // 120)}
+
+
+def _hash_image(rng, H: int, W: int) -> np.ndarray:
+    """TestImgHash._img: U(0, 1) at 64 x 80 x 3 blurred by sigma 2, resized to H x W."""
+    from opencv_contrib_tpu_torch.ops.image import resize
+
+    x = torch.from_numpy(rng.uniform(size=HASH_FIXTURE + (3,)).astype(np.float32))
+    return resize(filters.gaussian_blur(x, 2.0), (H, W)).numpy()
+
+
+def _chart_frame(H: int, W: int) -> np.ndarray:
+    """test_mcc_perspective.py's chart at MCC_SCALE, turned MCC_DEG degrees
+    about its centre onto the frame's centre by the test's nearest inverse
+    warp (black outside)."""
+    from opencv_contrib_tpu_torch.mcc import MACBETH_SRGB
+
+    cell, gutter = MCC_CELL * MCC_SCALE, MCC_GUTTER * MCC_SCALE
+    ref = np.asarray(MACBETH_SRGB, np.float32).reshape(4, 6, 3)
+    img = np.zeros((4 * cell + 5 * gutter, 6 * cell + 7 * gutter, 3), np.float32)
+    for r in range(4):
+        for c in range(6):
+            y0, x0 = gutter + r * (cell + gutter), gutter + c * (cell + gutter)
+            img[y0:y0 + cell, x0:x0 + cell] = ref[r, c]
+    th = np.radians(MCC_DEG)
+    cs, sn = np.cos(th), np.sin(th)
+    T1 = np.array([[1, 0, -img.shape[1] / 2], [0, 1, -img.shape[0] / 2], [0, 0, 1.0]])
+    R = np.array([[cs, -sn, 0], [sn, cs, 0], [0, 0, 1.0]])
+    T2 = np.array([[1, 0, W / 2], [0, 1, H / 2], [0, 0, 1.0]])
+    Hi = np.linalg.inv(T2 @ R @ T1)
+    yy, xx = np.mgrid[0:H, 0:W]
+    src = Hi @ np.stack([xx.ravel(), yy.ravel(), np.ones(H * W)])
+    xi = np.round(src[0] / src[2]).astype(int)
+    yi = np.round(src[1] / src[2]).astype(int)
+    ok = (xi >= 0) & (xi < img.shape[1]) & (yi >= 0) & (yi < img.shape[0])
+    out = np.zeros((H * W, 3), np.float32)
+    out[ok] = img[yi[ok], xi[ok]]
+    return out.reshape(H, W, 3)
+
+
+def _lay(img: np.ndarray, H: int, W: int, at=None, fill: float = 0.0) -> np.ndarray:
+    """img laid into an H x W frame of `fill`, at `at` (y, x) or centred."""
+    h, w = img.shape
+    y, x = at if at is not None else ((H - h) // 2, (W - w) // 2)
+    out = np.full((H, W), fill, np.float32)
+    out[y:y + h, x:x + w] = img
+    return out
+
+
+def recognition_scene(H: int = 480, W: int = 640) -> RecognitionScene:
+    """The fixtures of `recognize_x` at H x W (`RecognitionScene`)."""
+    from opencv_contrib_tpu_torch.ops.image import sample_bilinear
+    from opencv_contrib_tpu_torch.text import ocr
+    from opencv_contrib_tpu_torch.wechat_qrcode import qr
+
+    reg = recognition_regions(H, W)
+    rng = np.random.default_rng(0)  # the binary hash tests
+    hash_a = _hash_image(rng, H, W)
+    hash_noise = rng.normal(scale=0.01, size=(H, W)).astype(np.float32)
+    hash_other = _hash_image(rng, H, W)
+    rng = np.random.default_rng(0)  # TestImgHash::test_color_moment_hash
+    _hash_image(rng, H, W)
+    hash_other_color = _hash_image(rng, H, W)
+
+    rng = np.random.default_rng(0)  # TestSaliency::test_spectral_residual_highlights_object
+    spectral = np.full((H, W), 0.5, np.float32) + rng.normal(scale=0.01, size=(H, W)).astype(np.float32)
+    y0, y1, x0, x1 = reg["spectral_block"]
+    spectral[y0:y1, x0:x1] = 1.0
+    fine = np.random.default_rng(0).uniform(size=(H, W)).astype(np.float32)  # test_fine_grained_runs
+    rng = np.random.default_rng(0)  # TestBing::test_objectness_finds_object
+    bing = rng.uniform(0, 0.03, (H, W)).astype(np.float32)
+    y0, y1, x0, x1 = reg["bing_object"]
+    bing[y0:y1, x0:x1] += 0.8
+    rng = np.random.default_rng(0)  # test_motion_saliency
+    base = rng.uniform(size=(H, W)).astype(np.float32)
+    motion = [base + rng.normal(scale=0.003, size=base.shape).astype(np.float32) for _ in range(10)]
+    moved = base.copy()
+    y0, y1, x0, x1 = reg["motion_block"]
+    moved[y0:y1, x0:x1] += 0.5
+    motion.append(moved)
+
+    rng = np.random.default_rng(5)  # TestMIH::test_end_to_end_with_lbd
+    lines = rng.uniform(size=(H, W)).astype(np.float32)
+    b0, b1 = reg["lines_bar"]
+    lines[b0:b1, :] = 1.5
+    rng = np.random.default_rng(6)
+    codes = rng.integers(0, 2 ** 32, (MIH_DB, MIH_WORDS), dtype=np.uint64).astype(np.uint32)
+    src = rng.choice(MIH_DB, MIH_QUERIES, replace=False)
+    bits = rng.random((MIH_QUERIES, MIH_WORDS * 32)).argsort(1)[:, :MIH_FLIPS]
+    queries = codes[src].copy()
+    for j in range(MIH_FLIPS):
+        rows = np.arange(MIH_QUERIES)
+        queries[rows, bits[:, j] // 32] ^= (np.uint32(1) << (bits[:, j] % 32).astype(np.uint32))
+
+    er_glyphs = np.ones((H, W), np.float32)
+    r0, r1 = reg["er_rows"]
+    for x in reg["er_bars"]:
+        er_glyphs[r0:r1, x:x + reg["er_stroke"]] = 0.0
+    s = reg["er_scale"]  # test_prob_filters_noise's patch, scaled as the bars, in a white frame
+    patch = np.random.default_rng(0).uniform(0.4, 0.6, ER_NOISE).astype(np.float32)
+    er_noise = _lay(np.kron(patch, np.ones((s, s), np.float32)), H, W, fill=1.0)
+
+    k = reg["k"]
+    lines_ocr = {"kinfu": ocr.render_text(OCR_TEXTS["kinfu"], scale=OCR_SCALE * k),
+                 "track": ocr.render_text(OCR_TEXTS["track"], scale=OCR_SCALE * k, noise=0.25,
+                                          rng=np.random.default_rng(0)),
+                 "beam": ocr.render_text(OCR_TEXTS["beam"], scale=OCR_SCALE * k, noise=0.1, rng=np.random.default_rng(1))}
+
+    # tests/test_wechat_qrcode.py::test_rendered_decode_perspective
+    img = qr.render(qr.encode(QR_TEXTS["perspective"], mask_id=5, level="M"), scale=QR_SCALE * k, border=6)
+    H0, W0 = img.shape
+    src4 = np.array([[0, 0], [0, W0 - 1], [H0 - 1, 0], [H0 - 1, W0 - 1]], float)
+    dst4 = src4 + np.array([[6, 9], [3, -7], [-5, 6], [8, -4]], float) * (QR_SCALE * k / 8)  # scaled with the code
+    Hm = qr._perspective_from_4([(r, c) for r, c in dst4], [(r, c) for r, c in src4])
+    yy, xx = np.meshgrid(np.arange(H0), np.arange(W0), indexing="ij")
+    p = np.stack([xx, yy, np.ones_like(xx)], -1) @ Hm.T
+    warped = sample_bilinear(torch.from_numpy(img), torch.from_numpy((p[..., 1] / p[..., 2]).astype(np.float32)),
+                             torch.from_numpy((p[..., 0] / p[..., 2]).astype(np.float32))).numpy()
+    rng = np.random.default_rng(0)  # TestQrImage::test_detect_with_noise_and_offset
+    noisy = _lay(qr.render(qr.encode(QR_TEXTS["noisy"]), scale=int(QR_NOISY_SCALE * k), border=6), H, W,
+                 (QR_NOISY_AT[0] * k, QR_NOISY_AT[1] * k), 1.0)
+    noisy = np.clip(noisy + rng.normal(0, 0.05, noisy.shape).astype(np.float32), 0, 1)
+    return RecognitionScene(
+        hash_a=hash_a, hash_noise=hash_noise, hash_other=hash_other, hash_other_color=hash_other_color,
+        spectral_frame=spectral, fine_frame=fine, bing_frame=bing, motion_frames=np.stack(motion), lines_frame=lines,
+        mih_codes=codes.view(np.int32), mih_queries=queries.view(np.int32), mih_src=src.astype(np.int64),
+        mcc_frame=_chart_frame(H, W), er_glyphs=er_glyphs, er_noise=er_noise,
+        ocr_kinfu=_lay(lines_ocr["kinfu"], H, W), ocr_track=_lay(lines_ocr["track"], H, W),
+        ocr_beam=_lay(lines_ocr["beam"], H, W), qr_perspective=_lay(warped, H, W, fill=1.0), qr_noisy=noisy)
+
+
+def _binary_hash(name: str):
+    def run(g: _Scene):
+        from opencv_contrib_tpu_torch import img_hash
+
+        fn, a = getattr(img_hash, name), g.hash_a[..., 0]
+        return {"a": fn(a), "noisy": fn(a + g.hash_noise), "other": fn(g.hash_other[..., 0])}
+    return run
+
+
+def _rec_color_moment(g: _Scene):
+    from opencv_contrib_tpu_torch import img_hash
+
+    return {"a": img_hash.color_moment_hash(g.hash_a), "scaled": img_hash.color_moment_hash(g.hash_a * 0.98),
+            "other": img_hash.color_moment_hash(g.hash_other_color)}
+
+
+def _rec_radial(g: _Scene):
+    from opencv_contrib_tpu_torch import img_hash
+
+    a = g.hash_a[..., 0]
+    return {"a": img_hash.radial_variance_hash(a), "noisy": img_hash.radial_variance_hash(a + g.hash_noise),
+            "other": img_hash.radial_variance_hash(g.hash_other[..., 0]),
+            "rot180": img_hash.radial_variance_hash(torch.flip(a, (0, 1)))}
+
+
+def _rec_spectral(g: _Scene):
+    from opencv_contrib_tpu_torch import saliency
+
+    return {"sal": saliency.spectral_residual(g.spectral_frame)}
+
+
+def _rec_fine(g: _Scene):
+    from opencv_contrib_tpu_torch import saliency
+
+    return {"sal": saliency.fine_grained(g.fine_frame)}
+
+
+def _rec_bing(g: _Scene):
+    from opencv_contrib_tpu_torch import saliency
+
+    H, W = g.bing_frame.shape
+    reg = recognition_regions(H, W)
+    boxes, scores = saliency.objectness_boxes(g.bing_frame, sizes=(reg["bing_size"],), stride=reg["bing_stride"],
+                                              top_k=BING_TOP_K)
+    return {"boxes": boxes, "scores": scores}
+
+
+def _rec_motion(g: _Scene):
+    from opencv_contrib_tpu_torch import saliency
+
+    frames = g.motion_frames
+    st = saliency.motion_create(frames.shape[1:], device=g.dev)
+    for f in frames:
+        st, sal = saliency.motion_apply(st, f)
+    return {"sal": sal, "mean": st.mean, "var": st.var, "frames": st.frames}
+
+
+def _rec_lines(g: _Scene):
+    import opencv_contrib_tpu_torch.line_descriptor as ld
+
+    segs, valid = ld.detect_line_segments(g.lines_frame, max_lines=LBD_LINES)
+    desc = ld.lbd_describe(g.lines_frame, segs, valid)
+    codes = ld.lbd_binarize(desc)
+    idx, dist = ld.mih_knn_match(ld.mih_build(codes, b=MIH_B, cap=LBD_CAP), codes, k=1)
+    return {"segments": segs, "valid": valid, "desc": desc, "codes": codes, "idx": idx, "dist": dist}
+
+
+def _int32_on(x, dev):
+    return x if isinstance(x, torch.Tensor) else constant(x, dev, torch.int32)
+
+
+def _rec_mih(g: _Scene):
+    import opencv_contrib_tpu_torch.line_descriptor as ld
+
+    index = ld.mih_build(_int32_on(g.mih_codes, g.dev), b=MIH_B, cap=MIH_CAP)
+    idx, dist = ld.mih_knn_match(index, _int32_on(g.mih_queries, g.dev), k=MIH_K)
+    return {"buckets": index.buckets, "idx": idx, "dist": dist}
+
+
+def _rec_mcc(g: _Scene):
+    from opencv_contrib_tpu_torch import mcc
+
+    M, measured = mcc.detect_and_fit_ccm(g.mcc_frame)
+    return {"M": M, "measured": measured}
+
+
+def _rec_er(g: _Scene):
+    from opencv_contrib_tpu_torch.text import er
+
+    s2 = recognition_regions(*g.er_glyphs.shape)["er_scale"] ** 2  # the areas scale with the fixtures
+    kw = dict(n_levels=ER_LEVELS, max_components=ER_COMPONENTS)
+    glyphs, probs = er.er_detect(g.er_glyphs, min_area=ER_MIN_AREAS[0] * s2, **kw)
+    glyphs20, _ = er.er_detect(g.er_glyphs, min_area=ER_MIN_AREAS[1] * s2, **kw)
+    noise20, _ = er.er_detect(g.er_noise, min_area=ER_MIN_AREAS[1] * s2, **kw)
+    return {"glyphs": glyphs, "probs": probs, "glyphs_min_area": glyphs20, "noise_min_area": noise20}
+
+
+def _ocr(use_beam: bool):
+    def run(g: _Scene):
+        from opencv_contrib_tpu_torch.text import ocr
+
+        return {"kinfu": ocr.ocr_hmm(g.ocr_kinfu, use_beam=use_beam),
+                "track": ocr.ocr_hmm(g.ocr_track, lexicon=list(OCR_LEXICON), use_beam=use_beam),
+                "beam": ocr.ocr_hmm(g.ocr_beam, use_beam=use_beam)}
+    return run
+
+
+def _rec_qr(g: _Scene):
+    from opencv_contrib_tpu_torch.wechat_qrcode import detect_and_decode
+
+    out = {}
+    for k in QR_TEXTS:
+        text, corners = detect_and_decode(getattr(g, f"qr_{k}"))
+        out[k], out[k + "_corners"] = text, corners
+    return out
+
+
+RECOGNITION = {**{n: _binary_hash(n) for n in ("average_hash", "block_mean_hash", "phash")},
+               "color_moment_hash": _rec_color_moment, "radial_variance_hash": _rec_radial,
+               "marr_hildreth_hash": _binary_hash("marr_hildreth_hash"), "spectral_residual": _rec_spectral,
+               "fine_grained": _rec_fine, "bing": _rec_bing, "motion": _rec_motion, "lines_lbd": _rec_lines,
+               "mih": _rec_mih, "mcc": _rec_mcc, "er": _rec_er, "ocr_viterbi": _ocr(False), "ocr_beam": _ocr(True),
+               "qr": _rec_qr}
+
+
+@f32_matmuls
+def recognize_x(scene: RecognitionScene, method: str, device="cuda") -> dict:
+    """One hash, saliency, line, colour-chart, text or QR method on `scene`
+    (a `recognition_scene()`), with the settings of the JAX test that gates
+    it (`RECOGNITION`): the six perceptual hashes of a frame, its noisy copy
+    and another frame; spectral-residual and fine-grained saliency (one
+    integral launch), BING (one integral launch), motion saliency over 11
+    frames; lines detected, LBD-described, binarized and self-matched by
+    MIH; MIH at a matcher's size (`RecognitionScene`); the chart found and
+    its CCM fitted; the ER cascade; OCR by Viterbi or beam search; two QR
+    codes decoded. Returns a dict of tensors on `device`, host numpy where
+    the twin returns it (boxes, the chart's colours, QR corners) and
+    strings for the decoded texts."""
+    if method not in RECOGNITION:
+        raise ValueError(f"recognize_x: method must be one of {sorted(RECOGNITION)}, got {method!r}")
+    return RECOGNITION[method](_Scene(scene, resolve(device), RECOGNITION_HOST_FIELDS))

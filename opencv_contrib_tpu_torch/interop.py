@@ -14,7 +14,10 @@ map's MLP, `ximgproc.edge_forest.train`'s {"W1", "b1", "W2", "b2"}, crosses
 by `edge_forest_params`. A trained point-pair-feature model
 (`surface_matching.PPFModel`) crosses by `ppf_model`; the Siamese
 tracker's backbone (`tracking.siam.SiamBackbone`, flax's parameters in the
-twin) by `siam_params`; the omnidir and
+twin) by `siam_params`; a multi-index over binary line codes
+(`line_descriptor.MIHIndex`, uint32 codes in the twin) by
+`mih_index_from_jax`; motion saliency's model (`saliency.MotionSaliency`)
+by `motion_saliency_from_jax`; the omnidir and
 registration parameters are plain arrays and need no converter.
 
 The rest of the port's state is the NamedTuples (Keypoints,
@@ -54,6 +57,7 @@ from opencv_contrib_tpu_torch.features.detect_x import EllipticKeypoints
 from opencv_contrib_tpu_torch.features.keypoints import Keypoints
 from opencv_contrib_tpu_torch.features.match import Matches
 from opencv_contrib_tpu_torch.features.pct import Signature
+from opencv_contrib_tpu_torch.line_descriptor.mih import MIHIndex
 from opencv_contrib_tpu_torch.mvg.robust import RansacResult
 from opencv_contrib_tpu_torch.rgbd.colored_tsdf import ColoredTSDFVolume
 from opencv_contrib_tpu_torch.rgbd.frame import DepthFrame
@@ -62,6 +66,7 @@ from opencv_contrib_tpu_torch.rgbd.linemod import Template
 from opencv_contrib_tpu_torch.rgbd.posegraph import PoseGraph
 from opencv_contrib_tpu_torch.rgbd.tsdf import TSDFVolume
 from opencv_contrib_tpu_torch.rgbd.warpfield import WarpField
+from opencv_contrib_tpu_torch.saliency.motion import MotionSaliency
 from opencv_contrib_tpu_torch.sfm.pipeline_scale import MapState
 from opencv_contrib_tpu_torch.surface_matching.ppf import PPFModel
 from opencv_contrib_tpu_torch.xobjdetect.waldboost import WaldBoostModel
@@ -147,6 +152,29 @@ def siam_params(params_np, device="cpu") -> dict:
         out[f"{torch_name}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))).to(device)
         out[f"{torch_name}.bias"] = torch.from_numpy(bias.copy()).to(device)
     return out
+
+
+def mih_index_from_jax(index, device="cpu") -> MIHIndex:
+    """A multi-index of the JAX package (`line_descriptor.mih_build`'s
+    MIHIndex: buckets (m, 2^b, cap) int32, codes (N, n_words) uint32, b) as
+    this package's MIHIndex on `device`: the buckets as they are, the codes
+    as int32 words of the same bits (the port's packed-code type)."""
+    if tuple(getattr(index, "_fields", ())) != MIHIndex._fields:
+        raise TypeError(f"an MIH index has the fields {MIHIndex._fields}, got {type(index).__name__}")
+    codes = np.asarray(index.codes)
+    if codes.dtype not in (np.uint32, np.int32):
+        raise TypeError(f"MIH codes are 32-bit words, got {codes.dtype}")
+    return MIHIndex(buckets=torch.from_numpy(np.array(index.buckets, np.int32)).to(device),
+                    codes=torch.from_numpy(codes.view(np.int32).copy()).to(device), b=int(index.b))
+
+
+def motion_saliency_from_jax(state, device="cpu") -> MotionSaliency:
+    """Motion saliency's model of the JAX package (`saliency.motion_create` /
+    `motion_apply`'s MotionSaliency: mean, var, a scalar frame count) as this
+    package's on `device`: float32, the count a 0-d tensor."""
+    if tuple(getattr(state, "_fields", ())) != MotionSaliency._fields:
+        raise TypeError(f"a motion model has the fields {MotionSaliency._fields}, got {type(state).__name__}")
+    return MotionSaliency(*(torch.from_numpy(np.array(v, np.float32)).to(device) for v in state))
 
 
 def _is_namedtuple(x) -> bool:

@@ -27,43 +27,49 @@ _SHIFTS8 = _SHIFTS4 + [(1, 1), (1, -1), (-1, 1), (-1, -1)]
 
 
 def _min_neighbor_pass(labels: torch.Tensor, mask: torch.Tensor, connectivity: int) -> torch.Tensor:
-    H, W = labels.shape
+    """The neighbourhood minimum of (..., H, W) labels; leading axes are
+    masks labelled alike."""
+    H, W = labels.shape[-2:]
     L = torch.where(mask, labels, BIG)
     p = F.pad(L, (1, 1, 1, 1), value=BIG)
     out = L
     for dy, dx in _SHIFTS8 if connectivity == 8 else _SHIFTS4:
-        out = torch.minimum(out, p[1 + dy:1 + dy + H, 1 + dx:1 + dx + W])
+        out = torch.minimum(out, p[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W])
     return torch.where(mask, out, BIG)
 
 
 def _pass(labels: torch.Tensor, mask: torch.Tensor, connectivity: int) -> torch.Tensor:
-    """One flood pass and one pointer jump."""
-    new = _min_neighbor_pass(labels, mask, connectivity).reshape(-1)
+    """One flood pass and one pointer jump; each (H, W) image's labels are
+    raster indices within it."""
+    new = _min_neighbor_pass(labels, mask, connectivity).flatten(-2)
     big = new == BIG
     safe = torch.where(big, 0, new).long()
-    return torch.where(big, BIG, torch.minimum(new, new[safe])).reshape(labels.shape)
+    return torch.where(big, BIG, torch.minimum(new, torch.gather(new, -1, safe))).reshape(labels.shape)
 
 
 def connected_components(mask: torch.Tensor, connectivity: int = 4, max_iters: int = 64):
     """Label the True pixels of mask (H, W). Returns (labels, n_passes):
     labels int32, -1 on the background, each component carrying the least
-    raster index of its pixels; n_passes a 0-d int32 tensor."""
+    raster index of its pixels; n_passes a 0-d int32 tensor. A stack
+    (..., H, W) is labelled in one batch, each mask as alone (its passes
+    frozen where its own loop would stop; the twin's vmap), with n_passes
+    of the leading shape."""
     mask = mask.to(torch.bool)
-    H, W = mask.shape
+    H, W = mask.shape[-2:]
     idx = torch.arange(H * W, dtype=torch.int32, device=mask.device).reshape(H, W)
     labels = torch.where(mask, idx, BIG)
-    n = torch.zeros((), dtype=torch.int32, device=mask.device)
-    active = torch.ones((), dtype=torch.bool, device=mask.device)
+    n = torch.zeros(mask.shape[:-2], dtype=torch.int32, device=mask.device)
+    active = torch.ones(mask.shape[:-2], dtype=torch.bool, device=mask.device)
     done = 0
     while done < max_iters:
         for _ in range(min(PASSES_A_READ, max_iters - done)):
             new = _pass(labels, mask, connectivity)
-            moved = torch.any(new != labels)
-            labels = torch.where(active, new, labels)
+            moved = (new != labels).flatten(-2).any(-1)
+            labels = torch.where(active[..., None, None], new, labels)
             n = n + active.to(torch.int32)
             active = active & moved & (n < max_iters)
             done += 1
-        if not bool(active):
+        if not bool(active.any()):
             break
     return torch.where(mask, labels, -1), n
 

@@ -1,8 +1,16 @@
-"""Scene-text detection (the port of opencv_contrib_tpu/text): the stroke
-width transform detector (`swt`, text/src/swt_text_detection.cpp), the piece
-of the text module that ximgproc's line, Hough and MSER detectors import
-(its `_edges`). The ER filter and the OCR heads are not ported."""
+"""Scene-text detection and recognition (the port of opencv_contrib_tpu/text).
 
-from opencv_contrib_tpu_torch.text import swt
+- SWT text detection: text/src/swt_text_detection.cpp (`swt`; ximgproc's
+  line, Hough and MSER detectors import its `_edges`)
+- ER filter: text/src/erfilter.cpp (`er`, the Neumann-Matas extremal
+  region cascade, text/include/opencv2/text/erfilter.hpp:118-151)
+- OCR heads: `ocr`, the OCRHMMDecoder / OCRBeamSearchDecoder role (glyph
+  classifier, Viterbi and beam decoding; ocr_hmm_decoder.cpp,
+  ocr_beamsearch_decoder.cpp)
 
-__all__ = ["swt"]
+The twin's CRNN recognizer (`crnn`), trained in the repo, is not ported yet.
+"""
+
+from opencv_contrib_tpu_torch.text import er, ocr, swt
+
+__all__ = ["er", "swt", "ocr"]

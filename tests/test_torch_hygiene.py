@@ -61,7 +61,9 @@ def test_port_has_its_files():
                  "features/detect_x.py", "features/describe_x.py", "features/pct.py", "features/learned.py",
                  "rgbd/linemod.py", "utils/jpeg.py", "utils/video.py", "utils/cache.py", "utils/datasets2.py",
                  "utils/datasets3.py", "utils/datasets4.py", "quality/brisque_svr.py", "xphoto/artistic.py",
-                 "xphoto/bm3d.py", "xphoto/denoise.py", "xphoto/inpaint.py", "xphoto/learning_wb.py"):
+                 "xphoto/bm3d.py", "xphoto/denoise.py", "xphoto/inpaint.py", "xphoto/learning_wb.py",
+                 "img_hash/hashes.py", "saliency/bing.py", "line_descriptor/mih.py", "mcc/detector.py", "text/er.py",
+                 "text/ocr.py", "wechat_qrcode/qr.py"):
         assert need in names
     for src in ("unfilter.cpp", "jpeg.cpp"):
         assert (PORT / "utils/csrc" / src).exists()
@@ -75,14 +77,16 @@ def test_port_has_its_files():
                                   "large_kinfu_track", "rgbd_odometry", "tum_kinfu", "dynafu_track", "DynaFu",
                                   "dense_flow_deepflow", "dense_flow_simpleflow", "dense_flow_sparse_to_dense",
                                   "dense_flow_rlof", "dense_flow_pcaflow", "dryrun_multichip", "make_mesh",
-                                  "features_x", "video_photometric", "VideoReader", "train_brisque_model"])
+                                  "features_x", "video_photometric", "VideoReader", "train_brisque_model",
+                                  "recognize_x"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
     """Asked for "cuda" (their default) on a machine without a card, the
     frontend, keyframe, dense-flow, photometric and both SfM drivers' entry
     points, the hashed-block and large-scale KinFu, the RGB-D odometry, the
     TUM disk path, DynaFu, every dense-flow method, the multichip dryrun, a
     mesh on "cuda", the xfeatures2d pair path, the video photometric path,
-    a VideoReader onto the card and the BRISQUE head's training raise
+    a VideoReader onto the card, the BRISQUE head's training and the
+    recognition methods (`entry.recognize_x`) raise
     instead of running on the CPU (a mesh drops neither to gloo nor to the
     CPU). (The TUM loader decodes on the host and has no device path.)"""
     import numpy as np
@@ -134,7 +138,8 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
             "video_photometric": lambda: entry.video_photometric(str(tmp_path / "v.y4m"),
                                                                  np.zeros((1, 32, 48, 3), np.float32)),
             "VideoReader": lambda: video.VideoReader(str(tmp_path / "v.y4m")),
-            "train_brisque_model": lambda: brisque_svr.train_brisque_model(n_images=1)}[name]
+            "train_brisque_model": lambda: brisque_svr.train_brisque_model(n_images=1),
+            "recognize_x": lambda: entry.recognize_x(entry.recognition_scene(120, 160), "phash")}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
