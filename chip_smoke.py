@@ -12,7 +12,8 @@ points (`entry.frontend`, `entry.keyframe_tick`, `entry.kinfu_track`,
 `entry.tum_kinfu`, `entry.dynafu_track`, `entry.dryrun_multichip`,
 `entry.features_x`, `entry.video_photometric`, `entry.ximgproc_frame`,
 `entry.geometry_x`, `entry.track_x`, `entry.stabilize_clip`,
-`entry.superres_clip`, `entry.background_x`, `entry.detect_x`), and checks
+`entry.superres_clip`, `entry.background_x`, `entry.detect_x`,
+`entry.recognize_x`, `entry.train_learned`, `entry.learned_x`), and checks
 their outputs.
 
 Phases, one JSON line each:
@@ -222,7 +223,17 @@ Phases, one JSON line each:
       of ours), rerun bit-equal, with ms a frame, host syncs and peak
       memory, and one profiler window over all of them; the JAX tests'
       gates at VGA; the port's CPU run of each method, in a process of its
-      own, against the card's.
+      own, against the card's;
+  (y) hashes, saliency, lines and MIH, the colour chart, the ER filter, OCR
+      and QR: every method of `entry.recognize_x` at VGA, the same way;
+  (z) the learned models trained in the repo and signal / fuzzy / alphamat
+      / plot: the seven `entry.train_learned` recipes on the card (the JAX
+      tests' draws and step counts), counted (the SR evaluations' quality
+      kernels), timed, their host syncs, the tests' gates on their
+      readings; every method of `entry.learned_x` on
+      `entry.learned_scene()` at VGA, counted, rerun bit-equal, timed, one
+      profiler window, the tests' gates; the port's CPU run of each method
+      at 120 x 160 with the card's weights against the card's.
 Then one `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no last line.
@@ -470,6 +481,7 @@ SFM_SCALE_CHUNK_WINDOW = (36, 44)
 # reprojection within 1e-3 px, points within 1e-3 RMS after a similarity alignment
 SFM_SCALE_SMALL = dict(n_views=48, slots_per_view=48, track_span=10, seed=1, noise_px=0.0)
 SFM_SCALE_SMALL_RUN = dict(window=12, ba_every=3, min_gap=2)
+SCALE_SIDE_TIMEOUT_S = 600  # phase o's side runs, which end during its main run (~50 s of its ~200)
 SFM_SCALE_CPU_TOL = {"mean_px": 1e-3, "aligned_points": 1e-3}
 SCALE_PREFIX = "sfm_scale."  # the 5k driver's spans (its own: sequential, global_ba)
 # the script's spans around the driver's device steps (module functions the driver looks up at each call)
@@ -1670,6 +1682,305 @@ def recognition_gates(scene, outs: dict) -> dict:
     return g
 
 
+# ---- phase z: the learned models trained in the repo, signal, fuzzy, alphamat, plot ------------------------------
+Z_SHAPE = (480, 640)  # entry.learned_scene()'s frames
+Z_CPU_SHAPE = (120, 160)  # the card-against-CPU comparison's scene (EDSR and the (HW, 2,048) matte at VGA on 4 cores
+# would take minutes)
+Z_TRAIN = ("espcn", "fsrcnn", "lapsrn", "squeezedet", "crnn", "qr_detector", "qr_sr")
+Z_METHODS = ("sr_espcn", "sr_fsrcnn", "sr_edsr", "sr_lapsrn", "sr_lapsrn4", "sr_evaluate", "squeezedet", "crnn",
+             "qr_learned", "qr_sr", "info_flow", "info_flow_nonlocal", "f0_filter", "f1_filter", "f0_inpaint", "plot2d",
+             "resample_signal")
+Z_PATHS = tuple(f"learn_{m}" for m in Z_METHODS)
+# the quality kernels of the SR evaluation: psnr is one grid_reduce (the MSE), ssim one grid_transform (the map) and
+# one grid_reduce (its mean); sr_evaluate scores FSRCNN and the bicubic baseline on one frame, FSRCNN's recipe 8
+# held-out scenes for each, LapSRN's 4 before and 4 after; no other kernel of ours on any path
+Z_LAUNCHES = {"learn_sr_evaluate": {"grid_transform": 2, "grid_reduce": 4},
+              "train_fsrcnn": {"grid_transform": 16, "grid_reduce": 32},
+              "train_lapsrn": {"grid_transform": 8, "grid_reduce": 16}}
+PATH_KERNELS.update({p: tuple(Z_LAUNCHES.get(p, {})) for p in Z_PATHS + tuple(f"train_{n}" for n in Z_TRAIN)})
+Z_CPU_THREADS = 4
+# the card against the port's CPU run at Z_CPU_SHAPE (`z_diff`): floats by their largest difference over the CPU
+# value's largest magnitude (cuDNN's and the CPU's convolutions sum in other orders: 1e-6 of a net's output; the
+# matte's 150 CG steps amplify the reductions' order); strings, texts, classes and decoded QR equal; the learned QR
+# boxes within `box_px` (a corner truncates a float, as the twin's int()); SqueezeDet's kept boxes by the same rule
+# as floats; plot2d's lit pixels equal but `plot_px` (a densified sample on a .5 rounds either way)
+Z_CPU_TOL = {"rel": 1e-4, "matte_rel": 1e-3, "floor": 1e-30, "box_px": 1, "plot_px": 4}
+
+
+def z_training_data() -> dict:
+    """The QR recipes' host batches (entry.learned_batches), every step's,
+    made in the spawned process ahead of phase z (4,800 detector scenes
+    and 2,000 SR crops: 10-15 s of host numpy that the training no longer
+    waits for)."""
+    from opencv_contrib_tpu_torch import entry
+
+    return {name: entry.learned_batches(name) for name in ("qr_detector", "qr_sr")}
+
+
+def z_models(states: dict, device) -> dict:
+    """The models of entry.learned_models rebuilt on `device` from their
+    state dicts as numpy ({key: {param: array}}, `z_states`)."""
+    import torch
+
+    from opencv_contrib_tpu_torch.models import DnnSuperRes, dnn_objdetect
+    from opencv_contrib_tpu_torch.text import crnn
+    from opencv_contrib_tpu_torch.wechat_qrcode import learned
+
+    def sd(key):
+        return {k: torch.from_numpy(v) for k, v in states[key].items()}
+
+    out = {k: DnnSuperRes(a, s, device=device, params=sd(k))
+           for k, (a, s) in {"espcn": ("espcn", 2), "fsrcnn": ("fsrcnn", 2), "edsr": ("edsr", 2),
+                             "lapsrn": ("lapsrn", 2), "lapsrn4": ("lapsrn", 4), "qr_sr": ("espcn", 2)}.items()}
+    det = dnn_objdetect.SqueezeDetLite()
+    det.load_state_dict(sd("squeezedet_vga"))
+    out["squeezedet_vga"] = det.to(device)
+    rec = crnn.CRNN()
+    rec.load_state_dict(sd("crnn"))
+    out["crnn"] = rec.to(device)
+    net = learned.QrDetectorNet()
+    net.load_state_dict(sd("qr_detector"))
+    out["qr_detector"] = learned.QrDetector(net.to(device))
+    return out
+
+
+def z_states(models: dict) -> dict:
+    """The learned_x models' weights as numpy state dicts (what crosses to
+    the CPU run)."""
+    def sd(m):
+        mod = m.net if hasattr(m, "net") else (m.params if hasattr(m, "params") else m)
+        return {k: v.detach().cpu().numpy() for k, v in mod.state_dict().items()}
+
+    return {k: sd(v) for k, v in models.items()}
+
+
+def z_cpu_outputs(states: dict, shape, threads: int) -> dict:
+    """Every entry.learned_x method on the CPU at `shape` with the card's
+    trained weights, as numpy (phase z's CPU run, in the spawned process
+    behind phase y's); its seconds under "cpu_run_s"."""
+    import torch
+
+    from opencv_contrib_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(threads)
+    models, scene = z_models(states, "cpu"), entry.learned_scene(*shape)
+    out = {f"learn_{m}": _geo_host(entry.learned_x(m, models, scene, device="cpu")) for m in Z_METHODS}
+    out["cpu_run_s"] = time.perf_counter() - t0
+    return out
+
+
+def z_diff(card, host, path: str) -> dict:
+    """How a card result (numpy, `_geo_host`) of a phase-z path parts from the
+    CPU's (Z_CPU_TOL)."""
+    tol = Z_CPU_TOL
+    r = {}
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.shape != b.shape:
+            return float("inf")
+        top = float(np.abs(b).max()) if b.size else 0.0
+        return float(np.abs(a - b).max() / max(top, tol["floor"])) if a.size else 0.0
+
+    def walk(a, b, key):
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                r[key + "#keys"] = (1.0, 0.0)
+            for k in a:
+                if k in b:
+                    walk(a[k], b[k], f"{key}.{k}" if key else k)
+        elif path == "learn_plot2d":
+            r[key] = (float((a != b).sum()), tol["plot_px"])
+        elif key == "boxes" and path == "learn_qr_learned":
+            r[key] = (float(np.abs(np.asarray(a) - np.asarray(b)).max()), tol["box_px"])
+        elif isinstance(a, (list, tuple)) and a and isinstance(a[0], (float, np.floating)):
+            r[key] = (rel(a, b), tol["rel"])
+        elif isinstance(a, np.ndarray) and a.dtype.kind == "f":
+            r[key] = (rel(a, b), tol["matte_rel"] if path.startswith("learn_info_flow") else tol["rel"])
+        elif isinstance(a, np.ndarray):
+            r[key] = (float(not (a.shape == b.shape and np.array_equal(a, b))), 0.0)
+        elif isinstance(a, float):
+            r[key] = (rel(a, b), tol["rel"])
+        else:  # strings, texts, None, ints
+            r[key] = (float(a != b), 0.0)
+
+    walk(card, host, "")
+    return {"ok": all(val <= bound for val, bound in r.values()), "diff": {k: v[0] for k, v in r.items()}}
+
+
+def learned_gates(train: dict, outs: dict, scene) -> dict:
+    """The JAX tests' gates on the learned models' readings: `train` (name
+    -> entry.train_learned's readings) and `outs` (phase z's learned_x
+    results on `scene`: qr_learned and qr_sr); raises, naming every miss, after
+    checking all. Returns the gated numbers."""
+    g, missed = {}, {}
+
+    def gate(name, vals, ok):
+        g[name] = vals
+        if not ok:
+            missed[name] = vals
+
+    r = train["espcn"]  # test_training_improves_over_init
+    gate("espcn", {"loss_first": r["loss_first"], "loss_last": r["loss_last"]}, r["loss_last"] < r["loss_first"] * 0.8)
+    r = train["fsrcnn"]  # test_fsrcnn_beats_bicubic_psnr
+    gate("fsrcnn", {k: r[k] for k in ("psnr", "psnr_bicubic", "ssim", "ssim_bicubic")},
+         r["psnr"] > r["psnr_bicubic"] + 0.5 and r["ssim"] > r["ssim_bicubic"] - 1e-3)
+    r = train["lapsrn"]  # test_lapsrn_training_matches_inference
+    gate("lapsrn", {"psnr_before": r["psnr_before"], "psnr_after": r["psnr_after"]},
+         r["psnr_after"] > r["psnr_before"] + 1.0)
+    r = train["squeezedet"]  # test_train_step_reduces_loss
+    gate("squeezedet", {"losses": r["losses"]}, r["losses"][-1] < r["losses"][0])
+    r = train["crnn"]  # TestCRNN::test_learns_small_vocab
+    gate("crnn", {"strings": r["strings"], "exact": r["exact"], "chars": r["chars"]},
+         r["exact"] >= 2 and r["chars"] >= 6)
+    r = train["qr_detector"]  # test_center_hits_held_out
+    gate("qr_detector", {"held_out_hits": r["held_out_hits"]}, r["held_out_hits"] >= 7)
+    o = outs["qr_sr"]  # test_sr_beats_classical_and_bicubic
+    texts = scene.qr_tiny_texts
+    n = {k: sum(t == w for t, w in zip(o[k], texts)) for k in ("classical", "bicubic", "sr")}
+    gate("qr_sr", n, n["classical"] == 0 and n["sr"] >= max(2, n["bicubic"] + 2))
+    o = outs["qr_learned"]  # test_scene_decode_beats_classical, test_fallback_on_clean_code
+    texts = scene.qr_texts
+    n_learned = sum(t == w for t, w in zip(o["texts"], texts))
+    n_classical = sum(t == w for t, w in zip(o["classical"], texts))
+    gate("qr_learned", {"learned": n_learned, "classical": n_classical, "clean": o["clean"]},
+         n_learned > n_classical and n_learned >= 2 and o["clean"] == "FALLBACK1")
+    check(not missed, f"learned gates missed: {missed}")
+    return g
+
+
+def numeric_gates(scene, outs: dict) -> dict:
+    """tests/test_breadth2/4/6.py's gates of fuzzy and signal on learned_x's
+    results (`outs`: method -> result) at the scene's size, the fixtures
+    laid into the frame (`entry.LearnedScene`): F0 smooths the noise, keeps
+    the smooth wave, inpaints the block; F1 keeps the ramp; the resampled
+    sine and ramp; plot2d draws at full value. The gates that read a
+    fixture's size (plot2d's lit share, F1 against F0 on a noisy ramp) are
+    `fixture_gates`'. Raises, naming every miss. Returns the gated
+    numbers."""
+    g, missed = {}, {}
+
+    def gate(name, vals, ok):
+        g[name] = vals
+        if not ok:
+            missed[name] = vals
+
+    H, W = scene.sr_frame.shape
+    o = _geo_host(outs["f0_filter"])
+    gate("f0_filter_smooths", {"var_out": float(o["noise8"].var()), "var_in": float(scene.fuzzy_noise.var())},
+         o["noise8"].var() < scene.fuzzy_noise.var() * 0.5)
+    gate("f0_roundtrip_on_smooth", {"err": float(np.abs(o["smooth4"] - scene.fuzzy_smooth)[8:-8, 8:-8].max())},
+         np.abs(o["smooth4"] - scene.fuzzy_smooth)[8:-8, 8:-8].max() <= 0.02)
+    o1 = _geo_host(outs["f1_filter"])
+    ramp = scene.fuzzy_ramp
+    gate("f1_reconstructs_ramp", {"err": float(np.abs(o1["ramp8"] - ramp)[4:-4, 4:-4].max())},
+         np.abs(o1["ramp8"] - ramp)[4:-4, 4:-4].max() < 1e-3)
+    o = _geo_host(outs["f0_inpaint"])["out"]
+    m = scene.fuzzy_mask
+    gate("f0_inpaint", {"err": float(np.abs(o[m] - scene.fuzzy_wave[m]).mean())},
+         np.abs(o[m] - scene.fuzzy_wave[m]).mean() < 0.05)
+    img = _geo_host(outs["plot2d"])["img"]
+    gate("plot2d_frame", {"max": float(img.max()), "lit_rows": int((img > 0).any(1).sum())}, img.max() == 1.0)
+    o = _geo_host(outs["resample_signal"])
+    n = len(scene.signal)
+    t2 = np.linspace(0, n / 100 * 2 * np.pi, 2 * n, endpoint=False)
+    gate("resample_preserves_sine", {"err": float(np.abs(o["up"][10:-10] - np.sin(t2)[10:-10]).max())},
+         np.abs(o["up"][10:-10] - np.sin(t2)[10:-10]).max() <= 0.02)
+    mid = n // 4
+    gate("resample_downsample", {"shape": list(o["down"].shape), "mid": float(o["down"][mid])},
+         o["down"].shape == (n // 2,) and abs(float(o["down"][mid]) - (2 * mid + 0.5)) < 2.0)
+    check(not missed, f"numeric gates missed: {missed}")
+    return g
+
+
+def fixture_gates(device) -> dict:
+    """The gates that read their fixture's size, on the tests' own fixtures
+    run on `device`: tests/test_breadth4.py's and test_breadth8.py's
+    alphamat gates (48 x 48, 24 x 24: at VGA the 150 CG steps do not carry
+    a seed across the frame), test_breadth6.py's F1 against F0 on its 32 x
+    32 noisy ramp (at VGA F0's border bias weighs less than F1's noise) and
+    test_breadth3.py's plot2d lit share at 120 x 160 (a curve lights a
+    share that falls as 1 / H). Raises, naming every miss. Returns the
+    gated numbers."""
+    from opencv_contrib_tpu_torch import alphamat, fuzzy, plot
+
+    g, missed = {}, {}
+    yy, xx = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    ramp = (0.03 * yy).astype(np.float32)
+    noisy = ramp + np.random.default_rng(0).normal(0, 0.02, ramp.shape).astype(np.float32)
+    e0 = float(np.abs(_geo_host(fuzzy.f0_filter(_on(noisy, device), radius=8))[4:-4, 4:-4] - ramp[4:-4, 4:-4]).mean())
+    e1 = float(np.abs(_geo_host(fuzzy.f1_filter(_on(noisy, device), radius=8))[4:-4, 4:-4] - ramp[4:-4, 4:-4]).mean())
+    g["f1_beats_f0_on_ramp"] = {"f0": e0, "f1": e1}
+    if not e1 <= e0 + 1e-4:
+        missed["f1_beats_f0_on_ramp"] = g["f1_beats_f0_on_ramp"]
+    x = np.linspace(0, 2 * np.pi, 100)
+    img = _geo_host(plot.plot2d(_on(x, device), _on(np.sin(x), device), shape=(120, 160)))
+    ys, _ = np.nonzero(img)
+    g["plot2d"] = {"max": float(img.max()), "lit": float((img > 0).mean()), "top_row": int(ys.min())}
+    if not (img.max() == 1.0 and 0.005 < g["plot2d"]["lit"] < 0.2 and ys.min() < 30):
+        missed["plot2d"] = g["plot2d"]
+    img = np.full((48, 48), 0.1, np.float32)  # TestAlphamat::test_two_region_matting
+    img[12:36, 12:36] = 0.9
+    tri = np.full((48, 48), 0.5, np.float32)
+    tri[:6] = tri[-6:] = tri[:, :6] = tri[:, -6:] = 0.0
+    tri[20:28, 20:28] = 1.0
+    a = _geo_host(alphamat.info_flow(_on(img, device), _on(tri, device)))
+    g["two_region"] = {k: float(v) for k, v in (("center", a[24, 24]), ("corner", a[2, 2]), ("inner", a[14, 14]),
+                                                 ("band", a[8, 24]))}
+    if not (a[24, 24] > 0.95 and a[2, 2] < 0.05 and a[14, 14] > 0.7 and a[8, 24] < 0.3):
+        missed["two_region"] = g["two_region"]
+    img = np.random.default_rng(0).uniform(size=(24, 24)).astype(np.float32)  # test_known_pixels_pinned
+    tri = np.full((24, 24), 0.5, np.float32)
+    tri[0], tri[-1] = 1.0, 0.0
+    a = _geo_host(alphamat.info_flow(_on(img, device), _on(tri, device)))
+    g["known_pinned"] = {"fg_min": float(a[0].min()), "bg_max": float(a[-1].max())}
+    if not (a[0].min() > 0.9 and a[-1].max() < 0.1):
+        missed["known_pinned"] = g["known_pinned"]
+    img = np.zeros((48, 48), np.float32)  # TestNonlocalMatting::test_propagates_across_gap
+    img[16:32, 4:16] = 1.0
+    img[16:32, 32:44] = 1.0
+    tri = np.full((48, 48), 0.5, np.float32)
+    tri[20:28, 6:10] = 1.0
+    tri[:8] = 0.0
+    tri[-8:] = 0.0
+    a_loc = _geo_host(alphamat.info_flow(_on(img, device), _on(tri, device)))
+    a_nl = _geo_host(alphamat.info_flow_nonlocal(_on(img, device), _on(tri, device), n_samples=512, k=4))
+    right = (slice(20, 28), slice(34, 42))
+    g["nonlocal"] = {"right_nonlocal": float(a_nl[right].mean()), "right_local": float(a_loc[right].mean()),
+                     "top_band": float(a_nl[:6].mean())}
+    if not (a_nl[right].mean() > a_loc[right].mean() + 0.05 and a_nl[right].mean() > 0.5 and a_nl[:6].mean() < 0.2):
+        missed["nonlocal"] = g["nonlocal"]
+    check(not missed, f"fixture gates missed: {missed}")
+    return g
+
+
+def _on(a, device):
+    import torch
+
+    return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+
+def objdetect_gates(device) -> dict:
+    """tests/test_detect_breadth.py::test_decode_and_nms on `device`: the one
+    confident anchor decodes to [12, 20, 28, 36] (atol 1e-4); NMS keeps
+    boxes 0 and 2 of three."""
+    from opencv_contrib_tpu_torch.models import dnn_objdetect as od
+
+    head = np.zeros((6, 6, 1, 7), np.float32)
+    head[..., 0] = -8.0
+    head[2, 3, 0, 0] = 8.0
+    head[2, 3, 0, 5:] = [4.0, -4.0]
+    boxes, conf, _ = od.decode(_on(head, device), od.make_anchors((16.0,), device))
+    b = _geo_host(boxes)[int(np.argmax(_geo_host(conf)))]
+    idx, valid = od.nms(_on([[0, 0, 10, 10], [1, 1, 11, 11], [50, 50, 60, 60]], device), _on([0.9, 0.8, 0.7], device),
+                        iou_thresh=0.4, top_k=3)
+    kept = sorted(set(_geo_host(idx)[_geo_host(valid)].tolist()))
+    g = {"box": b.tolist(), "kept": kept}
+    check(np.abs(b - np.array([12, 20, 28, 36])).max() <= 1e-4 and kept == [0, 2], f"objdetect gates missed: {g}")
+    return g
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1957,6 +2268,42 @@ class Timer:
         self.flush_keys = frozenset()  # the flush's kernels
         self.retaken = []  # the readings of each device_events window taken again
 
+    def wall_s(self, fn):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def sync_log(self):
+        """The warnings of torch.cuda.set_sync_debug_mode("warn") while the
+        block runs, in the yielded list."""
+        import warnings
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield got
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    @staticmethod
+    def sync_summary(got) -> dict:
+        """Host syncs among logged warnings: in total, those made from a line
+        of the port, and by the line that made them."""
+        syncs = [w for w in got if "synchroniz" in str(w.message)]
+        sites = {}
+        for w in syncs:
+            site = f"{w.filename.rsplit('opencv_contrib_tpu_torch/', 1)[-1]}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+        top = sorted(sites.items(), key=lambda kv: -kv[1])[:12]
+        return {"total": len(syncs), "in_the_port": sum("opencv_contrib_tpu_torch/" in w.filename for w in syncs),
+                "top_sites": dict(top)}
+
     def flush_l2(self):
         self.torch.amax(self.l2_flush)
 
@@ -2075,7 +2422,124 @@ class Timer:
         return start.elapsed_time(end) / iters
 
 
-class Smoke(Timer):
+class ScaleRuns(Timer):
+    """Phase o's runs beside its main run: tests/test_scale_tpu.py's 256 x
+    1,024 reconstruction and the small orbit on the card against the CPU.
+    Smoke runs them in a spawned process of its own while the main run
+    goes on (`scale_side_runs`): both are host-bound, on cores of their
+    own, and share a card that is idle most of the time."""
+
+    @contextlib.contextmanager
+    def scale_steps(self, got=None, marks=None):
+        """Spans (utils.tracing.trace_span) around the 5k driver's device
+        steps, so each step's count, host and device ms and launches can be
+        read, and, given a sync log `got`, its host syncs (the yielded dict,
+        by step); `marks(step, start)`, when given, is called as each step
+        starts and ends (`chunk_window`)."""
+        from opencv_contrib_tpu_torch.sfm import pipeline_scale
+        from opencv_contrib_tpu_torch.utils.tracing import trace_span
+
+        syncs = {}
+
+        def wrap(fn, name):
+            def step(*a, **k):
+                i0 = len(got) if got is not None else 0
+                if marks is not None:
+                    marks(name, True)
+                with trace_span(SCALE_PREFIX + name):
+                    out = fn(*a, **k)
+                if marks is not None:
+                    marks(name, False)
+                if got is not None:
+                    syncs[name] = syncs.get(name, 0) + sum("synchroniz" in str(w.message) for w in got[i0:])
+                return out
+
+            return step
+
+        with contextlib.ExitStack() as stack:
+            for attr, name in SCALE_STEPS.items():
+                stack.enter_context(mock.patch.object(pipeline_scale, attr, wrap(getattr(pipeline_scale, attr), name)))
+            yield syncs
+
+    def scale_256(self) -> dict:
+        """tests/test_scale_tpu.py's 256 x 1,024 run, once and unprofiled
+        (its chunk profile moved into the main run, `ChunkWindow`): its gates
+        (>= SFM_SCALE_256_MIN_VIEWS views, the mean reprojection), the
+        host syncs and host ms of each step."""
+        from opencv_contrib_tpu_torch.sfm import pipeline_scale
+        from opencv_contrib_tpu_torch.utils import tracing
+
+        tracks, intr, _ = self.entry.sfm_sequence_scene(*SFM_SCALE_256)
+
+        def run():
+            return pipeline_scale.reconstruct_sequential(tracks, intr, **SFM_SCALE_256_RUN)
+
+        tracing.reset_spans()
+        with self.sync_log() as got, self.scale_steps(got) as step_syncs:
+            rec, wall = self.wall_s(run)
+        spans = {k[len(SCALE_PREFIX):]: v for k, v in tracing.span_stats().items() if k.startswith(SCALE_PREFIX)}
+        n_reg, mean_px = int(rec.registered.sum()), rec.reprojection_mean_px(tracks)
+        check(n_reg >= SFM_SCALE_256_MIN_VIEWS and mean_px <= SFM_MEAN_PX_GATE,
+              f"sfm_scale 256 gates: {n_reg} views, mean {mean_px} px")
+        return {"views": tracks.n_views, "slots": tracks.slots, "tracks": tracks.n_tracks,
+                "settings": SFM_SCALE_256_RUN, "registered": n_reg, "segments": rec.n_segments,
+                "reprojection_mean_px": mean_px, "wall_s": wall, "host_span_ms": spans,
+                "host_syncs": {**self.sync_summary(got), "by_step": step_syncs}}
+
+    def scale_card_vs_cpu(self) -> dict:
+        """A noise-free 48 x 48 orbit on the card and on the CPU, both drawing
+        their RANSAC samples from a CPU generator of one seed."""
+        from opencv_contrib_tpu_torch.mvg import robust
+        from opencv_contrib_tpu_torch.sfm import pipeline_scale
+        from opencv_contrib_tpu_torch.utils.synthetic import generate_sequence_scene
+
+        sc = generate_sequence_scene(**SFM_SCALE_SMALL)
+        tracks = pipeline_scale.from_sequence_scene(sc)
+        draw = robust.sample_indices
+        recs = {}
+        for dev in ("cuda", "cpu"):
+            gen = self.torch.Generator().manual_seed(0)
+
+            def same_draws(generator, n_points, mask, n_hypotheses, sample_size, gen=gen):
+                return draw(gen, n_points, mask.cpu(), n_hypotheses, sample_size).to(mask.device)
+
+            with mock.patch.object(robust, "sample_indices", same_draws):
+                recs[dev] = pipeline_scale.reconstruct_sequential(tracks, sc.intr, device=dev, **SFM_SCALE_SMALL_RUN)
+        card, cpu = recs["cuda"], recs["cpu"]
+        both = card.has_point & cpu.has_point
+        out = {"scene": SFM_SCALE_SMALL, "settings": SFM_SCALE_SMALL_RUN,
+               "registered": [int(card.registered.sum()), int(cpu.registered.sum())],
+               "same_reg_order": card.reg_order == cpu.reg_order, "segments": [card.n_segments, cpu.n_segments],
+               "points": [int(card.has_point.sum()), int(cpu.has_point.sum())],
+               "mean_px": [card.reprojection_mean_px(tracks), cpu.reprojection_mean_px(tracks, device="cpu")],
+               "aligned_points_rms": similarity_rms(card.points[both], cpu.points[both]),
+               "same_log": card.log == cpu.log, "log_diff": log_diff(card.log, cpu.log)}
+        tol = SFM_SCALE_CPU_TOL
+        check(bool((card.registered == cpu.registered).all()) and out["same_reg_order"]
+              and abs(out["mean_px"][0] - out["mean_px"][1]) <= tol["mean_px"]
+              and out["aligned_points_rms"] <= tol["aligned_points"], f"sfm_scale small, card vs CPU: {out}")
+        return out
+
+
+def scale_side_runs() -> dict:
+    """Phase o's 256 x 1,024 run and small card-against-CPU orbit, in the
+    spawned process that phase o starts beside its main run (a CUDA
+    context of its own); each raises on a missed gate."""
+    import torch
+
+    from opencv_contrib_tpu_torch import entry
+
+    side = ScaleRuns(torch, torch.device("cuda", 0))
+    side.entry = entry
+    t0 = time.perf_counter()
+    run_256 = side.scale_256()
+    t1 = time.perf_counter()
+    small = side.scale_card_vs_cpu()
+    return {"run_256": run_256, "small_card_vs_cpu": small, "run_256_s": t1 - t0,
+            "small_card_and_cpu_s": time.perf_counter() - t1}
+
+
+class Smoke(ScaleRuns):
     def __init__(self):
         import torch
 
@@ -2113,13 +2577,6 @@ class Smoke(Timer):
                 out[prefix + "cold_ms"] = self.device_ms(fn, iters=30, cold=True)
             out[prefix + "wall_ms"] = self.wall_ms(fn, iters=20 if prefix != "plain_" else 5)
         return out
-
-    def wall_s(self, fn):
-        self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        self.torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     def counted(self, path: str, fn):
         """Run one main path with the launch counters set to 0 before it and
@@ -3131,6 +3588,7 @@ class Smoke(Timer):
               and kh.vec4_walk(wide[:, :1024], 100, 512, 2) and h_rows[0]["walk"] == "vec4", "grid_histogram walks")
         self.kernels["grid_histogram"] = h_rows[0]
         h_rows[0]["frame_ms"], h_rows[0]["frame_library_ms"] = h_rows[2]["ms"], h_rows[2]["library_ms"]
+        z_rows = self.z_kernel_rows()  # phase z's SSIM map and MSE sum, timed here where windows are cheap
         self.l2_flush = None  # the later phases' peak memory leaves the flush buffer out
         emit({"phase": "k_grid_kernels",
               "tolerance": "transforms within 2 float32 ulp of the plain version (0 expected but for powf); sums "
@@ -3150,7 +3608,7 @@ class Smoke(Timer):
               "grid_transform": t_rows, "streamed_transform": s_rows, "grid_reduce": r_rows,
               "grid_reduce_sums": {"checks": sums_checks, "aggd_six": self.aggd_row}, "grid_histogram": h_rows,
               "grid_histogram_ragged": h_ragged, "grid_histogram_turns": N_HIST_TURNS,
-              "ok": True})
+              "at_the_sr_evaluation_frame": z_rows, "ok": True})
 
     # ---- (l) -----------------------------------------------------------------
     def photo_compare(self, res, ref, label, eq_tol=1e-6):
@@ -3344,35 +3802,6 @@ class Smoke(Timer):
               "timing": f"s_per_reconstruction: host clock around one synchronised reconstruction, the median of "
                         f"{N_SFM_TIMED} warm runs after the counted first run; host_span_ms over those runs",
               "ok": True})
-
-    @contextlib.contextmanager
-    def sync_log(self):
-        """The warnings of torch.cuda.set_sync_debug_mode("warn") while the
-        block runs, in the yielded list."""
-        import warnings
-
-        torch = self.torch
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as got:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                yield got
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-
-    @staticmethod
-    def sync_summary(got) -> dict:
-        """Host syncs among logged warnings: in total, those made from a line
-        of the port, and by the line that made them."""
-        syncs = [w for w in got if "synchroniz" in str(w.message)]
-        sites = {}
-        for w in syncs:
-            site = f"{w.filename.rsplit('opencv_contrib_tpu_torch/', 1)[-1]}:{w.lineno}"
-            sites[site] = sites.get(site, 0) + 1
-        top = sorted(sites.items(), key=lambda kv: -kv[1])[:12]
-        return {"total": len(syncs), "in_the_port": sum("opencv_contrib_tpu_torch/" in w.filename for w in syncs),
-                "top_sites": dict(top)}
 
     def count_syncs(self, fn) -> dict:
         """Host syncs of one call of fn (`sync_summary`)."""
@@ -3630,16 +4059,28 @@ class Smoke(Timer):
 
     # ---- (o) -----------------------------------------------------------------
     def sfm_scale(self):
+        """Phase o: the main run here; the 256 x 1,024 run and the small
+        orbit on the card against the CPU in a spawned process of its own
+        at the same time (`scale_side_runs`; their seconds under
+        run_256_s and small_card_and_cpu_s, side_wait the main run's wait
+        for them after it ended)."""
+        import multiprocessing
+
         parts = {}
         t0 = time.perf_counter()
-        main_run = self.scale_run()
-        parts["main_run"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        run_256 = self.scale_256()
-        parts["run_256"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        small = self.scale_card_vs_cpu()
-        parts["small_card_and_cpu"] = time.perf_counter() - t0
+        side = multiprocessing.get_context("spawn").Pool(1)
+        try:
+            job = side.apply_async(scale_side_runs)
+            main_run = self.scale_run()
+            parts["main_run"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = job.get(timeout=SCALE_SIDE_TIMEOUT_S)
+            parts["side_wait"] = time.perf_counter() - t0
+        finally:
+            side.terminate()
+            side.join()
+        run_256, small = got["run_256"], got["small_card_vs_cpu"]
+        parts.update(run_256_s=got["run_256_s"], small_card_and_cpu_s=got["small_card_and_cpu_s"])
         emit({"phase": "o_sfm_scale", "main_run": main_run, "run_256": run_256, "small_card_vs_cpu": small,
               "phase_parts_s": parts,
               "tolerance": f"{SFM_SCALE[0]} views: registered >= {SFM_SCALE_MIN_VIEW_SHARE} x views, mean "
@@ -3654,40 +4095,10 @@ class Smoke(Timer):
                         "top ops by step from one window of device activity over the main run's chunks "
                         f"{SFM_SCALE_CHUNK_WINDOW[0]}-{SFM_SCALE_CHUNK_WINDOW[1] - 1} and all between them, each "
                         "step's kernels between its marker fills (ChunkWindow), "
-                        "host ms by step in the window from the host clock",
+                        "host ms by step in the window from the host clock; the 256 and small runs went on in a "
+                        "spawned process of their own (its own CUDA context on the same card) while the main run "
+                        "did",
               "ok": True})
-
-    @contextlib.contextmanager
-    def scale_steps(self, got=None, marks=None):
-        """Spans (utils.tracing.trace_span) around the 5k driver's device
-        steps, so each step's count, host and device ms and launches can be
-        read, and, given a sync log `got`, its host syncs (the yielded dict,
-        by step); `marks(step, start)`, when given, is called as each step
-        starts and ends (`chunk_window`)."""
-        from opencv_contrib_tpu_torch.sfm import pipeline_scale
-        from opencv_contrib_tpu_torch.utils.tracing import trace_span
-
-        syncs = {}
-
-        def wrap(fn, name):
-            def step(*a, **k):
-                i0 = len(got) if got is not None else 0
-                if marks is not None:
-                    marks(name, True)
-                with trace_span(SCALE_PREFIX + name):
-                    out = fn(*a, **k)
-                if marks is not None:
-                    marks(name, False)
-                if got is not None:
-                    syncs[name] = syncs.get(name, 0) + sum("synchroniz" in str(w.message) for w in got[i0:])
-                return out
-
-            return step
-
-        with contextlib.ExitStack() as stack:
-            for attr, name in SCALE_STEPS.items():
-                stack.enter_context(mock.patch.object(pipeline_scale, attr, wrap(getattr(pipeline_scale, attr), name)))
-            yield syncs
 
     def scale_run(self) -> dict:
         """The sequential reconstruction at SFM_SCALE, once, with its gates."""
@@ -3749,65 +4160,6 @@ class Smoke(Timer):
               and bool(np.isfinite(rec.points[rec.has_point]).all()), f"sfm_scale gates: {out}")
         self.scale_rec = (tracks, rec)  # phase r bundles copies of it on a mesh
         torch.cuda.empty_cache()
-        return out
-
-    def scale_256(self) -> dict:
-        """tests/test_scale_tpu.py's 256 x 1,024 run, once and unprofiled
-        (its chunk profile moved into the main run, `ChunkWindow`): its gates
-        (>= SFM_SCALE_256_MIN_VIEWS views, the mean reprojection), the
-        host syncs and host ms of each step."""
-        from opencv_contrib_tpu_torch.sfm import pipeline_scale
-        from opencv_contrib_tpu_torch.utils import tracing
-
-        tracks, intr, _ = self.entry.sfm_sequence_scene(*SFM_SCALE_256)
-
-        def run():
-            return pipeline_scale.reconstruct_sequential(tracks, intr, **SFM_SCALE_256_RUN)
-
-        tracing.reset_spans()
-        with self.sync_log() as got, self.scale_steps(got) as step_syncs:
-            rec, wall = self.wall_s(run)
-        spans = {k[len(SCALE_PREFIX):]: v for k, v in tracing.span_stats().items() if k.startswith(SCALE_PREFIX)}
-        n_reg, mean_px = int(rec.registered.sum()), rec.reprojection_mean_px(tracks)
-        check(n_reg >= SFM_SCALE_256_MIN_VIEWS and mean_px <= SFM_MEAN_PX_GATE,
-              f"sfm_scale 256 gates: {n_reg} views, mean {mean_px} px")
-        return {"views": tracks.n_views, "slots": tracks.slots, "tracks": tracks.n_tracks,
-                "settings": SFM_SCALE_256_RUN, "registered": n_reg, "segments": rec.n_segments,
-                "reprojection_mean_px": mean_px, "wall_s": wall, "host_span_ms": spans,
-                "host_syncs": {**self.sync_summary(got), "by_step": step_syncs}}
-
-    def scale_card_vs_cpu(self) -> dict:
-        """A noise-free 48 x 48 orbit on the card and on the CPU, both drawing
-        their RANSAC samples from a CPU generator of one seed."""
-        from opencv_contrib_tpu_torch.mvg import robust
-        from opencv_contrib_tpu_torch.sfm import pipeline_scale
-        from opencv_contrib_tpu_torch.utils.synthetic import generate_sequence_scene
-
-        sc = generate_sequence_scene(**SFM_SCALE_SMALL)
-        tracks = pipeline_scale.from_sequence_scene(sc)
-        draw = robust.sample_indices
-        recs = {}
-        for dev in ("cuda", "cpu"):
-            gen = self.torch.Generator().manual_seed(0)
-
-            def same_draws(generator, n_points, mask, n_hypotheses, sample_size, gen=gen):
-                return draw(gen, n_points, mask.cpu(), n_hypotheses, sample_size).to(mask.device)
-
-            with mock.patch.object(robust, "sample_indices", same_draws):
-                recs[dev] = pipeline_scale.reconstruct_sequential(tracks, sc.intr, device=dev, **SFM_SCALE_SMALL_RUN)
-        card, cpu = recs["cuda"], recs["cpu"]
-        both = card.has_point & cpu.has_point
-        out = {"scene": SFM_SCALE_SMALL, "settings": SFM_SCALE_SMALL_RUN,
-               "registered": [int(card.registered.sum()), int(cpu.registered.sum())],
-               "same_reg_order": card.reg_order == cpu.reg_order, "segments": [card.n_segments, cpu.n_segments],
-               "points": [int(card.has_point.sum()), int(cpu.has_point.sum())],
-               "mean_px": [card.reprojection_mean_px(tracks), cpu.reprojection_mean_px(tracks, device="cpu")],
-               "aligned_points_rms": similarity_rms(card.points[both], cpu.points[both]),
-               "same_log": card.log == cpu.log, "log_diff": log_diff(card.log, cpu.log)}
-        tol = SFM_SCALE_CPU_TOL
-        check(bool((card.registered == cpu.registered).all()) and out["same_reg_order"]
-              and abs(out["mean_px"][0] - out["mean_px"][1]) <= tol["mean_px"]
-              and out["aligned_points_rms"] <= tol["aligned_points"], f"sfm_scale small, card vs CPU: {out}")
         return out
 
     # ---- (p) -----------------------------------------------------------------
@@ -5944,15 +6296,15 @@ class Smoke(Timer):
         check(ok, f"geometry: card vs CPU beyond tolerance {beyond}, reruns not bit-equal {not_equal}, gates "
                   f"{gates_missed}")
 
-
     # ---- (w) -----------------------------------------------------------------
     def track_cpu_start(self):
         """Start phase w's CPU run (`track_cpu_outputs`), then phase x's
-        (`x_cpu_outputs`) and phase y's (`y_cpu_outputs`), in a spawned
-        process of their own at a low priority; main() starts them before
-        phase u, so that they run beside phases u to y's card work (phase w,
-        x or y starts them itself when run alone). `close` ends them: phase
-        y, or phase x when phase y's run is not queued."""
+        (`x_cpu_outputs`) and phase y's (`y_cpu_outputs`) and phase z's QR
+        draws (`z_training_data`), in a spawned process of their own at a
+        low priority; main() starts them before phase u, so that they run
+        beside phases u to y's card work (phase w, x, y or z starts its own
+        when run alone). `close` ends them: phase z, which queues its CPU
+        run there too, or phase x / y when run without the later phases."""
         import multiprocessing
 
         # at niceness 10 the CPU run takes the cores the card's phases leave idle (beside them at the default
@@ -5963,6 +6315,10 @@ class Smoke(Timer):
         # phase x's CPU run, queued behind phase w's in the same process, and phase y's behind it
         self.x_cpu_job = self.track_pool.apply_async(x_cpu_outputs, (X_SHAPE, X_CPU_THREADS))
         self.y_cpu_job = self.track_pool.apply_async(y_cpu_outputs, (Y_SHAPE, Y_CPU_THREADS))
+        # the QR recipes' host draws for phase z, made here ahead of its training, and phase z's CPU run (the
+        # trained weights) queued behind them; phase z ends the pool
+        self.z_data_job = self.track_pool.apply_async(z_training_data)
+        self.z_queued = True
         self.track_cpu_t0 = time.perf_counter()
 
     def close(self):
@@ -5971,7 +6327,7 @@ class Smoke(Timer):
         if pool is not None:
             pool.terminate()
             pool.join()
-            self.track_pool = self.x_cpu_job = self.y_cpu_job = None
+            self.track_pool = self.x_cpu_job = self.y_cpu_job = self.z_data_job = None
 
     def integral_batched(self) -> dict:
         """The integral kernel on the batches of tables MIL's and Boosting's
@@ -6388,7 +6744,8 @@ class Smoke(Timer):
             parts["cpu_wait"] = time.perf_counter() - t0
             parts["cpu_run"] = host.pop("cpu_run_s")
         finally:
-            self.close()
+            if not getattr(self, "z_queued", False):  # phase z's CPU run goes in the same process
+                self.close()
         t0 = time.perf_counter()
         scene = host.pop("scene")
         ints = self.card(host.pop("fine_int_frame"))
@@ -6463,6 +6820,185 @@ class Smoke(Timer):
         check(ok, f"recognition: card vs CPU beyond tolerance {beyond}, reruns not bit-equal {not_equal}, gates "
                   f"{gates_missed}, integer-frame fine-grained bit-equal {fine_int_equal}")
 
+    # ---- (z) -----------------------------------------------------------------
+    def learned(self):
+        """Phase z: the learned models trained in the repo, and signal, fuzzy,
+        alphamat and plot, on the card. Each entry.train_learned recipe (the
+        JAX test's data draws and step count, flax's initialisers from a CPU
+        generator), counted (Z_LAUNCHES: the SR evaluations' quality kernels),
+        timed, its host syncs; the JAX tests' gates on their readings
+        (learned_gates, objdetect_gates) and an ESPCN npz round trip; every
+        method of entry.learned_x on entry.learned_scene() at VGA with the
+        trained models (EDSR, LapSRN x4 and the VGA SqueezeDet from flax's
+        initialisers), counted, rerun bit-equal, timed, host syncs, peak
+        memory, one profiler window; numeric_gates on those results and
+        fixture_gates on the tests' own fixtures; the port's CPU run of every
+        method at Z_CPU_SHAPE with the card's weights, in the spawned process
+        behind phase y's, against the card's at that shape (z_diff,
+        Z_CPU_TOL)."""
+        import tempfile
+
+        torch, entry = self.torch, self.entry
+        check(tuple(entry.LEARNED) == Z_TRAIN and tuple(entry.LEARNED_METHODS) == Z_METHODS,
+              f"entry.LEARNED / LEARNED_METHODS {tuple(entry.LEARNED)} {tuple(entry.LEARNED_METHODS)}")
+        t_all = time.perf_counter()
+        parts, train, trained, batches = {}, {}, {}, {}
+        try:
+            if getattr(self, "z_data_job", None) is not None:  # the QR recipes' draws, made in the spawned process
+                t0 = time.perf_counter()
+                batches = self.z_data_job.get(timeout=600)
+                parts["data_wait"] = time.perf_counter() - t0
+            for name in Z_TRAIN:
+                path = f"train_{name}"
+                kw = {"batches": batches[name]} if name in batches else {}
+                with self.sync_log() as got:
+                    res, s = self.counted(path, lambda name=name, kw=kw: entry.train_learned(name, device=self.dev,
+                                                                                             **kw))
+                launches = {k: v for k, v in self.launches[path].items() if v}
+                check(launches == Z_LAUNCHES.get(path, {}),
+                      f"{path}: kernel launches {launches}, expected {Z_LAUNCHES.get(path, {})}")
+                syncs = self.sync_summary(got)
+                trained[name] = res.pop("model")
+                train[name] = {**res, "s": s, "ms_a_step": s * 1e3 / res["steps"], "host_syncs": syncs["total"],
+                               "host_syncs_in_port": syncs["in_the_port"], "sync_sites": syncs["top_sites"],
+                               "kernel_launches": launches}
+                parts[path] = s
+            t0 = time.perf_counter()
+            models = entry.learned_models({k: trained[k] for k in ("espcn", "fsrcnn", "lapsrn", "crnn",
+                                                                   "qr_detector", "qr_sr")}, device=self.dev)
+            pool = getattr(self, "track_pool", None)
+            if pool is None:  # run alone: phase z's CPU run by itself
+                import multiprocessing
+
+                pool = self.track_pool = multiprocessing.get_context("spawn").Pool(1, initializer=os.nice,
+                                                                                   initargs=(10,))
+            cpu_job = pool.apply_async(z_cpu_outputs, (z_states(models), Z_CPU_SHAPE, Z_CPU_THREADS))
+            with tempfile.TemporaryDirectory() as tmp:  # test_save_load_roundtrip on the trained ESPCN
+                from opencv_contrib_tpu_torch.models import DnnSuperRes
+
+                probe = np.random.default_rng(0).uniform(size=(16, 16)).astype(np.float32)
+                trained["espcn"].save_model(os.path.join(tmp, "espcn.npz"))
+                back = DnnSuperRes("espcn", 2, seed=99, device=self.dev).read_model(os.path.join(tmp, "espcn.npz"))
+                roundtrip = float((trained["espcn"].upsample(probe) - back.upsample(probe)).abs().max())
+            scene = entry.learned_scene(*Z_SHAPE)
+            small = entry.learned_scene(*Z_CPU_SHAPE)
+            parts["models_and_scenes"] = time.perf_counter() - t0
+            calls = {f"learn_{m}": (lambda m=m: entry.learned_x(m, models, scene, device=self.dev)) for m in Z_METHODS}
+            t0 = time.perf_counter()
+            runs, outs = {}, {}
+            for path in Z_PATHS:  # the first call: counted, its syncs logged, its peak
+                with self.sync_log() as got:
+                    (out, s1), peak = self.peak_gb(lambda: self.counted(path, calls[path]))
+                launches = {k: v for k, v in self.launches[path].items() if v}
+                check(launches == Z_LAUNCHES.get(path, {}),
+                      f"{path}: kernel launches {launches}, expected {Z_LAUNCHES.get(path, {})}")
+                syncs = self.sync_summary(got)
+                outs[path] = out
+                runs[path] = {"ms_first": s1 * 1e3, "peak_mem_gb": peak, "host_syncs": syncs["total"],
+                              "host_syncs_in_port": syncs["in_the_port"], "sync_sites": syncs["top_sites"],
+                              "kernel_launches": launches}
+            parts["card_runs"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for path in Z_PATHS:  # the second call: its bits and its ms on the host clock
+                again, s2 = self.wall_s(calls[path])
+                runs[path].update(ms=s2 * 1e3, rerun_bit_equal=_geo_equal(outs[path], again))
+            parts["reruns"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prof = self.ximg_profile(calls)
+            parts["profile_split"] = self.profile_split
+            for path, row in prof.items():
+                top = sorted(row["kernels"].items(), key=lambda kv: -kv[1][1])[:3]
+                runs[path].update(device_ms=row["device_ms"], device_launches=row["launches"],
+                                  costliest={k[:60]: [n, ms] for k, (n, ms) in top})
+            parts["profile"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gates, gates_missed = {"espcn_roundtrip_max_abs": roundtrip}, []
+            if roundtrip > 1e-6:
+                gates_missed.append(f"espcn save/load round trip {roundtrip} > 1e-6")
+            by_method = {m: outs[f"learn_{m}"] for m in Z_METHODS}
+            for name, fn in (("learned", lambda: learned_gates(train, by_method, scene)),
+                             ("numeric", lambda: numeric_gates(scene, by_method)),
+                             ("fixtures", lambda: fixture_gates(self.dev)),
+                             ("objdetect", lambda: objdetect_gates(self.dev))):
+                try:
+                    gates[name] = fn()
+                except AssertionError as e:  # reported with the phase's readings, then raised
+                    gates_missed.append(str(e))
+            card_small = {f"learn_{m}": _geo_host(entry.learned_x(m, models, small, device=self.dev))
+                          for m in Z_METHODS}
+            parts["gates_and_small"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            host = cpu_job.get(timeout=600)
+            parts["cpu_wait"] = time.perf_counter() - t0
+            parts["cpu_run"] = host.pop("cpu_run_s")
+        finally:
+            self.close()
+        cpu, beyond = {}, {}
+        for path in Z_PATHS:
+            cpu[path] = z_diff(card_small[path], host[path], path)
+            if not cpu[path]["ok"]:
+                beyond[path] = cpu[path]
+        not_equal = sorted(p for p, r in runs.items() if not r["rerun_bit_equal"])
+        ok = not beyond and not not_equal and not gates_missed
+        emit({"phase": "z_learned", "ok": ok, "card_vs_cpu_beyond_tolerance": beyond,
+              "rerun_not_bit_equal": not_equal, "gates_missed": gates_missed, "frame": list(Z_SHAPE),
+              "cpu_frame": list(Z_CPU_SHAPE), "training": train, "paths": runs, "gates": gates, "card_vs_cpu": cpu,
+              "kernels_at_the_evaluation_frame": {k: self.kernels[k].get("learned") for k in ("grid_transform",
+                                                                                                  "grid_reduce")
+                                                  if k in self.kernels},
+              "phase_parts_s": parts, "phase_s": time.perf_counter() - t_all,
+              "tolerance": f"launches: {Z_LAUNCHES}, no other kernel of ours on any path or recipe; every path "
+                           f"bit-equal on a rerun; gates: the JAX tests' (learned_gates on the recipes' readings and "
+                           f"the learned QR scenes; numeric_gates at VGA; fixture_gates and objdetect_gates on the "
+                           f"tests' own fixtures); the ESPCN npz round trip within 1e-6; card vs CPU at "
+                           f"{Z_CPU_SHAPE}: {Z_CPU_TOL} (z_diff)",
+              "timing": "training: host clock around each synchronised recipe (s, ms_a_step), its host syncs logged; "
+                        "paths: two calls each, the first counted, its host syncs logged and its peak memory (above "
+                        "what was held) read (ms_first), the second gives the rerun's bits and ms (host clock around "
+                        "the synchronised call); device_ms and device_launches: one profiler window (device activity "
+                        "only, raw kineto events) over a third call of every path; the CPU run went on in the spawned "
+                        f"process ({Z_CPU_THREADS} threads, niceness 10; cpu_run: its seconds) behind phase y's"})
+        check(ok, f"learned: card vs CPU beyond tolerance {beyond}, reruns not bit-equal {not_equal}, gates "
+                  f"{gates_missed}")
+
+    def z_kernel_rows(self) -> dict:
+        """grid_transform's SSIM map and grid_reduce's MSE sum at phase z's SR
+        evaluation frame (Z_SHAPE), against their plain versions, timed warm
+        and cold beside the library call, with their bounds; phase k runs it
+        (its ten profiler windows took 27.9 s at the end of the whole script
+        on the H100 and 0.7-1.0 s in phase z alone) and adds the rows to the
+        kernels line's under "learned"."""
+        import torch.nn.functional as F
+
+        from opencv_contrib_tpu_torch.ops.cuda import reduce as kr
+        from opencv_contrib_tpu_torch.ops.cuda import transform as tf
+
+        H, W = Z_SHAPE
+        n = H * W
+        u = [self.card(self.gen.uniform(0, 1, size=(H, W))) for _ in range(2)]
+        var = self.card(self.gen.uniform(0.01, 0.05, size=(H, W)))
+        xs = [u[0], u[1], u[0] * u[0] + var, u[1] * u[1] + var, u[0] * u[1]]
+        m = tf.ssim(1e-4, 9e-4)
+        err = self.ulp_check(tf.grid_transform(m, *xs), tf.grid_transform_plain(m.fn, *xs), "grid_transform ssim (z)")
+        rows = {"grid_transform": self.row(
+            "grid_transform", (H, W), err, {"": lambda: tf.grid_transform(m, *xs),
+                                            "plain_": lambda: tf.grid_transform_plain(m.fn, *xs),
+                                            "library_": lambda: m.fn(*xs)},
+            4 * (m.n_in + 1) * n, 22 * n, TRANSFORM_KERNELS, cold=True, map="ssim")}
+        sq = tf.sqdiff()
+        out, ref = kr.grid_reduce(sq, u[0], u[1]), kr.grid_reduce_plain(sq.fn, u[0], u[1])
+        err = abs(float(out) - float(ref))
+        check(err <= 1e-5 * float(ref), f"grid_reduce sqdiff (z): err {err}")
+        rows["grid_reduce"] = self.row(
+            "grid_reduce", (H, W), err, {"": lambda: kr.grid_reduce(sq, u[0], u[1]),
+                                         "plain_": lambda: kr.grid_reduce_plain(sq.fn, u[0], u[1]),
+                                         "library_": lambda: F.mse_loss(u[0], u[1], reduction="sum")},
+            4 * 2 * n + 4, 3 * n, REDUCE_KERNELS, cold=True, map="sqdiff", kind="sum")
+        for k, row in rows.items():
+            if k in self.kernels:
+                self.kernels[k]["learned"] = row
+        return rows
+
     def kernels_line(self):
         line = []
         for name, row in self.kernels.items():
@@ -6477,7 +7013,8 @@ class Smoke(Timer):
                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                          "library_ms": row["library_ms"], "wall_ms": row["wall_ms"],
                          **{k: row[k] for k in ("cold_ms", "library_cold_ms", "bound_over_cold_ms", "frame_ms",
-                                                "frame_library_ms", "widths", "batched", "channels") if k in row}})
+                                                "frame_library_ms", "widths", "batched", "channels", "learned")
+                            if k in row}})
         emit({"kernels": line})
 
 
@@ -6494,7 +7031,7 @@ def main() -> int:
                       smoke.grid_kernels, smoke.photometric, smoke.sfm, smoke.sparse_ba, smoke.sfm_scale, smoke.rgbd,
                       smoke.remainder, smoke.distributed, smoke.xfeatures, smoke.video, smoke.track_cpu_start,
                       smoke.ximgproc, smoke.geometry, smoke.track, smoke.detection,
-                      smoke.recognition):
+                      smoke.recognition, smoke.learned):
             phase()
     finally:
         smoke.close()

@@ -66,6 +66,11 @@
   low-res frames with known and with DIS flows.
 - `background_x(clip, method)` and `detect_x(scene, method)`: background
   subtraction and the retina; detection, shape and face.
+- `train_learned(name)` and `learned_x(method, models, scene)`: the learned
+  models trained in the repo by their JAX tests' recipes (super-resolution,
+  SqueezeDet, the CRNN, the learned QR detector and SR stage), their
+  inference at full size, and the signal, fuzzy, alphamat and plot
+  methods; `learned_scene()` makes the inputs at VGA.
 - `recognize_x(scene, method)`: one perceptual hash, saliency map (spectral
   residual, fine-grained, BING, motion), line detector with LBD and
   multi-index hashing, the colour chart and its CCM, the ER filter, an OCR
@@ -2879,3 +2884,452 @@ def recognize_x(scene: RecognitionScene, method: str, device="cuda") -> dict:
     if method not in RECOGNITION:
         raise ValueError(f"recognize_x: method must be one of {sorted(RECOGNITION)}, got {method!r}")
     return RECOGNITION[method](_Scene(scene, resolve(device), RECOGNITION_HOST_FIELDS))
+
+
+# ---- the learned models trained in the repo, and signal / fuzzy / alphamat / plot -------------------------------
+LEARNED = ("espcn", "fsrcnn", "lapsrn", "squeezedet", "crnn", "qr_detector", "qr_sr")
+# each recipe's init seed and steps, the JAX test's own (tests/test_models_bioinspired.py, test_detect_breadth.py,
+# test_text_ocr.py, test_qr_learned.py); the data draws are the tests' too (their rng fixture is default_rng(0))
+LEARNED_SEEDS = {"espcn": 1, "fsrcnn": 0, "lapsrn": 0, "squeezedet": 0, "crnn": 0, "qr_detector": 0, "qr_sr": 0}
+LEARNED_STEPS = {"espcn": 60, "fsrcnn": 250, "lapsrn": 120, "squeezedet": 8, "crnn": 1000, "qr_detector": 300,
+                 "qr_sr": 250}
+CRNN_WORDS = ("AB", "CD", "EF", "GH")
+CRNN_SHAPE, CRNN_MAX_LEN, CRNN_BATCH = (20, 40), 4, 256  # the test's height, width, labels; the inference batch
+SQD_CONF = 0.1  # the VGA detection's score threshold (an untrained head scores about 0.2: NMS gets work)
+NONLOCAL_SAMPLES, NONLOCAL_K = 2048, 5  # info_flow_nonlocal's defaults
+MATTE_BAND = 7  # the trimap's unknown band: within 7 px of the foreground's edge
+QR_SCENE = 192  # tests/test_qr_learned.py's scenes: at VGA the 128 input would shrink a 1.6 px module below 0.5 px
+SIGNAL_LEN, PLOT_POINTS = 48000, 1000
+
+
+def _sr_scenes(rng, n: int, side: int) -> list:
+    return [np.clip(edge_forest._synthetic_scene(rng, side, side)[0], 0, 1) for _ in range(n)]
+
+
+def _cubic_lr(hr: np.ndarray, s: int, dev) -> torch.Tensor:
+    """(N, H, W, 1) HR batch -> its bicubic LR (N, H/s, W/s, 1) on `dev`."""
+    from opencv_contrib_tpu_torch.ops.image import image_resize
+
+    N, H, W, _ = hr.shape
+    with torch.no_grad():
+        return image_resize(constant(hr[..., 0], dev), (N, H // s, W // s), "cubic")[..., None]
+
+
+def _train_espcn(seed, dev, steps):
+    from opencv_contrib_tpu_torch.models import DnnSuperRes
+
+    rng = np.random.default_rng(0)
+    sr = DnnSuperRes("espcn", 2, seed=seed, device=dev)
+    sr.init_training(lr=2e-3)
+
+    def batch(n=8):
+        hr = np.stack([filters.gaussian_blur(torch.from_numpy(rng.uniform(size=(32, 32)).astype(np.float32)),
+                                             1.0).numpy() for _ in range(n)])[..., None]
+        return hr[:, ::2, ::2], hr
+
+    losses = [sr.train_step(*batch())]
+    for _ in range(steps):
+        losses.append(sr.train_step(*batch()))
+    return {"model": sr, "steps": steps + 1, "loss_first": losses[0], "loss_last": losses[-1]}
+
+
+def _train_fsrcnn(seed, dev, steps):
+    from opencv_contrib_tpu_torch.models import DnnSuperRes
+    from opencv_contrib_tpu_torch.models.dnn_superres import evaluate_bicubic, evaluate_psnr_ssim
+
+    rng = np.random.default_rng(0)
+    train_hr = _sr_scenes(rng, 48, 96)
+    test_hr = [np.clip(edge_forest._synthetic_scene(np.random.default_rng(1234 + i), 96, 96)[0], 0, 1)
+               for i in range(8)]
+    m = DnnSuperRes("fsrcnn", 2, seed=seed, device=dev)
+    m.init_training(lr=2e-3)
+    for _ in range(steps):
+        hr = np.stack([train_hr[i] for i in rng.choice(len(train_hr), 8, replace=False)])[..., None]
+        m.train_step(_cubic_lr(hr, 2, dev), hr)
+    p_model, s_model = evaluate_psnr_ssim(m, test_hr)
+    p_bic, s_bic = evaluate_bicubic(test_hr, 2, device=dev)
+    return {"model": m, "steps": steps, "psnr": p_model, "ssim": s_model, "psnr_bicubic": p_bic,
+            "ssim_bicubic": s_bic}
+
+
+def _train_lapsrn(seed, dev, steps):
+    from opencv_contrib_tpu_torch.models import DnnSuperRes
+    from opencv_contrib_tpu_torch.models.dnn_superres import evaluate_psnr_ssim
+
+    rng = np.random.default_rng(0)
+    hr_imgs = _sr_scenes(rng, 16, 64)
+    m = DnnSuperRes("lapsrn", 2, seed=seed, device=dev)
+    p0, _ = evaluate_psnr_ssim(m, hr_imgs[:4])
+    m.init_training(lr=1e-3)
+    for _ in range(steps):
+        hr = np.stack([hr_imgs[i] for i in rng.choice(len(hr_imgs), 8, replace=False)])[..., None]
+        m.train_step(_cubic_lr(hr, 2, dev), hr)
+    p1, _ = evaluate_psnr_ssim(m, hr_imgs[:4])
+    return {"model": m, "steps": steps, "psnr_before": p0, "psnr_after": p1}
+
+
+def _train_squeezedet(seed, dev, steps):
+    from opencv_contrib_tpu_torch.models import dnn_objdetect as od
+
+    rng = np.random.default_rng(0)
+    model, opt = od.init(seed, od.SqueezeDetLite(n_classes=2, n_anchors=1), img_hw=(48, 48), device=dev)
+    anchors = od.make_anchors((16.0,), dev)
+    imgs = constant(rng.uniform(0, 1, (2, 48, 48, 1)).astype(np.float32), dev)
+    tgt = np.zeros((2, 6, 6, 1), np.float32)
+    tgt[:, 2, 2, 0] = 1.0
+    tgt_conf = constant(tgt, dev)
+    tgt_boxes = torch.zeros((2, 6, 6, 1, 4), device=dev)
+    tgt_cls = torch.zeros((2, 6, 6, 1), dtype=torch.int32, device=dev)
+    losses = []
+    for _ in range(steps):
+        model, opt, loss = od.train_step(model, opt, model, imgs, tgt_conf, tgt_boxes, tgt_cls, anchors)
+        losses.append(float(loss))
+    return {"model": model, "steps": steps, "losses": losses}
+
+
+def _train_crnn(seed, dev, steps):
+    from opencv_contrib_tpu_torch.text import crnn
+
+    model, params = crnn.train_crnn(list(CRNN_WORDS), n_steps=steps, W=CRNN_SHAPE[1], max_len=CRNN_MAX_LEN,
+                                    features=48, seed=seed, lr=5e-3, device=dev)
+    imgs, _, _ = crnn.make_batch(list(CRNN_WORDS), *CRNN_SHAPE, CRNN_MAX_LEN, np.random.default_rng(2), noise=0.0)
+    out = crnn.recognize(model, params, imgs)
+    return {"model": model, "steps": steps, "strings": out,
+            "exact": sum(o == w for o, w in zip(out, CRNN_WORDS)),
+            "chars": sum(a == b for o, w in zip(out, CRNN_WORDS) for a, b in zip(o.ljust(2), w))}
+
+
+QR_BATCH = {"qr_detector": 16, "qr_sr": 8}  # test_qr_learned.py's batches
+
+
+def _train_qr_detector(seed, dev, steps, batches=None):
+    from opencv_contrib_tpu_torch.wechat_qrcode import learned
+
+    det = learned.train_detector(n_steps=steps, batch=QR_BATCH["qr_detector"], seed=seed, device=dev, batches=batches)
+    rng = np.random.default_rng(99)  # TestDetector::test_center_hits_held_out
+    hits = 0
+    for _ in range(10):
+        img, (cy, cx, side) = learned.make_training_scene(rng)
+        (y0, x0, y1, x1), score = det.detect(img)
+        hits += (y0 <= cy <= y1) and (x0 <= cx <= x1)
+    return {"model": det, "steps": steps, "held_out_hits": int(hits)}
+
+
+def _train_qr_sr(seed, dev, steps, batches=None):
+    from opencv_contrib_tpu_torch.wechat_qrcode import learned
+
+    return {"model": learned.train_qr_sr(n_steps=steps, batch=QR_BATCH["qr_sr"], seed=seed, device=dev,
+                                         batches=batches), "steps": steps}
+
+
+_TRAIN = {"espcn": _train_espcn, "fsrcnn": _train_fsrcnn, "lapsrn": _train_lapsrn, "squeezedet": _train_squeezedet,
+          "crnn": _train_crnn, "qr_detector": _train_qr_detector, "qr_sr": _train_qr_sr}
+
+
+def learned_batches(name: str, seed: int | None = None, steps: int | None = None) -> list:
+    """The host batches the QR recipes ("qr_detector", "qr_sr") draw, every
+    step's, as `train_learned(name, seed, steps=steps)` would draw them: to
+    be made in another process ahead of the training (`batches=`)."""
+    from opencv_contrib_tpu_torch.wechat_qrcode import learned
+
+    draw = {"qr_detector": learned.detector_batches, "qr_sr": learned.sr_batches}.get(name)
+    if draw is None:
+        raise ValueError(f"learned_batches: only the QR recipes draw their batches ahead, got {name!r}")
+    return draw(LEARNED_STEPS[name] if steps is None else steps, QR_BATCH[name],
+                LEARNED_SEEDS[name] if seed is None else seed)
+
+
+def train_learned(name: str, seed: int | None = None, device="cuda", steps: int | None = None,
+                  batches=None) -> dict:
+    """Train one of the learned models (`LEARNED`) by its JAX test's recipe
+    on `device`: the test's data draws, step count (`LEARNED_STEPS`) and
+    init seed (`LEARNED_SEEDS`, flax's initialisers from a generator of it;
+    `seed` replaces it). The QR recipes take `batches`, their draws made
+    ahead (`learned_batches`). Returns {"model": the trained model,
+    "steps": ...} with the readings the test gates on: ESPCN's first and
+    last loss, FSRCNN's PSNR / SSIM and the bicubic baseline's on the 8
+    held-out scenes, LapSRN's PSNR before and after, SqueezeDet's losses,
+    the CRNN's strings on the clean batch, the QR detector's held-out
+    hits."""
+    if name not in _TRAIN:
+        raise ValueError(f"train_learned: name must be one of {LEARNED}, got {name!r}")
+    dev = resolve(device)
+    args = (LEARNED_SEEDS[name] if seed is None else seed, dev, LEARNED_STEPS[name] if steps is None else steps)
+    if batches is not None:
+        if name not in QR_BATCH:
+            raise ValueError(f"train_learned: only the QR recipes take batches, got {name!r}")
+        return _TRAIN[name](*args, batches=batches)
+    return _TRAIN[name](*args)
+
+
+class LearnedScene(NamedTuple):
+    """The inputs of `learned_x` at H x W (numpy float32 unless stated).
+
+    - `sr_frame`: the SR tests' synthetic scene (`edge_forest._synthetic_
+      scene`, clipped) at H x W: the LR input of the x2 / x4 upsampling and
+      the HR frame of the evaluation (bicubic LR at H/2 x W/2).
+    - `det_frame`: another such scene, SqueezeDet's input.
+    - `crnn_imgs` (CRNN_BATCH, 20, 40, 1): the trained words rendered with
+      0.05 noise, `crnn_words` their texts.
+    - `qr_scenes` (6, 192, 192) and `qr_texts`: tests/test_qr_learned.py's
+      full scenes (tiny blurred codes on a background, its draws);
+      `qr_clean`: its clean fallback code; `qr_tiny` (8 codes, ragged, a
+      list) and `qr_tiny_texts`: its SR fixtures (module 1.5 px).
+    - `matte_img`, `matte_trimap`: the SR frame and its trimap: 1 above
+      the blurred frame's median, 0 below, unknown within MATTE_BAND px of
+      the edge between.
+    - `fuzzy_noise` U(0, 1); `fuzzy_smooth` 0.5 + 0.3 sin(x / 20);
+      `fuzzy_wave` 0.5 + 0.3 sin(x / 15) with `fuzzy_mask` (bool) over the
+      test's 8 x 8 block zeroed in `fuzzy_corrupted`; `fuzzy_ramp` 0.01 y +
+      0.02 x and `fuzzy_noisy_ramp` 0.03 y + N(0, 0.02) (tests/
+      test_breadth2.py, test_breadth6.py at the frame).
+    - `plot_x`, `plot_y`: PLOT_POINTS samples of sin over [0, 2 pi].
+    - `signal`: SIGNAL_LEN samples of sin, 100 a period; `signal_ramp`:
+      0..SIGNAL_LEN - 1 (tests/test_breadth4.py at length)."""
+    sr_frame: np.ndarray
+    det_frame: np.ndarray
+    crnn_imgs: np.ndarray
+    crnn_words: tuple
+    qr_scenes: np.ndarray
+    qr_texts: tuple
+    qr_clean: np.ndarray
+    qr_tiny: list
+    qr_tiny_texts: tuple
+    matte_img: np.ndarray
+    matte_trimap: np.ndarray
+    fuzzy_noise: np.ndarray
+    fuzzy_smooth: np.ndarray
+    fuzzy_wave: np.ndarray
+    fuzzy_mask: np.ndarray
+    fuzzy_corrupted: np.ndarray
+    fuzzy_ramp: np.ndarray
+    fuzzy_noisy_ramp: np.ndarray
+    plot_x: np.ndarray
+    plot_y: np.ndarray
+    signal: np.ndarray
+    signal_ramp: np.ndarray
+
+
+LEARNED_HOST_FIELDS = {"qr_scenes", "qr_clean", "crnn_imgs"}  # the QR fixtures and the CRNN batch move inside
+
+
+def tiny_code(text: str, module_px: float, blur: float, noise: float, rng) -> np.ndarray:
+    """tests/test_qr_learned.py::_tiny_code: the code rendered at 4 px a
+    module, bilinearly resized to module_px, blurred, with noise."""
+    from opencv_contrib_tpu_torch.ops.image import image_resize
+    from opencv_contrib_tpu_torch.wechat_qrcode import learned, qr
+
+    mod = qr.encode(text)
+    n = mod.shape[0]
+    hr = qr.render(mod, scale=4, border=2).astype(np.float32)
+    tgt = int((n + 4) * module_px)
+    small = image_resize(torch.from_numpy(hr), (tgt, tgt), "bilinear").numpy()
+    return np.clip(learned._blur(small, blur) + rng.standard_normal(small.shape) * noise, 0, 1).astype(np.float32)
+
+
+def learned_scene(H: int = 480, W: int = 640) -> LearnedScene:
+    """The fixtures of `learned_x` at H x W (`LearnedScene`)."""
+    from opencv_contrib_tpu_torch.text import crnn
+    from opencv_contrib_tpu_torch.wechat_qrcode import learned, qr
+
+    rng = np.random.default_rng(0)
+    sr_frame = np.clip(edge_forest._synthetic_scene(rng, H, W)[0], 0, 1)
+    det_frame = np.clip(edge_forest._synthetic_scene(rng, H, W)[0], 0, 1)
+    words = tuple(CRNN_WORDS[i] for i in rng.integers(0, len(CRNN_WORDS), CRNN_BATCH))
+    crnn_imgs = crnn.make_batch(list(words), *CRNN_SHAPE, CRNN_MAX_LEN, rng)[0].numpy()
+
+    rng = np.random.default_rng(7)  # TestFullLearnedPipeline::test_scene_decode_beats_classical
+    scenes, texts = [], []
+    for k in range(6):
+        text = "SC%04d" % k
+        code = tiny_code(text, module_px=1.6, blur=0.6, noise=0.02, rng=rng)
+        ch = code.shape[0]
+        img = learned._background(rng, QR_SCENE)
+        y0, x0 = 20 + 9 * k, 110 - 9 * k
+        img[y0:y0 + ch, x0:x0 + ch] = code
+        scenes.append(img)
+        texts.append(text)
+    rng = np.random.default_rng(1)  # TestSrRecoversSmallCodes
+    tiny_texts = tuple("T%05d" % k for k in range(8))
+    tiny = [tiny_code(t, module_px=1.5, blur=0.7, noise=0.03, rng=rng) for t in tiny_texts]
+    clean = qr.render(qr.encode("FALLBACK1"), scale=4, border=4).astype(np.float32)
+
+    blurred = filters.gaussian_blur(torch.from_numpy(sr_frame), H / 60.0)  # the regions, not their stripes
+    fg = (blurred > blurred.median()).to(torch.float32)[None, None]
+    grown = torch.nn.functional.max_pool2d(fg, 2 * MATTE_BAND + 1, 1, MATTE_BAND)[0, 0]
+    shrunk = -torch.nn.functional.max_pool2d(-fg, 2 * MATTE_BAND + 1, 1, MATTE_BAND)[0, 0]
+    trimap = torch.where(grown != shrunk, 0.5, fg[0, 0]).numpy().astype(np.float32)
+
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    rng = np.random.default_rng(0)
+    noise = rng.uniform(size=(H, W)).astype(np.float32)
+    wave = (0.5 + 0.3 * np.sin(xx / 15.0)).astype(np.float32)
+    mask = np.zeros((H, W), bool)
+    mask[20:28, 20:28] = True
+    corrupted = wave.copy()
+    corrupted[mask] = 0.0
+    noisy_ramp = (0.03 * yy + rng.normal(0, 0.02, (H, W))).astype(np.float32)
+    px = np.linspace(0, 2 * np.pi, PLOT_POINTS)
+    t = np.linspace(0, SIGNAL_LEN / 100 * 2 * np.pi, SIGNAL_LEN, endpoint=False).astype(np.float32)
+    return LearnedScene(
+        sr_frame=sr_frame, det_frame=det_frame, crnn_imgs=crnn_imgs, crnn_words=words,
+        qr_scenes=np.stack(scenes), qr_texts=tuple(texts), qr_clean=clean, qr_tiny=tiny, qr_tiny_texts=tiny_texts,
+        matte_img=sr_frame, matte_trimap=trimap, fuzzy_noise=noise,
+        fuzzy_smooth=(0.5 + 0.3 * np.sin(xx / 20.0)).astype(np.float32), fuzzy_wave=wave, fuzzy_mask=mask,
+        fuzzy_corrupted=corrupted, fuzzy_ramp=(0.01 * yy + 0.02 * xx).astype(np.float32),
+        fuzzy_noisy_ramp=noisy_ramp, plot_x=px, plot_y=np.sin(px), signal=np.sin(t),
+        signal_ramp=np.arange(SIGNAL_LEN, dtype=np.float32))
+
+
+def _lx_sr(name):
+    def run(g: _Scene, models: dict):
+        return {"out": models[name].upsample(g.sr_frame)}
+    return run
+
+
+def _lx_sr_evaluate(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch.models.dnn_superres import evaluate_bicubic, evaluate_psnr_ssim
+
+    p, s = evaluate_psnr_ssim(models["fsrcnn"], [g.sr_frame])
+    pb, sb = evaluate_bicubic([g.sr_frame], 2, device=g.dev)
+    return {"psnr": p, "ssim": s, "psnr_bicubic": pb, "ssim_bicubic": sb}
+
+
+def _lx_squeezedet(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch.models import dnn_objdetect as od
+
+    model = models["squeezedet_vga"]
+    boxes, scores, cids = od.detect(model, model, g.det_frame, od.make_anchors(device=g.dev), conf_thresh=SQD_CONF)
+    return {"boxes": boxes, "scores": scores, "classes": cids}
+
+
+def _lx_crnn(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch.text import crnn
+
+    model = models["crnn"]
+    logits = model(constant(g.crnn_imgs, g.dev))
+    return {"logits": logits, "strings": crnn.ctc_greedy_decode(logits)}
+
+
+def _lx_qr_learned(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch.wechat_qrcode import learned
+
+    from opencv_contrib_tpu_torch.wechat_qrcode import qr
+
+    det, sr = models["qr_detector"], models["qr_sr"]
+    scenes = [constant(s, g.dev) for s in g.qr_scenes]
+    boxes = [det.detect(s) for s in scenes]
+    return {"texts": [learned.detect_and_decode_learned(s, det, sr) for s in scenes],
+            "classical": [qr.detect_and_decode(s)[0] for s in scenes],
+            "boxes": [b for b, _ in boxes], "scores": [float(s) for _, s in boxes],
+            "clean": learned.detect_and_decode_learned(constant(g.qr_clean, g.dev), det, sr)}
+
+
+def _lx_qr_sr(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch.ops.image import image_resize
+    from opencv_contrib_tpu_torch.wechat_qrcode import qr
+
+    sr = models["qr_sr"]
+    out = {"classical": [], "bicubic": [], "sr": []}
+    for img in g.qr_tiny:
+        x = constant(img, g.dev)
+        h, w = x.shape
+        out["classical"].append(qr.detect_and_decode(x)[0])
+        out["bicubic"].append(qr.detect_and_decode(image_resize(x, (2 * h, 2 * w), "bilinear"))[0])
+        out["sr"].append(qr.detect_and_decode(sr.upsample(x))[0])
+    return out
+
+
+def _lx_info_flow(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch import alphamat
+
+    return {"alpha": alphamat.info_flow(g.matte_img, g.matte_trimap)}
+
+
+def _lx_info_flow_nonlocal(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch import alphamat
+
+    return {"alpha": alphamat.info_flow_nonlocal(g.matte_img, g.matte_trimap, k=NONLOCAL_K,
+                                                 n_samples=NONLOCAL_SAMPLES)}
+
+
+def _lx_f0_filter(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch import fuzzy
+
+    return {"noise8": fuzzy.f0_filter(g.fuzzy_noise, radius=8), "smooth4": fuzzy.f0_filter(g.fuzzy_smooth, radius=4),
+            "noisy_ramp8": fuzzy.f0_filter(g.fuzzy_noisy_ramp, radius=8)}
+
+
+def _lx_f1_filter(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch.fuzzy import f1_filter
+
+    return {"ramp8": f1_filter(g.fuzzy_ramp, radius=8), "noisy_ramp8": f1_filter(g.fuzzy_noisy_ramp, radius=8)}
+
+
+def _lx_f0_inpaint(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch import fuzzy
+
+    return {"out": fuzzy.f0_inpaint(g.fuzzy_corrupted, g.fuzzy_mask, radius=10)}
+
+
+def _lx_plot2d(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch import plot
+
+    return {"img": plot.plot2d(g.plot_x, g.plot_y, shape=tuple(g.sr_frame.shape))}
+
+
+def _lx_resample(g: _Scene, models: dict):
+    from opencv_contrib_tpu_torch import signal
+
+    return {"up": signal.resample_signal(g.signal, 2 * SIGNAL_LEN),
+            "down": signal.resample_signal(g.signal_ramp, SIGNAL_LEN // 2)}
+
+
+LEARNED_METHODS = {**{f"sr_{n}": _lx_sr(n) for n in ("espcn", "fsrcnn", "edsr", "lapsrn", "lapsrn4")},
+                   "sr_evaluate": _lx_sr_evaluate, "squeezedet": _lx_squeezedet, "crnn": _lx_crnn,
+                   "qr_learned": _lx_qr_learned, "qr_sr": _lx_qr_sr, "info_flow": _lx_info_flow,
+                   "info_flow_nonlocal": _lx_info_flow_nonlocal, "f0_filter": _lx_f0_filter,
+                   "f1_filter": _lx_f1_filter, "f0_inpaint": _lx_f0_inpaint, "plot2d": _lx_plot2d,
+                   "resample_signal": _lx_resample}
+# the models learned_x reads: the trained ones of `train_learned`, and (no JAX test trains them) EDSR x2, LapSRN x4
+# and the VGA SqueezeDet (3 classes, 3 anchors) from flax's initialisers (`learned_models`)
+LEARNED_MODEL_KEYS = ("espcn", "fsrcnn", "edsr", "lapsrn", "lapsrn4", "squeezedet_vga", "crnn", "qr_detector", "qr_sr")
+
+
+def learned_models(trained: dict, device="cuda", seed: int = 0) -> dict:
+    """The models `learned_x` reads (`LEARNED_MODEL_KEYS`): the trained
+    models of `trained` ({name: model}, e.g. each `train_learned(name)
+    ["model"]`) and EDSR x2, LapSRN x4 and the VGA SqueezeDet drawn from
+    flax's initialisers with `seed`, on `device`."""
+    from opencv_contrib_tpu_torch.models import DnnSuperRes
+    from opencv_contrib_tpu_torch.models import dnn_objdetect as od
+
+    dev = resolve(device)
+    out = dict(trained)
+    out["edsr"] = DnnSuperRes("edsr", 2, seed=seed, device=dev)
+    out["lapsrn4"] = DnnSuperRes("lapsrn", 4, seed=seed, device=dev)
+    out["squeezedet_vga"] = od.init(seed, od.SqueezeDetLite(), device=dev)[0]
+    missing = set(LEARNED_MODEL_KEYS) - set(out)
+    if missing:
+        raise ValueError(f"learned_models: no trained {sorted(missing)}")
+    return out
+
+
+@f32_matmuls
+def learned_x(method: str, models: dict, scene: LearnedScene, device="cuda") -> dict:
+    """One learned or numeric method on `scene` (a `learned_scene()`) with
+    `models` (`learned_models`): x2 super-resolution of the frame by ESPCN,
+    FSRCNN, EDSR, LapSRN and x4 by LapSRN; FSRCNN's PSNR / SSIM against the
+    frame and the bicubic baseline's (the quality kernels); SqueezeDet at
+    the frame (its IoU matrix over every anchor); the CRNN on its batch of
+    words; the learned QR path on tests/test_qr_learned.py's scenes and its
+    SR stage on the tiny codes; info_flow and info_flow_nonlocal on the
+    matte; the F0 / F1 filters and F0 inpainting; plot2d at the frame; the
+    signal resampled up and down. Returns a dict of tensors on `device`,
+    host numpy where the twin returns it (detections) and strings, floats
+    and boxes as the twins return them."""
+    if method not in LEARNED_METHODS:
+        raise ValueError(f"learned_x: method must be one of {sorted(LEARNED_METHODS)}, got {method!r}")
+    dev = resolve(device)
+    with torch.no_grad():
+        return LEARNED_METHODS[method](_Scene(scene, dev, LEARNED_HOST_FIELDS), models)

@@ -17,7 +17,10 @@ tracker's backbone (`tracking.siam.SiamBackbone`, flax's parameters in the
 twin) by `siam_params`; a multi-index over binary line codes
 (`line_descriptor.MIHIndex`, uint32 codes in the twin) by
 `mih_index_from_jax`; motion saliency's model (`saliency.MotionSaliency`)
-by `motion_saliency_from_jax`; the omnidir and
+by `motion_saliency_from_jax`; the learned models' flax trees (the
+super-resolution nets, SqueezeDet, the CRNN and the learned QR detector)
+by `superres_params`, `squeezedet_params`, `crnn_params` and
+`qr_detector_params`; the omnidir and
 registration parameters are plain arrays and need no converter.
 
 The rest of the port's state is the NamedTuples (Keypoints,
@@ -227,3 +230,50 @@ def to_numpy(tree):
     if isinstance(tree, torch.Generator):
         return tree
     return np.asarray(tree)
+
+
+def _flax_state(module, params_np, what: str, device) -> dict:
+    """A flax tree as the state dict of `module` (whose submodules carry the
+    flax names), its keys and shapes checked against the module's."""
+    from opencv_contrib_tpu_torch.models.layers import check_state, flax_to_state_dict
+
+    return check_state(module, flax_to_state_dict(params_np, device), what)
+
+
+def superres_params(params_np, algo: str, scale: int = 2, device="cpu") -> dict:
+    """A super-resolution net's parameters of the JAX package (`DnnSuperRes
+    .params`: {"params": {"Conv_i": {"kernel" HWIO, "bias"}, "PReLU_i":
+    {"negative_slope"}}}) as the state dict of this package's
+    `models.dnn_superres.NETS[algo](scale)` (`DnnSuperRes(params=...)`):
+    kernels OIHW, the PReLU slopes scalars."""
+    from opencv_contrib_tpu_torch.models.dnn_superres import NETS
+
+    return _flax_state(NETS[algo](scale=scale), params_np, algo, device)
+
+
+def squeezedet_params(params_np, n_classes: int = 3, n_anchors: int = 3, channels: int = 1, device="cpu") -> dict:
+    """SqueezeDet's parameters of the JAX package (`dnn_objdetect.init`'s:
+    Conv_0, FireLite_0-2 of three convolutions, Conv_1) as the state dict of
+    this package's `models.dnn_objdetect.SqueezeDetLite`."""
+    from opencv_contrib_tpu_torch.models.dnn_objdetect import SqueezeDetLite
+
+    return _flax_state(SqueezeDetLite(n_classes, n_anchors, channels), params_np, "SqueezeDetLite", device)
+
+
+def crnn_params(params_np, features: int = 48, height: int = 20, device="cpu") -> dict:
+    """The CRNN's parameters of the JAX package (`CRNN.init(...)["params"]`:
+    Conv_0-1, Dense_0-1 (kernels (in, out)), GRUCell_0-1 of ir / iz / in
+    with biases, hr / hz without and hn with one) as the state dict of this
+    package's `text.crnn.CRNN(features, height)`: Dense kernels (out, in)."""
+    from opencv_contrib_tpu_torch.text.crnn import CRNN
+
+    return _flax_state(CRNN(features, height), params_np, "CRNN", device)
+
+
+def qr_detector_params(params_np, device="cpu") -> dict:
+    """The learned QR detector's parameters of the JAX package
+    (`QrDetector.params`: Conv_0-6) as the state dict of this package's
+    `wechat_qrcode.learned.QrDetectorNet`."""
+    from opencv_contrib_tpu_torch.wechat_qrcode.learned import QrDetectorNet
+
+    return _flax_state(QrDetectorNet(), params_np, "QrDetectorNet", device)

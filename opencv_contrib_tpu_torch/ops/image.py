@@ -1,11 +1,17 @@
 """Sampling, windows, patches, resizing, affine and perspective warps and
 remap (the port of opencv_contrib_tpu/ops/image.py). Border: clamp
 (BORDER_REPLICATE). `remap` is the plain bilinear `cv::remap` of that file,
-not the flow's bounded remap kernel (`ops.cuda.remap`)."""
+not the flow's bounded remap kernel (`ops.cuda.remap`). `image_resize` is the
+twin of `jax.image.resize`."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+
+from opencv_contrib_tpu_torch.utils.device import constant
 
 
 def _gather2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -148,6 +154,73 @@ def resize(img: torch.Tensor, out_hw, method: str = "linear") -> torch.Tensor:
     C = img.shape[2]
     rows = (My @ img.reshape(H, W * C)).reshape(Ho, W, C)
     return torch.einsum("hwc,ow->hoc", rows, Mx)
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """a * b + c rounded once to float32 (the product of two float32 is
+    exact in float64), as XLA's CPU compiler contracts it."""
+    return (np.float64(a) * np.asarray(b, np.float64) + np.float64(c) if np.isscalar(a) else
+            np.asarray(a, np.float64) * np.asarray(b, np.float64) + c).astype(np.float32)
+
+
+def _scale_taps(n_out: int, n_in: int, method: str):
+    """The weights of `jax.image.scale_and_translate` for a resize of n_in
+    to n_out samples, as jax builds its (n_out, n_in) matrix, kept as the
+    taps of each output: input indices (n_out, T) int64 and float32 weights
+    (n_out, T), zero where a tap falls outside the input. Half-pixel
+    centres; the kernel widened by 1 / scale when shrinking (antialias);
+    each row renormalised over its taps inside the input; rows whose sample
+    lies outside [-0.5, n_in - 0.5] zeroed. Linear: the triangle; cubic:
+    Keys with a = -0.5. Each a * b + c is rounded once, as the twin's
+    compiled weights are (`_fma`)."""
+    f32 = np.float32
+    if method in ("linear", "bilinear"):
+        support = 1
+    elif method in ("cubic", "bicubic"):
+        support = 2
+    else:
+        raise ValueError(f"image_resize: method must be linear or cubic, got {method!r}")
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = _fma(np.arange(n_out, dtype=f32) + f32(0.5), inv_scale, -0.5)
+    T = int(np.ceil(2 * support * float(kernel_scale))) + 2
+    idx = np.floor(sample - support * float(kernel_scale)).astype(np.int64)[:, None] + np.arange(T)[None, :]
+    x = np.abs(sample[:, None] - idx.astype(f32)) / kernel_scale
+    if support == 1:
+        w = np.maximum(f32(0.0), f32(1.0) - x)
+    else:
+        near = _fma(_fma(1.5, x, -2.5) * x, x, 1.0)
+        far = _fma(_fma(_fma(-0.5, x, 2.5), x, -4.0), x, 2.0)
+        w = np.where(x >= 2.0, f32(0.0), np.where(x >= 1.0, far, near)).astype(f32)
+    w = np.where((idx >= 0) & (idx < n_in), w, f32(0.0))
+    total = w.sum(1, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps), w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.clip(idx, 0, n_in - 1), np.where(inside[:, None], w, 0).astype(f32)
+
+
+@functools.lru_cache(maxsize=64)
+def _scale_taps_on(n_out: int, n_in: int, method: str, device: torch.device):
+    idx, w = _scale_taps(n_out, n_in, method)
+    return constant(idx, device, torch.int64), constant(w, device)
+
+
+def image_resize(x: torch.Tensor, shape, method: str = "linear") -> torch.Tensor:
+    """The twin of `jax.image.resize(x, shape, method)` for "linear" /
+    "bilinear" and "cubic" / "bicubic", any rank and size: along every axis
+    whose size changes, each output is the weighted sum of its taps
+    (`_scale_taps`, built on the host once a size and device), so a long
+    signal needs no (n_out, n_in) matrix. (`resize` above is a clamped
+    two-tap operator held to other twins.)"""
+    x = x.to(torch.float32)
+    if len(shape) != x.ndim:
+        raise ValueError(f"image_resize: shape {tuple(shape)} for an array of rank {x.ndim}")
+    for d, n in enumerate(shape):
+        if x.shape[d] != n:
+            idx, w = _scale_taps_on(int(n), int(x.shape[d]), method, x.device)
+            g = x.index_select(d, idx.reshape(-1)).unflatten(d, tuple(idx.shape))
+            x = (g * w.reshape(tuple(idx.shape) + (1,) * (x.ndim - d - 1))).sum(d + 1)
+    return x
 
 
 def warp_affine(img: torch.Tensor, M, out_hw=None) -> torch.Tensor:

@@ -7,10 +7,10 @@
 - OCR heads: `ocr`, the OCRHMMDecoder / OCRBeamSearchDecoder role (glyph
   classifier, Viterbi and beam decoding; ocr_hmm_decoder.cpp,
   ocr_beamsearch_decoder.cpp)
-
-The twin's CRNN recognizer (`crnn`), trained in the repo, is not ported yet.
+- `crnn`: the holistic CRNN recognizer trained in the repo on synthetic
+  renders (ocr_holistic.cpp's role), with optax's CTC recursion
 """
 
-from opencv_contrib_tpu_torch.text import er, ocr, swt
+from opencv_contrib_tpu_torch.text import crnn, er, ocr, swt
 
-__all__ = ["er", "swt", "ocr"]
+__all__ = ["er", "swt", "ocr", "crnn"]

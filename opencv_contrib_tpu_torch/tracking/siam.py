@@ -12,8 +12,8 @@ cross-correlated over the search features, a Gaussian peak label at the
 true offset). `SiamBackbone` is an `nn.Module` in NCHW; the public
 functions keep the twin's layout, features (H, W, C). flax's "SAME" pads a
 stride-2 3x3 convolution of an even side by (0, 1), not by (1, 1), so each
-convolution pads explicitly (`_same_pad`); the kernels start as flax's do
-(truncated lecun-normal, zero biases). The cross-correlation is
+convolution pads explicitly (`models.layers.same_pad`); the kernels start
+as flax's do (truncated lecun-normal, zero biases). The cross-correlation is
 `F.conv2d` with the template as the kernel (the twin's `lax.conv`); every
 product and convolution runs in full float32 (cuDNN's TF32 is off).
 `interop.siam_params` carries the twin's flax parameters over.
@@ -21,7 +21,6 @@ product and convolution runs in full float32 (cuDNN's TF32 is off).
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple
 
@@ -30,25 +29,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from opencv_contrib_tpu_torch.models.layers import LECUN_TRUNC, lecun_normal_  # noqa: F401 (the tests read LECUN_TRUNC)
+from opencv_contrib_tpu_torch.models.layers import same_pad as _same_pad
 from opencv_contrib_tpu_torch.ops.image import sample_bilinear
 from opencv_contrib_tpu_torch.tracking.correlation import _linspace
 from opencv_contrib_tpu_torch.utils.device import constant
+from opencv_contrib_tpu_torch.utils.optim import Adam, deterministic
 from opencv_contrib_tpu_torch.utils.precision import f32_matmul_precision
 
 TEMPLATE = 32  # template crop side
 SEARCH = 64    # search crop side
-LECUN_TRUNC = 0.87962566103423978  # the stddev of a standard normal truncated to (-2, 2)
-
-
-def _same_pad(x, k: int, stride: int):
-    """flax / XLA "SAME" padding of (..., H, W): out = ceil(n / stride),
-    the total pad split with its smaller half before."""
-    def pads(n):
-        total = max((-(-n // stride) - 1) * stride + k - n, 0)
-        return total // 2, total - total // 2
-
-    (top, bottom), (left, right) = pads(x.shape[-2]), pads(x.shape[-1])
-    return F.pad(x, (left, right, top, bottom))
 
 
 class SiamBackbone(nn.Module):
@@ -67,10 +57,7 @@ class SiamBackbone(nn.Module):
         1 / fan_in (lecun_normal), biases zero; drawn from `gen`."""
         with torch.no_grad():
             for conv in (self.conv1, self.conv2, self.conv3):
-                fan_in = conv.in_channels * conv.kernel_size[0] * conv.kernel_size[1]
-                w = torch.empty(conv.weight.shape)
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-                conv.weight.copy_(w * (math.sqrt(1.0 / fan_in) / LECUN_TRUNC))
+                lecun_normal_(conv.weight, gen)
                 conv.bias.zero_()
         return self
 
@@ -203,25 +190,13 @@ def _loss(model: SiamBackbone, templs, searches, offs):
     return -(label * logp).sum(-1).mean()
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """cuDNN's deterministic algorithms inside the block (its default
-    weight-gradient algorithms may sum with atomics), restored after."""
-    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
-
-
 def train_siam(n_steps: int = 200, batch: int = 16, lr: float = 3e-3, seed: int = 0, features: int = 32,
                params=None, device="cpu") -> SiamBackbone:
     """Train the backbone on synthetic pairs (the twin's numpy draws of
-    `seed`) with Adam in optax's update order (eps outside the square
-    root); returns the trained SiamBackbone on `device`. `params` (a state
-    dict, e.g. `interop.siam_params` of the twin's init) sets the start,
-    else the kernels are drawn from a generator of `seed`."""
+    `seed`) with `utils.optim.Adam` (optax's update order); returns the
+    trained SiamBackbone on `device`. `params` (a state dict, e.g.
+    `interop.siam_params` of the twin's init) sets the start, else the
+    kernels are drawn from a generator of `seed`."""
     dev = torch.device(device)
     model = SiamBackbone(features)
     if params is None:
@@ -230,23 +205,14 @@ def train_siam(n_steps: int = 200, batch: int = 16, lr: float = 3e-3, seed: int 
         model.load_state_dict(params)
     model = model.to(dev)
     rng = np.random.default_rng(seed)
-    b1, b2, eps = 0.9, 0.999, 1e-8
-    weights = list(model.parameters())
-    mu = [torch.zeros_like(p) for p in weights]
-    nu = [torch.zeros_like(p) for p in weights]
-    with f32_matmul_precision(), _deterministic():
-        for step in range(1, n_steps + 1):
+    opt = Adam(model.parameters(), lr)
+    with f32_matmul_precision(), deterministic():
+        for _ in range(n_steps):
             trip = [_synth_pair(rng) for _ in range(batch)]
             templs = constant(np.stack([t for t, _, _ in trip]), dev)
             searches = constant(np.stack([s for _, s, _ in trip]), dev)
             offs = constant(np.stack([o for _, _, o in trip]), dev)
-            model.zero_grad(set_to_none=True)
+            opt.zero_grad()
             _loss(model, templs, searches, offs).backward()
-            c1 = float(1 - np.float32(b1) ** np.float32(step))
-            c2 = float(1 - np.float32(b2) ** np.float32(step))
-            with torch.no_grad():
-                for p, m, v in zip(weights, mu, nu):
-                    m.copy_((1 - b1) * p.grad + b1 * m)
-                    v.copy_((1 - b2) * p.grad ** 2 + b2 * v)
-                    p.add_(-lr * ((m / c1) / (torch.sqrt(v / c2) + eps)))
+            opt.step()
     return model

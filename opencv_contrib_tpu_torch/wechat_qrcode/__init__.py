@@ -6,7 +6,9 @@ Reed-Solomon correction. The classical finder-pattern ratio scan and
 projective grid sampling stand for the reference's CNN detector (the zxing
 fallback path); the decode stack covers versions 1-40, every ECC level and
 mode. `spec` and `gf256` are the port's own copies of the twin's host
-tables and codec. The twin's learned detector (`learned`) is not ported yet.
+tables and codec. `learned` holds the detector and SR stages trained in the
+repo (the reference's CNN detector and super_scale roles), imported by
+name as the twin's is.
 """
 
 from opencv_contrib_tpu_torch.wechat_qrcode import gf256, qr

@@ -72,7 +72,9 @@ def test_slice_files_are_twins():
                 "face/bif.py", "face/aam.py", "face/facemark.py", "img_hash/hashes.py", "saliency/static.py",
                 "saliency/motion.py", "saliency/bing.py", "line_descriptor/lines.py", "line_descriptor/mih.py",
                 "mcc/ccm.py", "mcc/detector.py", "text/er.py", "text/ocr.py", "wechat_qrcode/gf256.py",
-                "wechat_qrcode/spec.py", "wechat_qrcode/qr.py"):
+                "wechat_qrcode/spec.py", "wechat_qrcode/qr.py", "models/dnn_superres.py", "models/dnn_objdetect.py",
+                "text/crnn.py", "wechat_qrcode/learned.py", "signal/resample.py", "fuzzy/ftransform.py",
+                "alphamat/infoflow.py", "plot/render.py"):
         assert rel in TWINS, rel
         assert rel not in ALLOWED, rel
 
@@ -90,7 +92,8 @@ def exported(path: Path) -> list:
 # such as text/, export what they hold)
 WHOLE_PACKAGES = ("phase_unwrapping", "structured_light", "stereo", "reg", "surface_matching", "rapid", "aruco",
                   "ccalib", "tracking", "videostab", "superres", "bgsegm", "bioinspired", "xobjdetect", "dpm", "shape",
-                  "face", "img_hash", "saliency", "line_descriptor", "mcc", "wechat_qrcode")
+                  "face", "img_hash", "saliency", "line_descriptor", "mcc", "wechat_qrcode", "models", "signal", "fuzzy",
+                  "alphamat", "plot")
 
 
 @pytest.mark.parametrize("pkg", WHOLE_PACKAGES)

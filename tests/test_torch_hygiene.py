@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no file of opencv_contrib_tpu_torch/, and
-not chip_smoke.py, imports JAX or the JAX package, nor PIL (the port reads
+not chip_smoke.py, imports JAX (flax and optax with it) or the JAX package, nor PIL (the port reads
 and writes PNG and JPEG with its own codecs, utils/png.py and utils/jpeg.py,
 and MJPG video through the latter).
 
@@ -15,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "opencv_contrib_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "opencv_contrib_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "opencv_contrib_tpu", "PIL")
 
 
 def _forbidden(module: str | None) -> bool:
@@ -63,7 +63,10 @@ def test_port_has_its_files():
                  "utils/datasets3.py", "utils/datasets4.py", "quality/brisque_svr.py", "xphoto/artistic.py",
                  "xphoto/bm3d.py", "xphoto/denoise.py", "xphoto/inpaint.py", "xphoto/learning_wb.py",
                  "img_hash/hashes.py", "saliency/bing.py", "line_descriptor/mih.py", "mcc/detector.py", "text/er.py",
-                 "text/ocr.py", "wechat_qrcode/qr.py"):
+                 "text/ocr.py", "wechat_qrcode/qr.py", "models/__init__.py", "models/layers.py",
+                 "models/dnn_superres.py", "models/dnn_objdetect.py", "text/crnn.py", "wechat_qrcode/learned.py",
+                 "signal/resample.py", "fuzzy/ftransform.py", "alphamat/infoflow.py", "plot/render.py",
+                 "utils/optim.py"):
         assert need in names
     for src in ("unfilter.cpp", "jpeg.cpp"):
         assert (PORT / "utils/csrc" / src).exists()
@@ -78,15 +81,17 @@ def test_port_has_its_files():
                                   "dense_flow_deepflow", "dense_flow_simpleflow", "dense_flow_sparse_to_dense",
                                   "dense_flow_rlof", "dense_flow_pcaflow", "dryrun_multichip", "make_mesh",
                                   "features_x", "video_photometric", "VideoReader", "train_brisque_model",
-                                  "recognize_x"])
+                                  "recognize_x", "train_learned", "learned_x"])
 def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
     """Asked for "cuda" (their default) on a machine without a card, the
     frontend, keyframe, dense-flow, photometric and both SfM drivers' entry
     points, the hashed-block and large-scale KinFu, the RGB-D odometry, the
     TUM disk path, DynaFu, every dense-flow method, the multichip dryrun, a
     mesh on "cuda", the xfeatures2d pair path, the video photometric path,
-    a VideoReader onto the card, the BRISQUE head's training and the
-    recognition methods (`entry.recognize_x`) raise
+    a VideoReader onto the card, the BRISQUE head's training, the
+    recognition methods (`entry.recognize_x`), the learned models' recipes
+    (`entry.train_learned`) and the learned and numeric methods
+    (`entry.learned_x`) raise
     instead of running on the CPU (a mesh drops neither to gloo nor to the
     CPU). (The TUM loader decodes on the host and has no device path.)"""
     import numpy as np
@@ -139,7 +144,9 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch, tmp_path, name):
                                                                  np.zeros((1, 32, 48, 3), np.float32)),
             "VideoReader": lambda: video.VideoReader(str(tmp_path / "v.y4m")),
             "train_brisque_model": lambda: brisque_svr.train_brisque_model(n_images=1),
-            "recognize_x": lambda: entry.recognize_x(entry.recognition_scene(120, 160), "phash")}[name]
+            "recognize_x": lambda: entry.recognize_x(entry.recognition_scene(120, 160), "phash"),
+            "train_learned": lambda: entry.train_learned("espcn", steps=1),
+            "learned_x": lambda: entry.learned_x("f0_filter", {}, entry.learned_scene(120, 160))}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
@@ -175,6 +182,7 @@ def test_the_walk_catches_each_form():
            "import importlib\nimportlib.import_module('jax.numpy')\n__import__('jaxlib')\n"
            "import opencv_contrib_tpu_torch\nfrom . import x\nimport PIL\nfrom PIL import Image\n"
            "importlib.import_module('PIL.Image')\nimport PILLOW_LIKE\n")
+    src += "import flax.linen as nn\nfrom optax import adam\n"
     mods = sorted(m for _, m in _imports(ast.parse(src)) if _forbidden(m))
-    assert mods == ["PIL", "PIL", "PIL.Image", "jax", "jax", "jax.numpy", "jaxlib", "opencv_contrib_tpu.features",
-                    "opencv_contrib_tpu.ops"]
+    assert mods == ["PIL", "PIL", "PIL.Image", "flax.linen", "jax", "jax", "jax.numpy", "jaxlib",
+                    "opencv_contrib_tpu.features", "opencv_contrib_tpu.ops", "optax"]
